@@ -1,0 +1,136 @@
+"""Command-line entry point of the port, flag-compatible with the JAX
+package's CLI on the flags the port supports (-r -m -e -a --sink
+--frames --seconds --size --offline --fps -T), plus ``--device``.
+
+    python -m glava_tpu_torch --audio synth --frames 300 --sink null
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import signal
+import sys
+from pathlib import Path
+
+from glava_tpu_torch import __version__
+from glava_tpu_torch.runtime import audio as audio_mod
+from glava_tpu_torch.runtime.engine import Engine, EngineOptions
+from glava_tpu_torch.runtime.sinks import make_sink
+
+USER_CONFIG_DIRS = ("~/.config/glava_tpu", "~/.config/glava")
+
+
+def default_user_dir() -> str | None:
+    for d in USER_CONFIG_DIRS:
+        p = Path(os.path.expanduser(d))
+        if p.is_dir():
+            return str(p)
+    return None
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="glava-tpu-torch",
+        description="Audio spectrum visualizer (GLava-compatible "
+        "configuration) on PyTorch and CUDA.",
+    )
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.add_argument("-r", "--request", action="append", default=[],
+                   metavar="REQUEST", help="evaluate a #request after rc.glsl")
+    p.add_argument("-m", "--force-mod", metavar="NAME",
+                   help="force a module, overriding `#request mod`")
+    p.add_argument("-e", "--entry", default="rc.glsl", metavar="FILE")
+    p.add_argument("-a", "--audio", default="synth", metavar="BACKEND",
+                   help=f"audio backend ({', '.join(audio_mod.available())})")
+    p.add_argument("-p", "--pipe", action="append", default=[],
+                   metavar="BIND[:TYPE]",
+                   help="not yet ported (ROADMAP slice 5)")
+    p.add_argument("-V", "--version", action="version",
+                   version=f"glava-tpu-torch {__version__}")
+    p.add_argument("-T", "--run-tests", action="store_true",
+                   help="golden-frame test mode (render one frame, assert "
+                        "`settesteval` color)")
+    p.add_argument("--config-dir", default=None,
+                   help="user configuration root (default: ~/.config/glava_tpu)")
+    p.add_argument("--sink", default="latest", metavar="SPEC",
+                   help="frame sink: null | latest | raw[:path] | y4m[:path] "
+                        "| png:path")
+    p.add_argument("--frames", type=int, default=None,
+                   help="stop after N frames")
+    p.add_argument("--seconds", type=float, default=None,
+                   help="stop after N seconds")
+    p.add_argument("--size", default=None, metavar="WxH",
+                   help="output size override")
+    p.add_argument("--offline", action="store_true",
+                   help="render a recorded track faster than realtime "
+                        "(requires -a wav with setsource)")
+    p.add_argument("--fps", type=float, default=60.0,
+                   help="output frame rate for --offline (default 60)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (default) or cpu")
+    return p
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.pipe:
+        raise NotImplementedError("--pipe is not yet ported (ROADMAP slice 5)")
+
+    screen = None
+    if args.size:
+        w, _, h = args.size.partition("x")
+        screen = (int(w), int(h))
+
+    opts = EngineOptions(
+        entry=args.entry,
+        user_dir=args.config_dir or default_user_dir(),
+        requests=tuple(args.request),
+        force_module=args.force_mod,
+        wm_name=os.environ.get("XDG_CURRENT_DESKTOP"),
+        audio_backend=args.audio,
+        screen=screen,
+        test_mode=args.run_tests,
+        verbose=args.verbose,
+        device=args.device,
+    )
+    sink = make_sink(args.sink, fps=args.fps)
+
+    if args.offline:
+        if args.audio != "wav":
+            print("--offline requires `-a wav` with setsource", file=sys.stderr)
+            return 2
+        from glava_tpu_torch.config import loader
+        from glava_tpu_torch.runtime.offline import render_wav
+
+        lc = loader.load(
+            entry=opts.entry, user_dir=opts.user_dir,
+            cli_requests=opts.requests, force_module=opts.force_module,
+        )
+        if not lc.cfg.audio_source or lc.cfg.audio_source == "auto":
+            print("--offline needs `setsource \"/path.wav\"`", file=sys.stderr)
+            return 2
+        n = render_wav(lc, lc.cfg.audio_source, sink, fps=args.fps,
+                       screen=screen, verbose=True, device=args.device)
+        sink.close()
+        return 0 if n > 0 else 1
+
+    engine = Engine(opts, sink=sink)
+
+    # SIGTERM/SIGINT -> terminate; SIGUSR1 -> reload (glava-cli/cli.c:7-15)
+    signal.signal(signal.SIGTERM, lambda *_: engine.terminate())
+    signal.signal(signal.SIGINT, lambda *_: engine.terminate())
+    if hasattr(signal, "SIGUSR1"):
+        signal.signal(signal.SIGUSR1, lambda *_: engine.reload())
+
+    if args.run_tests:
+        ok = engine.run_tests()
+        print("test evaluation: " + ("PASSED" if ok else "FAILED"))
+        return 0 if ok else 1
+
+    engine.run(max_frames=args.frames, max_seconds=args.seconds)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,84 @@
+"""Build the package's CUDA sources at first use and load them.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library
+with a plain C interface, loaded through ``ctypes`` (no PyTorch headers,
+so a build takes seconds). Libraries land in ``build/glava_tpu_torch/``
+at the root of the checkout, named by a hash of the source and the
+flags, so an edited source rebuilds and an unchanged one loads the
+library already there.
+
+Nothing here runs at import time: the CPU tests import every module of
+the package on machines with no CUDA toolkit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "glava_tpu_torch"
+# no --use_fast_math: logf accuracy is part of the 2e-5 spectrum contract
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+@dataclass
+class Built:
+    lib: ctypes.CDLL
+    path: Path
+    seconds: float   # nvcc wall time in this process; 0.0 if reused
+    log: str         # nvcc/ptxas output (registers, shared memory)
+
+
+_LOADED: dict[str, Built] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").is_file():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def load(name: str) -> Built:
+    """Build (if needed) and load ``csrc/<name>.cu``."""
+    if name in _LOADED:
+        return _LOADED[name]
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    out = BUILD_DIR / f"{name}_{digest}.so"
+    seconds, log = 0.0, ""
+    if not out.is_file():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+            capture_output=True, text=True,
+        )
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+        os.replace(tmp, out)
+    built = Built(ctypes.CDLL(str(out)), out, seconds, log)
+    _LOADED[name] = built
+    return built

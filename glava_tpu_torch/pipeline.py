@@ -1,0 +1,233 @@
+"""AudioPipeline: PCM windows -> per-uniform spectrum textures.
+
+The device-side "update" half of the reference's frame loop (the
+``handle_audio`` closure, glava/render.c:2113-2309): every fft uniform
+a module binds runs the standard chain ``window, fft, gravity, avg``,
+and the texture the rasterizer samples is the age-weighted average
+after the default smooth pass (render.c:2276-2303), a baked resample.
+
+The whole update of all fft uniforms is ONE call of
+``ops.fused.fused_update`` over the flat row batch ``(B, ...)`` with
+row order ``s * U + u`` (streams x uniforms): on CUDA tensors that is
+the hand-written kernel, on CPU tensors its plain torch version. The
+state layout is the JAX package's ``FusedChainState``
+(glava_tpu/pipeline.py:72-91).
+
+Configurations the kernel does not take raise ``NotImplementedError``
+at construction: ``setaccelfft false`` (ROADMAP queue 3, the CPU-path
+chain), chains other than the standard one (ROADMAP slice 3, the
+interpreter's modules) and bufsizes outside 256..16384.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from glava_tpu_torch.config.state import RenderConfig
+from glava_tpu_torch.device import resolve
+from glava_tpu_torch.ops import fused, smoothing, transforms, windows
+
+
+@dataclass(frozen=True)
+class UniformSpec:
+    """One audio uniform binding and its transform chain (mirrors
+    ``#request uniform`` + ``#request transform`` declarations)."""
+
+    name: str                      # uniform name in the module ("audio_l")
+    source: str                    # "audio_l" | "audio_r"
+    transforms: tuple[str, ...]    # declared chain, reference names
+
+
+class FusedChainState(NamedTuple):
+    """Carry of the fused update, flat over rows ``s * U + u``.
+
+    ``gravity`` and ``history`` are updated IN PLACE by every
+    :meth:`AudioPipeline.advance`; ``avg`` caches the averaged spectrum
+    that carried frames reuse, like the reference reuses the last
+    average texture (render.c:2268-2272)."""
+
+    gravity: torch.Tensor   # (B, 2, m)
+    history: torch.Tensor   # (B, F, 2, m) rolling ring
+    avg: torch.Tensor       # (B, 2, m) last averaged spectrum
+    count: torch.Tensor     # (B,) int32 per-row update counter, mod F
+    #                         (the next ring slot to write)
+
+
+STANDARD_CHAIN = ("window", "fft", "gravity", "avg")
+
+
+class AudioPipeline:
+    """The fused spectrum update for a set of uniform chains."""
+
+    def __init__(self, cfg: RenderConfig, uniforms: list[UniformSpec],
+                 device="cuda"):
+        self.cfg = cfg
+        self.uniforms = list(uniforms)
+        self.device = resolve(device)
+        self.sz = cfg.scaled_bufsize
+        if not cfg.accel_fft:
+            raise NotImplementedError(
+                "setaccelfft false (the CPU-path chain) is not yet ported "
+                "(ROADMAP queue 3)")
+        for u in self.uniforms:
+            if tuple(u.transforms) != STANDARD_CHAIN:
+                raise NotImplementedError(
+                    f"uniform '{u.name}' has transform chain "
+                    f"{tuple(u.transforms)}; only {STANDARD_CHAIN} is ported "
+                    "(other chains come with ROADMAP slice 3)")
+        if not self.uniforms:
+            raise NotImplementedError("a module without fft uniforms is not "
+                                      "yet ported (ROADMAP slice 2)")
+        if (self.sz < fused.MIN_N or self.sz > fused.MAX_N
+                or self.sz & (self.sz - 1)):
+            raise NotImplementedError(
+                f"bufsize {self.sz}: the fused update takes powers of two "
+                f"in [{fused.MIN_N}, {fused.MAX_N}]")
+        dev = self.device
+        self.avg_weights = windows.avg_weights(
+            cfg.avg_frames, cfg.avg_window, cfg.accel_fft)
+        self.age_weights = torch.as_tensor(
+            fused.age_weights(self.avg_weights), device=dev)
+        self.window = torch.as_tensor(windows.pcm_window(self.sz), device=dev)
+        self.presmooth = (
+            smoothing.presmooth_op(
+                self.sz, smoothing.SmoothParams(factor=cfg.smooth_factor)
+            ).on(dev)
+            if cfg.smooth_pass else None
+        )
+
+    # -- state ----------------------------------------------------------
+
+    def init_state(self, batch: tuple[int, ...] = ()) -> FusedChainState:
+        B = len(self.uniforms) * int(np.prod(batch, dtype=np.int64))
+        m = self.sz // 2
+        F = self.cfg.avg_frames
+        z = lambda *s: torch.zeros(s, dtype=torch.float32,  # noqa: E731
+                                   device=self.device)
+        return FusedChainState(
+            gravity=z(B, 2, m), history=z(B, F, 2, m), avg=z(B, 2, m),
+            count=torch.zeros(B, dtype=torch.int32, device=self.device),
+        )
+
+    def _row_params(self, B: int, fft_scale, fft_cutoff, gravity_g):
+        """Scalar or per-stream (S,) parameters -> (3, B) float32 rows
+        (per-stream values tile over the U uniforms of each stream)."""
+        cfg = self.cfg
+        vals = (
+            cfg.fft_scale if fft_scale is None else fft_scale,
+            cfg.fft_cutoff if fft_cutoff is None else fft_cutoff,
+            cfg.gravity_step / cfg.nominal_ups if gravity_g is None else gravity_g,
+        )
+        if all(np.ndim(v) == 0 and not isinstance(v, torch.Tensor)
+               for v in vals):
+            # host scalars: one host-to-device copy for all three rows
+            host = np.repeat(np.asarray(vals, np.float32)[:, None], B, axis=1)
+            return torch.as_tensor(host, device=self.device)
+        U = len(self.uniforms)
+        rows = []
+        for v in vals:
+            t = torch.as_tensor(v, dtype=torch.float32, device=self.device)
+            if t.ndim:
+                t = t.repeat_interleave(U)
+            rows.append(t.expand(B) if t.ndim == 0 else t)
+        return torch.stack(rows).contiguous()
+
+    # -- state transition --------------------------------------------------
+
+    def advance(self, state: FusedChainState, audio_l: torch.Tensor,
+                audio_r: torch.Tensor, *, fft_scale=None, fft_cutoff=None,
+                gravity_g=None) -> FusedChainState:
+        """Apply one audio update to every row. ``audio_l``/``audio_r``
+        are (*batch, bufsize). The gravity and history buffers of
+        ``state`` are updated in place and carried into the result."""
+        cfg = self.cfg
+        sources = {
+            "audio_l": transforms.decimate(audio_l, cfg.bufscale),
+            "audio_r": transforms.decimate(audio_r, cfg.bufscale),
+        }
+        pcm = torch.stack([sources[u.source] for u in self.uniforms], dim=-2)
+        pcm = pcm.reshape(-1, self.sz).to(torch.float32).contiguous()
+        B = pcm.shape[0]
+        scale, cutoff, g = self._row_params(B, fft_scale, fft_cutoff, gravity_g)
+        grav, hist, avg = fused.fused_update(
+            pcm, state.gravity, state.history, state.count,
+            scale, cutoff, g, self.window, self.age_weights,
+        )
+        # store mod F: only slot/age math ever consumes count
+        count = torch.remainder(state.count + 1, cfg.avg_frames).to(torch.int32)
+        return FusedChainState(grav, hist, avg, count)
+
+    # -- textures ---------------------------------------------------------
+
+    def textures_from(self, state: FusedChainState,
+                      batch: tuple[int, ...] = ()) -> dict[str, torch.Tensor]:
+        """Every uniform's (*batch, P) texture from the (possibly
+        carried) averaged spectrum. Audio textures are GL_R16 unsigned
+        normalized (render.c:512-523): values clamp to [0, 1]."""
+        U = len(self.uniforms)
+        m = self.sz // 2
+        avg = state.avg.reshape(*batch, U, 2, m)
+        textures = {}
+        for i, u in enumerate(self.uniforms):
+            re, im = avg[..., i, 0, :], avg[..., i, 1, :]
+            if self.presmooth is not None:
+                # resample straight off the complex planes
+                tex = self.presmooth.apply_planes(re, im)
+            else:
+                tex = torch.stack([re, im], dim=-1).reshape(*re.shape[:-1], self.sz)
+            textures[u.name] = torch.clamp(tex, 0.0, 1.0)
+        return textures
+
+    # -- per-stream update gating --------------------------------------------
+
+    def select_updated(self, new_state: FusedChainState,
+                       old_state: FusedChainState,
+                       modified: torch.Tensor) -> FusedChainState:
+        """Keep ``new_state`` rows where ``modified`` (S,) is true and
+        ``old_state`` rows elsewhere: the vectorized form of the
+        reference's only-transform-on-new-audio rule (render.c:2122).
+        :meth:`advance` writes gravity and history in place, so
+        ``old_state`` must hold copies taken before the advance."""
+        mask = modified.to(self.device).repeat_interleave(len(self.uniforms))
+
+        def sel(n, o):
+            return torch.where(mask.reshape((-1,) + (1,) * (n.ndim - 1)), n, o)
+
+        return FusedChainState(*(sel(n, o) for n, o in zip(new_state, old_state)))
+
+    # -- combined update (advance + textures) -------------------------------
+
+    def update(self, state: FusedChainState, audio_l: torch.Tensor,
+               audio_r: torch.Tensor, *, fft_scale=None, fft_cutoff=None,
+               gravity_g=None):
+        new_state = self.advance(state, audio_l, audio_r, fft_scale=fft_scale,
+                                 fft_cutoff=fft_cutoff, gravity_g=gravity_g)
+        return new_state, self.textures_from(new_state, tuple(audio_l.shape[:-1]))
+
+
+def clone_state(state: FusedChainState) -> FusedChainState:
+    """A copy of ``state`` that a later in-place advance leaves intact
+    (the ``old_state`` of :meth:`AudioPipeline.select_updated`)."""
+    return FusedChainState(*(t.clone() for t in state))
+
+
+def frame_windows(pcm: np.ndarray, bufsize: int, hop: int) -> np.ndarray:
+    """Host-side helper: slice a PCM track into overlapping ring snapshots.
+
+    Emulates the capture ring (fifo.c:91-110): window ``k`` holds the
+    ``bufsize`` samples ending at ``(k + 1) * hop``, zero-padded on the
+    left before enough history accumulates. Returns (n_windows, bufsize).
+    """
+    n = len(pcm)
+    count = max(n // hop, 0)
+    out = np.zeros((count, bufsize), dtype=np.float32)
+    for k in range(count):
+        end = (k + 1) * hop
+        start = max(end - bufsize, 0)
+        seg = pcm[start:end]
+        out[k, bufsize - len(seg):] = seg
+    return out

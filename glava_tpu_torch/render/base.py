@@ -1,0 +1,245 @@
+"""Module protocol and shared rasterization helpers.
+
+Frame convention: **planar** — a 4-tuple of channel planes
+``(r, g, b, a)``, each broadcastable to (H, W) float32, with **row 0
+at the bottom** (GL fragment coordinates, matching the reference's
+offscreen renders read with glReadPixels). The interleaved (H, W, 4)
+RGBA array is materialized once per frame, by :func:`interleave` or
+:func:`interleave_u8`; frame sinks flip to image convention when
+exporting. Constant channels stay numpy across pass boundaries.
+
+A module build produces a list of pass functions; pass ``k+1`` receives
+pass ``k``'s output as ``prev`` (the reference's indirect FBO chain,
+render.c:1556-1563, 2314-2330). A pass returns channel planes (a
+3/4-tuple; alpha defaults to 1) or an interleaved (H, W, 4) tensor —
+:func:`as_planes` normalizes.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from glava_tpu_torch.config import glsl_expr
+from glava_tpu_torch.config.state import RenderConfig
+from glava_tpu_torch.ops import smoothing
+
+
+# a frame: (r, g, b, a) channel planes, each a tensor, numpy array or
+# scalar broadcastable to (H, W)
+Planes = tuple
+
+
+class PassInputs(NamedTuple):
+    prev: Planes | None                 # previous pass output channel planes
+    textures: dict[str, torch.Tensor]   # uniform name -> (sz,) texture
+    time: float                         # seconds (wraps at `timecycle`)
+
+
+PassFn = Callable[[PassInputs], Any]
+
+
+def _np_like(v) -> bool:
+    return isinstance(v, (np.ndarray, np.generic, int, float, bool))
+
+
+def as_planes(out) -> Planes:
+    """Normalize a pass return value to 4 float32 channel planes
+    (numpy channels stay numpy; tensors are cast to float32)."""
+    if isinstance(out, (tuple, list)):
+        comps = list(out)
+        if len(comps) == 3:
+            comps.append(1.0)
+        if len(comps) != 4:
+            raise TypeError(f"pass returned {len(comps)} channels")
+    elif hasattr(out, "ndim") and out.ndim == 3 and out.shape[-1] == 4:
+        comps = [out[..., c] for c in range(4)]
+    else:
+        raise TypeError(f"pass returned {type(out).__name__}, expected "
+                        "channel planes or an (H, W, 4) array")
+
+    def cast(p):
+        if _np_like(p):
+            return np.asarray(p, np.float32)
+        return p if p.dtype == torch.float32 else p.to(torch.float32)
+
+    return tuple(cast(p) for p in comps)
+
+
+def clip_planes(planes: Planes, lo: float = 0.0, hi: float = 1.0) -> Planes:
+    """Per-channel [lo, hi] clamp, numpy-preserving."""
+    return tuple(
+        np.clip(p, np.float32(lo), np.float32(hi)) if _np_like(p)
+        else torch.clamp(p, lo, hi)
+        for p in planes
+    )
+
+
+def _full_plane(p, h: int, w: int, device) -> torch.Tensor:
+    return torch.as_tensor(p, dtype=torch.float32, device=device).expand(h, w)
+
+
+def interleave(planes: Planes, h: int, w: int, device) -> torch.Tensor:
+    """Channel planes -> the final (H, W, 4) float32 RGBA tensor."""
+    return torch.stack([_full_plane(p, h, w, device) for p in planes], dim=-1)
+
+
+def interleave_u8(planes: Planes, h: int, w: int, device) -> torch.Tensor:
+    """Channel planes -> (H, W, 4) uint8 RGBA: round-half-even
+    quantize per channel plane (``torch.round``, like ``jnp.round``),
+    THEN interleave. Matches ``clip(round(f * 255))`` of the f32 frame
+    bit-exactly."""
+    comps = [
+        torch.clamp(torch.round(_full_plane(p, h, w, device) * 255.0), 0, 255)
+        .to(torch.uint8)
+        for p in planes
+    ]
+    return torch.stack(comps, dim=-1)
+
+
+@dataclass
+class ModuleContext:
+    """Everything a module's build step needs."""
+
+    cfg: RenderConfig
+    env: glsl_expr.Env             # knob environment (module + user overrides)
+    screen: tuple[int, int]        # (width, height) pixels
+    sz: int                        # spectrum texture size (scaled bufsize)
+    device: torch.device = torch.device("cpu")
+    channels: int = 2              # 1 when `setmirror true` (render.c:289)
+
+    # -- knob readers ---------------------------------------------------
+
+    def knob_f(self, name: str, default: float | None = None) -> float:
+        if name not in self.env.defines and name not in self.env.variables:
+            if default is None:
+                raise KeyError(f"module knob '{name}' is not defined")
+            return default
+        return float(self.env.lookup(name))
+
+    def knob_i(self, name: str, default: int | None = None) -> int:
+        return int(self.knob_f(name, None if default is None else float(default)))
+
+    def knob_raw(self, name: str, default: str | None = None) -> str:
+        if name in self.env.defines:
+            return self.env.defines[name].strip()
+        if default is None:
+            raise KeyError(f"module knob '{name}' is not defined")
+        return default
+
+    def color_fn(self, name: str) -> Callable[..., Any]:
+        """Knob -> callable evaluating a (possibly per-pixel) color.
+
+        The expression may reference runtime variables (``d``, ``pos``)
+        which the caller binds as tensors; the result is a component
+        tuple for :func:`color_planes`.
+        """
+        expr = self.env.defines.get(name)
+        if expr is None:
+            raise KeyError(f"module knob '{name}' is not defined")
+
+        def evaluate(**vars):
+            env = glsl_expr.Env(
+                defines=self.env.defines,
+                variables={**self.env.variables, **vars},
+                pipe_values=self.env.pipe_values,
+            )
+            return glsl_expr.evaluate(expr, env)
+
+        return evaluate
+
+    # -- spectrum sampling -----------------------------------------------
+
+    @property
+    def smooth_params(self) -> smoothing.SmoothParams:
+        return smoothing.SmoothParams(
+            factor=self.cfg.smooth_factor,
+            sample_mode=self.knob_raw("SAMPLE_MODE", "average"),
+            hybrid_weight=self.knob_f("SAMPLE_HYBRID_WEIGHT", 0.65),
+            sample_scale=self.knob_f("SAMPLE_SCALE", 8.0),
+            sample_range=self.knob_f("SAMPLE_RANGE", 0.9),
+            round_formula=self.knob_raw("ROUND_FORMULA", "sinusoidal"),
+        )
+
+    def sampler(self, positions: np.ndarray) -> Callable[[torch.Tensor], torch.Tensor]:
+        """smooth_audio at static positions in [0, 1] -> fn(tex) -> values.
+
+        With the default smooth pass enabled, textures arrive
+        pre-smoothed and sampling is the reference's texel fetch
+        ``tex[round(idx * sz)]`` (smooth.glsl:61-63), indices baked in
+        numpy; otherwise the full resample kernel is baked for these
+        positions.
+        """
+        positions = np.asarray(positions, dtype=np.float64)
+        if self.cfg.smooth_pass:
+            idx = np.clip(
+                np.round(positions * self.sz).astype(np.int64), 0, self.sz - 1
+            )
+            idx_t = torch.as_tensor(idx, device=self.device)
+            return lambda tex: tex[..., idx_t]
+        op = smoothing.build_resample(
+            self.sz, positions.ravel(), self.smooth_params).on(self.device)
+        shape = positions.shape
+        return lambda tex: op(tex).reshape(*tex.shape[:-1], *shape)
+
+
+@dataclass
+class ModuleBuild:
+    """A built module: ordered enabled passes."""
+
+    name: str
+    passes: list[PassFn] = field(default_factory=list)
+
+    def render(self, inputs: PassInputs) -> Planes:
+        out = inputs.prev
+        for fn in self.passes:
+            out = as_planes(fn(PassInputs(out, inputs.textures, inputs.time)))
+            # stage FBOs are 8-bit normalized color attachments
+            # (render.c:543-556): every pass write clamps to [0, 1]
+            out = clip_planes(out)
+        return out
+
+
+# ---------------------------------------------------------------------------
+# shared pass pieces
+# ---------------------------------------------------------------------------
+
+def mul(x, y):
+    """``x * y`` for channel planes; a numpy array times a tensor goes
+    to the tensor's device (numpy does not multiply tensors)."""
+    if isinstance(x, np.ndarray) and isinstance(y, torch.Tensor):
+        x = torch.as_tensor(x, device=y.device)
+    return x * y
+
+
+def premultiply_pass(inputs: PassInputs) -> Planes:
+    """util/premultiply.frag: rgb *= a."""
+    r, g, b, a = inputs.prev
+    return (mul(r, a), mul(g, a), mul(b, a), a)
+
+
+def frag_coords(w: int, h: int, pixel_center_integer: bool) -> tuple[np.ndarray, np.ndarray]:
+    """gl_FragCoord.x (W,) and .y (H,) — half-integer centers unless the
+    pass declares ``layout(pixel_center_integer)``."""
+    off = 0.0 if pixel_center_integer else 0.5
+    x = np.arange(w, dtype=np.float64) + off
+    y = np.arange(h, dtype=np.float64) + off
+    return x, y
+
+
+def color_planes(value, device) -> list:
+    """Evaluated color (component tuple / scalar) -> 4 broadcastable
+    float32 channel components, numpy-preserving (concrete colors stay
+    numpy; tensor components become float32 tensors on ``device``)."""
+    if not isinstance(value, tuple):
+        value = (value, value, value, value)
+    if len(value) == 3:
+        value = (*value, 1.0)
+    return [
+        np.asarray(c, np.float32) if _np_like(c)
+        else torch.as_tensor(c, dtype=torch.float32, device=device)
+        for c in value
+    ]

@@ -1,0 +1,123 @@
+"""`bars` module: split-center stereo bar spectrum.
+
+Pixel-for-pixel re-expression of shaders/glava/bars/1.frag (plus the
+premultiply pass bars/2.frag, gated on USE_ALPHA) as masked tensor
+math. Every column-only quantity (bar index, section position, sample
+position, which channel) is precomputed host-side in numpy, as in the
+JAX package — per frame the pass is one spectrum gather per channel
+plus (H, W) masks.
+
+The COLOR / BAR_OUTLINE knobs depend only on the row (``d``) and on
+``@fg``/``@bg`` pipe binds, which the port does not take yet (ROADMAP
+slice 5), so they are evaluated once at build time.
+
+Knobs (shaders/glava/bars.glsl): BAR_WIDTH, BAR_GAP, BAR_OUTLINE_WIDTH,
+AMPLIFY, GRADIENT, COLOR, BAR_OUTLINE, DIRECTION, INVERT, FLIP,
+MIRROR_YX, DISABLE_MONO, USE_ALPHA.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from glava_tpu_torch.render import base
+from glava_tpu_torch.render.modules import register
+
+
+@register("bars")
+def build(ctx: base.ModuleContext) -> base.ModuleBuild:
+    w, h = ctx.screen
+    dev = ctx.device
+    mirror_yx = ctx.knob_i("MIRROR_YX", 0) == 1
+    aw, ah = (h, w) if mirror_yx else (w, h)
+
+    bw = ctx.knob_f("BAR_WIDTH", 5)
+    gap = ctx.knob_f("BAR_GAP", 1)
+    bow = ctx.knob_f("BAR_OUTLINE_WIDTH", 1)
+    amplify = ctx.knob_f("AMPLIFY", 300)
+    direction = ctx.knob_i("DIRECTION", 0)
+    invert = ctx.knob_i("INVERT", 0) == 1
+    flip = ctx.knob_i("FLIP", 0) == 1
+    disable_mono = ctx.knob_i("DISABLE_MONO", 0) == 1
+    use_alpha = ctx.knob_i("USE_ALPHA", 0) == 1
+    channels = 2 if (disable_mono or ctx.channels == 2) else 1
+
+    # ---- column-only math (bars/1.frag:50-111), host-side -------------
+    ax, ay = base.frag_coords(aw, ah, pixel_center_integer=False)
+    if channels == 2:
+        dx = ax - (aw // 2)             # GLSL int division screen.x / 2
+    elif invert:
+        dx = aw - ax
+    else:
+        dx = ax.copy()
+
+    section = bw + gap
+    center = section / 2.0
+    m = np.abs(dx - section * np.floor(dx / section))   # GLSL mod()
+    md = m - center
+    in_bar = (md < np.ceil(bw / 2.0)) & (md >= -np.floor(bw / 2.0))
+    inner = (md < np.ceil(bw / 2.0) - bow) & (md >= -np.floor(bw / 2.0) + bow)
+
+    nbars = np.floor((aw * 0.5) / section) * 2.0
+    s = dx / section
+    p = np.where(s > 0, np.ceil(s), np.floor(s))
+    p = p / (nbars / 2.0 if channels == 2 else nbars)
+    p = p + np.sign(p) * ((0.5 + center) / aw)
+    oob = (p > 1.0) | (p < -1.0)
+
+    pos = np.abs(p)
+    if direction == 1:
+        pos = 1.0 - pos
+    if channels == 1:
+        use_right = np.zeros(aw, dtype=bool)
+    elif invert:
+        use_right = p <= 0                      # else-branch samples audio_r
+    else:
+        use_right = p > 0
+    visible = in_bar & ~oob
+
+    sample = ctx.sampler(np.clip(pos, 0.0, 1.0))
+    use_right_t = torch.as_tensor(use_right, device=dev)
+    visible_t = torch.as_tensor(visible, device=dev)
+    inner_t = torch.as_tensor(inner & visible, device=dev)[None, :]
+
+    # ---- row-only quantities -------------------------------------------
+    d = (ah - ay) if flip else ay               # distance from baseline
+    d_col = torch.as_tensor(d.astype(np.float32), device=dev)[:, None]
+
+    def planes_of(knob):
+        return [torch.as_tensor(c, dtype=torch.float32, device=dev)
+                for c in base.color_planes(ctx.color_fn(knob)(d=d_col), dev)]
+
+    color = planes_of("COLOR")
+    outline = planes_of("BAR_OUTLINE")
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+
+    def pass1(inputs: base.PassInputs) -> base.Planes:
+        vl = sample(inputs.textures["audio_l"])
+        vr = sample(inputs.textures["audio_r"])
+        v = torch.where(use_right_t, vr, vl) * amplify
+        v = torch.where(visible_t, v, -torch.inf)  # gap/oob columns never draw
+
+        body = d_col < (v - bow)[None, :]       # (AH, AW)
+        if bow > 0:
+            edge = d_col <= v[None, :]
+            # the three outline/body cases of bars/1.frag are disjoint
+            fill = body & inner_t
+            rim = (edge & ~body) | (body & ~inner_t)
+        else:
+            fill = body
+            rim = None
+        chans = []
+        for c in range(4):
+            out = zero if rim is None else torch.where(rim, outline[c], zero)
+            out = torch.where(fill, color[c], out)
+            chans.append(out.T if mirror_yx else out)
+        return tuple(chans)
+
+    passes = [pass1]
+    # bars/2.frag: premultiply, compiled only when USE_ALPHA == 1
+    if use_alpha and ctx.cfg.premultiply_alpha:
+        passes.append(base.premultiply_pass)
+    return base.ModuleBuild("bars", passes)

@@ -1,0 +1,109 @@
+"""The port stands alone: no jax, no glava_tpu, an explicit device.
+
+These tests run the port in subprocesses so the test process's own
+jax import cannot hide a stray one.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "glava_tpu_torch"
+
+
+def _modules() -> list[str]:
+    out = []
+    for p in sorted(PKG.rglob("*.py")):
+        rel = p.relative_to(ROOT).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__main__":
+            continue
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        out.append(".".join(parts))
+    return out
+
+
+def _run(code: str, *args: str, timeout: float = 120) -> subprocess.CompletedProcess:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    return subprocess.run([sys.executable, *args] if not code else
+                          [sys.executable, "-c", code],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+
+
+def test_every_module_imports_without_jax():
+    mods = _modules()
+    assert "glava_tpu_torch.ops.fused" in mods and len(mods) > 20
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import importlib\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k == 'glava_tpu' "
+        "or k.startswith('glava_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_sources_name_neither_jax_nor_glava_tpu_modules():
+    for p in PKG.rglob("*.py"):
+        for line in p.read_text().splitlines():
+            s = line.strip()
+            if s.startswith(("import ", "from ")):
+                assert "jax" not in s, f"{p}: {s}"
+                assert not s.startswith(("import glava_tpu ", "from glava_tpu ",
+                                         "from glava_tpu.", "import glava_tpu.")), \
+                    f"{p}: {s}"
+
+
+def test_cuda_device_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from glava_tpu_torch.config import loader
+    from glava_tpu_torch.renderer import Renderer
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        Renderer(loader.load(), device="cuda")
+
+
+def test_cli_runs_on_cpu():
+    proc = _run("", "-m", "glava_tpu_torch", "--device", "cpu", "--audio",
+                "synth", "--frames", "5", "--sink", "null")
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_cli_pipe_is_not_yet_ported():
+    from glava_tpu_torch import cli
+
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        cli.main(["--device", "cpu", "--pipe", "fg:vec4", "--frames", "1"])
+
+
+def test_engine_counts_updates_on_cpu():
+    from glava_tpu_torch.ops import fused
+    from glava_tpu_torch.runtime.engine import Engine, EngineOptions
+    from glava_tpu_torch.runtime.sinks import LatestFrameSink
+
+    sink = LatestFrameSink()
+    eng = Engine(EngineOptions(device="cpu", requests=(
+        "setgeometry 0 0 64 48", "setprintframes false")), sink=sink)
+    before = fused.launches
+    eng.run(max_frames=12)
+    assert eng.frames_rendered == 12
+    assert fused.launches == before          # the CPU path launches nothing
+    frame = sink.latest()
+    assert frame.shape == (48, 64, 4) and frame.dtype.name == "uint8"

@@ -1,0 +1,234 @@
+"""The port's AudioPipeline, spectrum and presmooth against the JAX package.
+
+Inputs come from a numpy seed and are fed to both packages. Tolerances:
+5e-5 on textures and 2e-5 on spectra (the JAX suite's own, from
+tests/test_fused.py), and bit-for-bit equality for the baked resample
+operators, the port's only "weights".
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from glava_tpu.config import loader as jloader
+from glava_tpu.ops import fft as jfft
+from glava_tpu.ops import smoothing as jsmoothing
+from glava_tpu.pipeline import AudioPipeline as JaxPipeline
+from glava_tpu.pipeline import UniformSpec as JaxUniform
+from glava_tpu_torch.config import loader
+from glava_tpu_torch.config.state import RenderConfig
+from glava_tpu_torch.ops import fft, smoothing
+from glava_tpu_torch.pipeline import (
+    AudioPipeline, UniformSpec, clone_state, frame_windows,
+)
+from glava_tpu.pipeline import frame_windows as jframe_windows
+
+CHAIN = ("window", "fft", "gravity", "avg")
+BARS = [("audio_l", "audio_l", CHAIN), ("audio_r", "audio_r", CHAIN)]
+
+
+def _load(bufsize=1024, samplesize=256):
+    reqs = (f"setbufsize {bufsize}", f"setsamplesize {samplesize}",
+            "setprintframes false")
+    return (loader.load(cli_requests=reqs, force_module="bars"),
+            jloader.load(cli_requests=reqs, force_module="bars"))
+
+
+@pytest.mark.parametrize("bufsize", [256, 1024, 4096])
+def test_textures_match_jax_unfused(bufsize):
+    """7 updates of fresh audio through both pipelines, bars chain;
+    textures within 5e-5 after every update."""
+    lc, jlc = _load(bufsize, bufsize // 4)
+    port = AudioPipeline(lc.cfg, [UniformSpec(*u) for u in BARS], device="cpu")
+    ref = JaxPipeline(jlc.cfg, [JaxUniform(*u) for u in BARS], use_fused=False)
+    rng = np.random.default_rng(2)
+    sp, sj = port.init_state(), ref.init_state()
+    for _ in range(7):
+        al = (rng.standard_normal(bufsize) * 0.3).astype(np.float32)
+        ar = (rng.standard_normal(bufsize) * 0.3).astype(np.float32)
+        sp, tp = port.update(sp, torch.as_tensor(al), torch.as_tensor(ar))
+        sj, tj = ref.update(sj, jnp.asarray(al), jnp.asarray(ar))
+        assert tp.keys() == tj.keys()
+        for k in tp:
+            np.testing.assert_allclose(tp[k].numpy(), np.asarray(tj[k]),
+                                       atol=5e-5)
+
+
+def test_batched_textures_and_per_stream_params():
+    """Streams ride a leading batch axis with per-stream parameters
+    (rows s * U + u), matching the JAX pipeline's batched update."""
+    lc, jlc = _load()
+    port = AudioPipeline(lc.cfg, [UniformSpec(*u) for u in BARS], device="cpu")
+    ref = JaxPipeline(jlc.cfg, [JaxUniform(*u) for u in BARS], use_fused=False)
+    S = 3
+    rng = np.random.default_rng(4)
+    sp, sj = port.init_state((S,)), ref.init_state((S,))
+    scale = np.asarray([5.0, 10.2, 15.0], np.float32)
+    g = np.asarray([0.01, 0.05, 0.2], np.float32)
+    for _ in range(4):
+        al = (rng.standard_normal((S, 1024)) * 0.3).astype(np.float32)
+        ar = (rng.standard_normal((S, 1024)) * 0.3).astype(np.float32)
+        sp, tp = port.update(sp, torch.as_tensor(al), torch.as_tensor(ar),
+                             fft_scale=torch.as_tensor(scale),
+                             gravity_g=torch.as_tensor(g))
+        sj, tj = ref.update(sj, jnp.asarray(al), jnp.asarray(ar),
+                            fft_scale=jnp.asarray(scale),
+                            gravity_g=jnp.asarray(g))
+    for k in tp:
+        assert tp[k].shape == (S, 1024)
+        np.testing.assert_allclose(tp[k].numpy(), np.asarray(tj[k]), atol=5e-5)
+
+
+def test_select_updated_keeps_carried_rows():
+    """Per-stream gating: rows of unmodified streams keep their old
+    state, like the JAX pipeline's select_updated."""
+    lc, _ = _load()
+    port = AudioPipeline(lc.cfg, [UniformSpec(*u) for u in BARS], device="cpu")
+    S = 3
+    rng = np.random.default_rng(5)
+    state = port.init_state((S,))
+    audio = torch.as_tensor((rng.standard_normal((2, S, 1024)) * 0.3)
+                            .astype(np.float32))
+    state = port.advance(state, audio[0], audio[1])
+    old = clone_state(state)
+    new = port.advance(state, audio[1], audio[0])
+    mask = torch.tensor([True, False, True])
+    sel = port.select_updated(new, old, mask)
+    rows = mask.repeat_interleave(2)
+    for got, n, o in zip(sel, new, old):
+        assert torch.equal(got[rows], n[rows])
+        assert torch.equal(got[~rows], o[~rows])
+
+
+@pytest.mark.parametrize("n", [256, 1024, 4096])
+def test_packed_spectrum_matches_jax(n):
+    """Per-row boosts up to the shipped fft_scale 10.2. (The JAX package
+    runs its DFT as float32 matmuls; at fft_scale 20, or at n = 16384,
+    its own rounding times the boost passes 2e-5. The port's FFT runs
+    in float64; see the float64 numpy reference below.)"""
+    rng = np.random.default_rng(n)
+    x = (rng.standard_normal((3, n)) * 0.3).astype(np.float32)
+    scale = np.asarray([5.0, 10.2, 1.0], np.float32)
+    cut = np.asarray([0.0, 0.3, 0.5], np.float32)
+    got = fft.packed_spectrum(torch.as_tensor(x), torch.as_tensor(scale),
+                              torch.as_tensor(cut))
+    want = jfft.packed_spectrum(jnp.asarray(x), jnp.asarray(scale),
+                                jnp.asarray(cut))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+@pytest.mark.parametrize("n", [256, 4096, 16384])
+def test_packed_spectrum_matches_float64_reference(n):
+    """Against the packed-pair DFT, log-magnitude and boost in numpy
+    float64, with boosts up to fft_scale 20, at 2e-5."""
+    rng = np.random.default_rng(n + 1)
+    x = (rng.standard_normal((3, n)) * 0.3).astype(np.float32)
+    scale = np.asarray([5.0, 10.2, 20.0], np.float32)
+    cut = np.asarray([0.0, 0.3, 0.5], np.float32)
+    spec = np.fft.fft(x[:, 0::2].astype(np.float64) + 1j * x[:, 1::2])
+    inter = np.stack([spec.real, spec.imag], axis=-1).reshape(3, n)
+    j = np.arange(n) / n
+    want = (np.log(np.abs(inter) + 1.0) / 3.0
+            * np.maximum(j * scale[:, None] + (1.0 - cut[:, None]), 1.0))
+    got = fft.packed_spectrum(torch.as_tensor(x), torch.as_tensor(scale),
+                              torch.as_tensor(cut))
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+
+
+def _assert_ops_equal(got, want):
+    assert got.mode == want.mode
+    for f in ("matrix", "idx", "w"):
+        a, b = getattr(got, f), getattr(want, f)
+        assert (a is None) == (b is None), f
+        if a is not None:
+            assert a.dtype == b.dtype and np.array_equal(a, b), f
+    for f in ("banded", "banded_re", "banded_im"):
+        a, b = getattr(got, f), getattr(want, f)
+        assert (a is None) == (b is None), f
+        if a is not None:
+            assert np.array_equal(a.starts, b.starts), f
+            assert a.blocks.dtype == b.blocks.dtype
+            assert np.array_equal(a.blocks, b.blocks), f
+            assert a.n_out == b.n_out
+
+
+@pytest.mark.parametrize("sz", [256, 1024, 4096, 8192])
+def test_presmooth_op_is_bit_identical(sz):
+    """The baked smooth-pass operator (dense at small sizes, block-banded
+    from 4096) equals the JAX package's exactly."""
+    p = smoothing.SmoothParams()
+    jp = jsmoothing.SmoothParams()
+    _assert_ops_equal(smoothing.presmooth_op(sz, p), jsmoothing.presmooth_op(sz, jp))
+
+
+@pytest.mark.parametrize("mode,banded", [
+    ("average", None), ("average", True), ("maximum", None), ("hybrid", None),
+])
+def test_resample_apply_matches_jax(mode, banded):
+    """Dense, banded and max/hybrid resamples, on interleaved textures
+    and straight off the complex planes."""
+    sz = 512
+    pos = np.linspace(0.0, 1.0, 77)
+    p = smoothing.SmoothParams(sample_mode=mode)
+    jp = jsmoothing.SmoothParams(sample_mode=mode)
+    op = smoothing.build_resample(sz, pos, p, banded=banded)
+    jop = jsmoothing.build_resample(sz, pos, jp, banded=banded)
+    _assert_ops_equal(op, jop)
+    tex = np.random.default_rng(6).uniform(0, 1, (2, sz)).astype(np.float32)
+    dev = op.on("cpu")
+    np.testing.assert_allclose(dev(torch.as_tensor(tex)).numpy(),
+                               np.asarray(jop(jnp.asarray(tex))), atol=2e-6)
+    re, im = tex[:, 0::2].copy(), tex[:, 1::2].copy()
+    np.testing.assert_allclose(
+        dev.apply_planes(torch.as_tensor(re), torch.as_tensor(im)).numpy(),
+        np.asarray(jop.apply_planes(jnp.asarray(re), jnp.asarray(im))),
+        atol=2e-6)
+
+
+@pytest.mark.parametrize("fn", ["fft_chain", "wrange", "decimate"])
+def test_chain_pieces_match_jax(fn):
+    """The windowed fft transform (2e-5, spectrum), wrange and the
+    setbufscale decimation (exact float32 arithmetic, 1e-7)."""
+    from glava_tpu.ops import transforms as jt
+    from glava_tpu_torch.ops import transforms as tt
+
+    x = (np.random.default_rng(8).standard_normal((2, 1024)) * 0.3).astype(np.float32)
+    if fn == "fft_chain":
+        got = tt.fft_chain(torch.as_tensor(x), 10.2, 0.3)
+        want = jt.fft_chain(jnp.asarray(x), 10.2, 0.3)
+        tol = 2e-5
+    elif fn == "wrange":
+        got, want, tol = tt.wrange(torch.as_tensor(x)), jt.wrange(jnp.asarray(x)), 0
+    else:
+        got = tt.decimate(torch.as_tensor(x), 3)
+        want = jt.decimate(jnp.asarray(x), 3)
+        tol = 1e-7
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=tol)
+
+
+def test_frame_windows_match_jax():
+    pcm = np.random.default_rng(7).standard_normal(5000).astype(np.float32)
+    assert np.array_equal(frame_windows(pcm, 1024, 256),
+                          jframe_windows(pcm, 1024, 256))
+
+
+@pytest.mark.parametrize("case", ["cpu_path", "chain", "small", "large"])
+def test_unported_configurations_raise(case):
+    cfg = RenderConfig(bufsize=1024)
+    uniforms = [UniformSpec(*u) for u in BARS]
+    if case == "cpu_path":
+        cfg = dataclasses.replace(cfg, accel_fft=False)
+    elif case == "chain":
+        uniforms = [UniformSpec("audio_l", "audio_l", ("wrange",))]
+    elif case == "small":
+        cfg = dataclasses.replace(cfg, bufsize=128)
+    else:
+        cfg = dataclasses.replace(cfg, bufsize=32768)
+    with pytest.raises(NotImplementedError):
+        AudioPipeline(cfg, uniforms, device="cpu")
