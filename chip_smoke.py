@@ -2,28 +2,42 @@
 
     python3 chip_smoke.py
 
-Phases, one line each (every failed check raises, so the exit code is
-non-zero and no result line is printed):
+Phases, one line each or more (every failed check raises, so the exit
+code is non-zero and no result line is printed):
 
 1. device    — needs ``torch.cuda.is_available()``; prints the card's
                name and power limit (nvidia-smi).
-2. build     — builds the fused-update CUDA kernel from ``csrc/``.
-3. kernel    — kernel vs its plain torch version on the card, at
-               n in {256, 1024, 4096, 16384}, F = 6, B in {2, 128}:
-               8 updates of fresh audio with staggered per-row slots;
-               gravity, average and the written history slot within
-               2e-5, the other history slots bit-identical.
-4. main path — the shipped rc.glsl (bars 800x600, bufsize 4096)
-               through ``Engine`` with the synth backend and a null
-               sink, 300 frames, then 120 frames at 1920x1080; the
-               kernel's launch count must equal the updates. A
-               fixed-input run renders on cuda and cpu and the final
-               frames must meet the golden rule (under 0.2% of pixels
-               more than 2 LSB apart), and bars at 192x128 must meet
-               it against tests/golden/frames.npz.
-5. times     — CUDA-event times of the fused update (kernel and plain)
-               and of whole frames at 800x600 and 1920x1080, and a
-               torch.profiler breakdown of one frame window.
+2. build     — builds both CUDA kernels from ``csrc/`` (fused_update,
+               table_lookup), the nvcc runs side by side.
+3. kernel    — each kernel vs its plain torch version on the card.
+               fused_update at n in {256, 1024, 4096, 16384}, F = 6,
+               B in {2, 128}: 8 updates of fresh audio with staggered
+               per-row slots; gravity, average and the written history
+               slot within 2e-5, the other history slots bit-identical.
+               table_lookup BIT-IDENTICAL (torch.equal) on: radial's
+               162-entry table at its 1920x1080 id plane, an 8192-entry
+               table at circle's three 1920x1080 site planes, a
+               32768-entry table (the dynamic shared memory path), a
+               random 2M-point plane, a 97-point plane and a (3, T)
+               table; an out-of-range static plane must raise.
+4. main path — ``Engine`` with the synth backend and a null sink, the
+               kernel counts set to 0 just before each run and read
+               just after: bars (the shipped rc.glsl) at 800x600 and
+               1920x1080, radial and circle at 800x600 and 1920x1080
+               (bufsize 4096), wave and graph at 800x600. fused_update
+               launches must equal the audio updates of fft modules,
+               table_lookup launches the frames of radial and circle (one
+               a frame). ``Engine.run_tests()`` (test_rc.glsl) must pass
+               on cuda. Every module's frame after 24 updates of fixed
+               stereo tones renders on cuda and cpu at 800x600 and must
+               meet the golden rule (under 0.2% of pixels more than 2 LSB
+               apart), and at tests/golden/frames.npz's size against the
+               archive.
+5. times     — device times (torch.profiler) of the fused update and
+               of the lookup on circle's 1080p planes, kernel and plain;
+               CUDA-event frame times of bars, radial and circle at
+               800x600 and 1920x1080; a profiler breakdown of bars at
+               800x600 and circle at 1920x1080.
 
 The second-to-last line is the kernels JSON, the last the device JSON.
 """
@@ -41,6 +55,8 @@ import torch
 
 TOL = 2e-5           # spectra (the JAX suite's fused-vs-unfused tolerance)
 ROOT = Path(__file__).resolve().parent
+KERNELS = ("fused_update", "table_lookup")
+MODULES = ("bars", "radial", "circle", "wave", "graph", "test")
 
 
 def golden_rule(got: np.ndarray, want: np.ndarray) -> float:
@@ -86,12 +102,14 @@ def phase_build():
     from glava_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    built = _build.load("fused_update")
+    built = _build.load_all(KERNELS)
     total = time.perf_counter() - t0
-    ptxas = " | ".join(ln.strip() for ln in built.log.splitlines()
-                       if "registers" in ln or "smem" in ln)
-    print(f"[2 build] fused_update: nvcc {built.seconds:.2f} s, load "
-          f"{total:.2f} s, {built.path.name}; {ptxas or 'no ptxas log'}")
+    for name, b in built.items():
+        ptxas = " | ".join(ln.strip() for ln in b.log.splitlines()
+                           if "registers" in ln or "smem" in ln)
+        print(f"[2 build] {name}: nvcc {b.seconds:.2f} s, {b.path.name}; "
+              f"{ptxas or 'no ptxas log'}")
+    print(f"[2 build] both kernels built and loaded in {total:.2f} s")
 
 
 def _case(n: int, B: int, F: int, rng) -> float:
@@ -145,18 +163,76 @@ def phase_kernel() -> float:
             err = _case(n, B, 6, rng)
             cases.append(f"n{n}/B{B} {err:.2e}")
             worst = max(worst, err)
-    print(f"[3 kernel] vs plain, max abs err per case: {', '.join(cases)} "
-          f"(tolerance {TOL})")
+    print(f"[3 kernel] fused_update vs plain, max abs err per case: "
+          f"{', '.join(cases)} (tolerance {TOL})")
     return worst
 
 
-def _fixed_frame(device: str, screen=None, reqs=()) -> np.ndarray:
+def _module_lookup(module: str, screen, reqs=()):
+    """The StaticLookup a module builds (its real index plane)."""
+    from glava_tpu_torch.config import loader
+    from glava_tpu_torch.renderer import Renderer
+
+    r = Renderer(loader.load(cli_requests=reqs, force_module=module),
+                 screen=screen, device="cuda")
+    (lk,) = r.module.lookups
+    return lk
+
+
+def phase_lookup() -> float:
+    """table_lookup vs table_lookup_plain, bit for bit."""
+    from glava_tpu_torch.ops import lookup
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    radial = _module_lookup("radial", (1920, 1080))
+    circle = _module_lookup("circle", (1920, 1080))
+    if radial.table_size != 162 or circle.table_size != 8192:
+        raise AssertionError(f"tables {radial.table_size}, {circle.table_size}")
+    cases = {
+        "radial T162 1920x1080": (radial.table_size, radial.idx),
+        "circle T8192 3x1920x1080": (circle.table_size, circle.idx),
+        "T32768 dyn smem 2x40000": (32768, t(rng.integers(
+            0, 32768, (2, 40000)).astype(np.int32))),
+        "T8192 random 2M": (8192, t(rng.integers(
+            0, 8192, 2_000_000).astype(np.int32))),
+        "T256 97 points": (256, t(rng.integers(0, 256, 97).astype(np.int32))),
+    }
+    worst = 0.0
+    names = []
+    for name, (T, idx) in cases.items():
+        for S in (None, 3):
+            tab = t(rng.standard_normal((T,) if S is None else (S, T))
+                    .astype(np.float32))
+            got = lookup.table_lookup(tab, idx)
+            want = lookup.table_lookup_plain(tab, idx)
+            torch.cuda.synchronize()
+            if got.shape != want.shape or not torch.equal(got, want):
+                raise AssertionError(f"table_lookup {name} S={S}: kernel != plain")
+            worst = max(worst, (got - want).abs().max().item())
+        names.append(name)
+    try:
+        bad = np.zeros((8, 8), np.int64)
+        bad[3, 5] = 162
+        lookup.StaticLookup(bad, 162, dev)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("an out-of-range static plane did not raise")
+    print(f"[3 kernel] table_lookup vs plain, torch.equal on (T,) and (3, T) "
+          f"tables: {'; '.join(names)}; max abs err {worst}; an out-of-range "
+          "static plane raises at build")
+    return worst
+
+
+def _fixed_frame(device: str, screen=None, reqs=(), module="bars") -> np.ndarray:
     """The final uint8 frame of 24 updates of fixed stereo tones
     (tests/test_golden.py's input) through the shipped rc.glsl."""
     from glava_tpu_torch.config import loader
     from glava_tpu_torch.renderer import Renderer
 
-    lc = loader.load(cli_requests=reqs, force_module="bars")
+    lc = loader.load(cli_requests=reqs, force_module=module)
     r = Renderer(lc, screen=screen, device=device)
     cfg = lc.cfg
     tt = np.arange(cfg.sample_rate) / cfg.sample_rate
@@ -175,44 +251,84 @@ def _fixed_frame(device: str, screen=None, reqs=()) -> np.ndarray:
     return frame.cpu().numpy()
 
 
-def _engine_run(frames: int, screen=None):
-    from glava_tpu_torch.ops import fused
+def _engine_run(frames: int, screen=None, module=None):
+    """One main-path run: the counts are set to 0 just before the run
+    and read just after it."""
+    from glava_tpu_torch.ops import fused, lookup
     from glava_tpu_torch.runtime.engine import Engine, EngineOptions
     from glava_tpu_torch.runtime.sinks import NullSink
 
     eng = Engine(EngineOptions(audio_backend="synth", screen=screen,
-                               device="cuda"), sink=NullSink())
+                               force_module=module, device="cuda"),
+                 sink=NullSink())
     fused.launches = 0
+    lookup.launches = 0
     t0 = time.perf_counter()
     eng.run(max_frames=frames)
+    torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = fused.launches
+    counts = {"fused_update": fused.launches, "table_lookup": lookup.launches}
+    name = eng.loaded.module
     w, h = eng.renderer.screen
     if eng.frames_rendered != frames:
-        raise AssertionError(f"engine rendered {eng.frames_rendered} of {frames}")
-    if launches != eng.updates or launches == 0:
-        raise AssertionError(f"kernel launches {launches} != updates {eng.updates}")
-    return launches, eng.updates, frames / dt, w, h
+        raise AssertionError(f"{name}: engine rendered {eng.frames_rendered} "
+                             f"of {frames}")
+    fft = name != "wave"
+    want = {"fused_update": eng.updates if fft else 0,
+            "table_lookup": frames if name in ("radial", "circle") else 0}
+    if counts != want or (fft and eng.updates == 0):
+        raise AssertionError(f"{name} {w}x{h}: launches {counts}, expected "
+                             f"{want} ({eng.updates} updates)")
+    print(f"[4 main path] {name} {w}x{h}: {frames} frames, {eng.updates} "
+          f"updates, launches {counts}, {frames / dt:.1f} fps host clock")
+    return counts
 
 
-def phase_main_path() -> int:
-    launches, updates, fps, w, h = _engine_run(300)
-    l2, u2, fps2, w2, h2 = _engine_run(120, screen=(1920, 1080))
-    gpu = _fixed_frame("cuda")
-    cpu = _fixed_frame("cpu")
-    frac = golden_rule(gpu, cpu)
-    if frac >= 0.002 or not (gpu[..., 3] > 0).any():
-        raise AssertionError(f"cuda vs cpu frame: {frac:.4%} of pixels off")
-    small = _fixed_frame("cuda", reqs=("setgeometry 0 0 192 128",))
-    golden = np.load(ROOT / "tests" / "golden" / "frames.npz")["bars"]
-    gfrac = golden_rule(small, golden)
-    if gfrac >= 0.002:
-        raise AssertionError(f"bars 192x128 vs golden: {gfrac:.4%} off")
-    print(f"[4 main path] engine {w}x{h}: 300 frames, {updates} updates, "
-          f"{launches} launches, {fps:.1f} fps host clock; {w2}x{h2}: 120 "
-          f"frames, {u2} updates, {l2} launches, {fps2:.1f} fps; cuda vs cpu "
-          f"800x600 {frac:.4%} px > 2 LSB; 192x128 vs golden {gfrac:.4%}")
-    return launches
+RUNS = (
+    ("bars", None, 200), ("bars", (1920, 1080), 120),
+    ("radial", None, 200), ("radial", (1920, 1080), 120),
+    ("circle", None, 200), ("circle", (1920, 1080), 120),
+    ("wave", None, 200), ("graph", None, 200),
+)
+
+
+def phase_main_path() -> dict:
+    from glava_tpu_torch.runtime.engine import Engine, EngineOptions
+    from glava_tpu_torch.runtime.sinks import NullSink
+
+    totals = dict.fromkeys(KERNELS, 0)
+    for module, screen, frames in RUNS:
+        counts = _engine_run(frames, screen, module)
+        for k in KERNELS:
+            totals[k] += counts[k]
+    if not all(totals.values()):
+        raise AssertionError(f"a kernel of the path never launched: {totals}")
+    eng = Engine(EngineOptions(audio_backend="synth", test_mode=True,
+                               device="cuda"), sink=NullSink())
+    if not eng.run_tests():
+        raise AssertionError("--run-tests (test_rc.glsl) failed on cuda")
+    print("[4 main path] Engine.run_tests() on test_rc.glsl: PASSED on cuda")
+
+    golden = np.load(ROOT / "tests" / "golden" / "frames.npz")
+    sizes = {"bars": (192, 128), "radial": (300, 300), "graph": (192, 128),
+             "wave": (192, 128), "circle": (300, 300)}   # test_golden.CASES
+    for module in MODULES:
+        gpu = _fixed_frame("cuda", module=module)
+        cpu = _fixed_frame("cpu", module=module)
+        frac = golden_rule(gpu, cpu)
+        if frac >= 0.002 or not (gpu[..., 3] > 0).any():
+            raise AssertionError(f"{module} cuda vs cpu 800x600: {frac:.4%} off")
+        line = f"{module}: cuda vs cpu 800x600 {frac:.4%} px > 2 LSB"
+        if module in sizes:
+            w, h = sizes[module]
+            small = _fixed_frame("cuda", module=module,
+                                 reqs=(f"setgeometry 0 0 {w} {h}",))
+            gfrac = golden_rule(small, golden[module])
+            if gfrac >= 0.002:
+                raise AssertionError(f"{module} {w}x{h} vs golden: {gfrac:.4%} off")
+            line += f", {w}x{h} vs golden {gfrac:.4%}"
+        print(f"[4 main path] {line}")
+    return totals
 
 
 def _update_times(n: int, B: int):
@@ -256,11 +372,24 @@ def device_ms(fn, iters: int = 100) -> float:
     return busy / 1e3 / iters
 
 
-def _frame_ms(screen):
+def _lookup_times():
+    """Device time per call of the lookup on circle's 1080p planes."""
+    from glava_tpu_torch.ops import lookup
+
+    lk = _module_lookup("circle", (1920, 1080))
+    tab = torch.as_tensor(np.random.default_rng(4).random(lk.table_size,
+                                                          dtype=np.float32),
+                          device="cuda")
+    return (device_ms(lambda: lookup.table_lookup(tab, lk.idx)),
+            device_ms(lambda: lookup.table_lookup_plain(tab, lk.idx)),
+            lk.idx.numel())
+
+
+def _frame_ms(screen, module="bars"):
     from glava_tpu_torch.config import loader
     from glava_tpu_torch.renderer import Renderer
 
-    r = Renderer(loader.load(), screen=screen, device="cuda")
+    r = Renderer(loader.load(force_module=module), screen=screen, device="cuda")
     rng = np.random.default_rng(2)
     audio = torch.as_tensor(rng.standard_normal((64, 2, 4096)) * 0.3,
                             dtype=torch.float32, device="cuda")
@@ -275,6 +404,33 @@ def _frame_ms(screen):
     return cuda_ms(frame, 200), r, frame
 
 
+def _profile(frame, label: str, card: str):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(50):
+            frame()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # device rows only: an op's row (device type CPU) also carries the
+    # device time of the kernels it launched, so summing every row
+    # counts most device time twice
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in rows)
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
+    if busy > 0:
+        share = ", ".join(f"{e.key[:48]} {e.self_device_time_total / busy:.0%}"
+                          for e in top)
+        print(f"[5 times] profile 50 frames {label}: device busy "
+              f"{busy / wall_us:.1%} of {wall_us / 50:.0f} us/frame wall, "
+              f"{busy / 50:.0f} us/frame device; kernel share: {share} ({card})")
+    else:
+        print(f"[5 times] profile {label}: no device time recorded (not measured)")
+
+
 def phase_times(card: str):
     times = {}
     for B in (2, 128):
@@ -283,50 +439,48 @@ def phase_times(card: str):
         print(f"[5 times] fused update n4096 B{B}: device time kernel "
               f"{dk:.2f} us, plain {dp:.2f} us; event-timed host loop kernel "
               f"{lk:.2f} us, plain {lp:.2f} us ({card})")
-    ms8, _, frame8 = _frame_ms(None)
-    ms10, _, _ = _frame_ms((1920, 1080))
-    print(f"[5 times] frame (update + bars + uint8 + host copy) 800x600: "
-          f"{ms8:.3f} ms = {1e3 / ms8:.1f} fps; 1920x1080: {ms10:.3f} ms = "
-          f"{1e3 / ms10:.1f} fps ({card})")
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(50):
-            frame8()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # self device time sits on the kernels themselves, so it sums
-    # without counting a kernel again under the op that launched it
-    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in rows)
-    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
-    if busy > 0:
-        share = ", ".join(f"{e.key[:48]} {e.self_device_time_total / busy:.0%}"
-                          for e in top)
-        print(f"[5 times] profile 50 frames 800x600: device busy "
-              f"{busy / wall_us:.1%} of {wall_us / 50:.0f} us/frame wall; "
-              f"kernel share: {share} ({card})")
-    else:
-        print("[5 times] profile: no device time recorded (not measured)")
-    return times[2][2], times[2][3]
+    lk_k, lk_p, points = _lookup_times()
+    print(f"[5 times] table_lookup circle 1920x1080 ({points} points, T 8192): "
+          f"device time kernel {lk_k * 1e3:.2f} us, plain {lk_p * 1e3:.2f} us "
+          f"({card})")
+    frames = {}
+    for module in ("bars", "radial", "circle"):
+        ms8, _, f8 = _frame_ms(None, module)
+        ms10, _, f10 = _frame_ms((1920, 1080), module)
+        frames[module] = (f8, f10)
+        print(f"[5 times] {module} frame (update + raster + uint8 + host copy) "
+              f"800x600: {ms8:.3f} ms = {1e3 / ms8:.1f} fps; 1920x1080: "
+              f"{ms10:.3f} ms = {1e3 / ms10:.1f} fps ({card})")
+    _profile(frames["bars"][0], "bars 800x600", card)
+    _profile(frames["circle"][1], "circle 1920x1080", card)
+    return times[2][2], times[2][3], lk_k, lk_p
 
 
 def main() -> int:
     card = phase_device()
     phase_build()
     worst = phase_kernel()
+    lk_worst = phase_lookup()
     launches = phase_main_path()
-    k2, p2 = phase_times(card)
+    k2, p2, lk_k, lk_p = phase_times(card)
     print(json.dumps({"kernels": [{
         "name": "fused_update",
         "route": "cuda",
         "source": "glava_tpu_torch/csrc/fused_update.cu",
         "replaces": "glava_tpu/ops/pallas/fused.py:712",
-        "launches": launches,
+        "launches": launches["fused_update"],
         "max_abs_err": worst,
         "ms": k2,
         "plain_ms": p2,
+    }, {
+        "name": "table_lookup",
+        "route": "cuda",
+        "source": "glava_tpu_torch/csrc/table_lookup.cu",
+        "replaces": "glava_tpu/ops/pallas/lookup.py:53,289,319",
+        "launches": launches["table_lookup"],
+        "max_abs_err": lk_worst,
+        "ms": lk_k,
+        "plain_ms": lk_p,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

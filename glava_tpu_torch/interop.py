@@ -6,6 +6,9 @@ either the ``__xla__`` ``RingChainState`` (the default path) or the
 ``__fused__`` ``FusedChainState``, plus ``key_start``/``key_end``.
 
 * The fused layout is the port's own and carries over as it is.
+* An empty ``chains`` dict (a module with no fft uniform, such as
+  ``wave``) becomes the port's B = 0 state, and goes back out as an
+  empty dict.
 * The ring layout interleaves re/im along its last axis, (..., U, sz)
   and (..., U, F, sz); it splits into (B, 2, m) planes with rows
   ``s * U + u``. Its scalar (or per-stream) update count is broadcast
@@ -46,7 +49,15 @@ def state_from_jax_numpy(leaves, cfg: RenderConfig, device) -> RenderState:
     t = lambda a: torch.tensor(np.asarray(a), device=dev)  # noqa: E731
     chains = _field(leaves, "chains")
     F = cfg.avg_frames
-    if "__fused__" in chains:
+    if not chains:
+        m = cfg.scaled_bufsize // 2
+        st = FusedChainState(
+            t(np.zeros((0, 2, m), np.float32)),
+            t(np.zeros((0, F, 2, m), np.float32)),
+            t(np.zeros((0, 2, m), np.float32)),
+            t(np.zeros((0,), np.int32)),
+        )
+    elif "__fused__" in chains:
         c = chains["__fused__"]
         st = FusedChainState(
             t(np.asarray(_field(c, "gravity"), np.float32)),
@@ -79,12 +90,15 @@ def state_from_jax_numpy(leaves, cfg: RenderConfig, device) -> RenderState:
 
 def state_to_numpy(state: RenderState) -> dict:
     """The port's state -> numpy leaves in the JAX package's
-    ``__fused__`` layout (``FusedChainState`` field names)."""
+    ``__fused__`` layout (``FusedChainState`` field names); a state of
+    no rows gives an empty ``chains`` dict, as the JAX package keeps
+    for a module with no fft uniform."""
     c = state.chains
+    chains = {} if c.count.numel() == 0 else {"__fused__": {
+        k: v.detach().cpu().numpy() for k, v in c._asdict().items()
+    }}
     return {
-        "chains": {"__fused__": {
-            k: v.detach().cpu().numpy() for k, v in c._asdict().items()
-        }},
+        "chains": chains,
         "key_start": state.key_start.detach().cpu().numpy(),
         "key_end": state.key_end.detach().cpu().numpy(),
     }

@@ -54,31 +54,48 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def load(name: str) -> Built:
-    """Build (if needed) and load ``csrc/<name>.cu``."""
-    if name in _LOADED:
-        return _LOADED[name]
+def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
-    out = BUILD_DIR / f"{name}_{digest}.so"
-    seconds, log = 0.0, ""
-    if not out.is_file():
+    return src, BUILD_DIR / f"{name}_{digest}.so"
+
+
+def load(name: str) -> Built:
+    """Build (if needed) and load ``csrc/<name>.cu``."""
+    return load_all([name])[name]
+
+
+def load_all(names) -> dict[str, Built]:
+    """Build (if needed) and load several sources, their ``nvcc`` runs
+    started together so the builds overlap."""
+    jobs = {}
+    for name in names:
+        if name in _LOADED:
+            continue
+        src, out = _target(name)
+        if out.is_file():
+            _LOADED[name] = Built(ctypes.CDLL(str(out)), out, 0.0, "")
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        t0 = time.perf_counter()
-        proc = subprocess.run(
+        proc = subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
-            capture_output=True, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
+        jobs[name] = (src, out, tmp, proc, time.perf_counter())
+    failed = []
+    for name, (src, out, tmp, proc, t0) in jobs.items():
+        log, _ = proc.communicate()
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+            failed.append(f"nvcc failed on {src}:\n{log}")
+            continue
         os.replace(tmp, out)
-    built = Built(ctypes.CDLL(str(out)), out, seconds, log)
-    _LOADED[name] = built
-    return built
+        _LOADED[name] = Built(ctypes.CDLL(str(out)), out, seconds, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: _LOADED[name] for name in names}

@@ -1,0 +1,124 @@
+"""Table lookup: ``out = table[..., idx]`` from a small float32 table.
+
+The port's counterpart of ``glava_tpu/ops/pallas/lookup.py``'s
+``build_table_lookup`` and ``build_static_table_lookup`` (one function,
+one kernel: ``csrc/table_lookup.cu``) and of the interpreter's texel
+fetch ``_fetch_1d`` (``glava_tpu/config/glsl_shader.py``).
+
+* :func:`table_lookup_plain` is the plain torch gather.
+* :func:`table_lookup` takes it for CPU tensors and launches the CUDA
+  kernel for CUDA tensors; it never falls back from one to the other.
+* :class:`StaticLookup` holds an index plane fixed at build time on the
+  device (the radial and circle rasters), checked once.
+* :func:`fetch_1d` clips texel indices into a texture, then gathers.
+
+The result is pure data movement, so the kernel and the plain version
+agree bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+# kernel launches made by table_lookup (CUDA tensors only)
+launches = 0
+
+MAX_TABLES = 65535        # the kernel's grid rows
+MAX_TABLE = 48 * 1024     # entries a table row stages in shared memory
+
+
+def table_lookup_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[..., idx]``: a (T,) or (S, T) float32 table at integer
+    indices of any shape -> (*S, *idx.shape) float32."""
+    return table[..., idx]
+
+
+def table_lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """:func:`table_lookup_plain` on CPU tensors; the CUDA kernel on
+    CUDA tensors, which raises when the inputs are not what it takes
+    (an int32 index tensor, a (T,) or (S, T) float32 table of at most
+    ``MAX_TABLE`` entries on the same card). Indices must lie in
+    [0, T): the kernel does not check them (an index outside reads as
+    NaN), the plain version raises."""
+    if table.device.type == "cpu":
+        return table_lookup_plain(table, idx)
+    if table.device.type != "cuda":
+        raise ValueError(f"table_lookup: unsupported device {table.device}")
+    return _launch(table, idx)
+
+
+def _launch(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    global launches
+    if table.dtype != torch.float32:
+        raise TypeError(f"table_lookup: table must be float32, got {table.dtype}")
+    if table.ndim not in (1, 2) or not 1 <= table.shape[-1] <= MAX_TABLE:
+        raise ValueError(f"table_lookup: table must be (T,) or (S, T) with "
+                         f"1 <= T <= {MAX_TABLE}, got {tuple(table.shape)}")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"table_lookup: indices must be int32, got {idx.dtype}")
+    if idx.device != table.device:
+        raise ValueError(f"table_lookup: indices on {idx.device}, table on "
+                         f"{table.device}")
+    S = table.shape[0] if table.ndim == 2 else 1
+    T = table.shape[-1]
+    P = idx.numel()
+    if S > MAX_TABLES:
+        raise ValueError(f"table_lookup: at most {MAX_TABLES} tables, got {S}")
+    out = torch.empty(tuple(table.shape[:-1]) + tuple(idx.shape),
+                      dtype=torch.float32, device=table.device)
+    if P == 0 or S == 0:
+        return out
+    table = table.contiguous()
+    idx = idx.contiguous()
+
+    from glava_tpu_torch.ops import _build
+
+    fn = _build.load("table_lookup").lib.glava_table_lookup
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
+        ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream(table.device).cuda_stream
+        err = fn(table.data_ptr(), idx.data_ptr(), out.data_ptr(), S, T, P,
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"table_lookup kernel launch failed: CUDA error {err}")
+    launches += 1
+    return out
+
+
+class StaticLookup:
+    """``table -> table[..., idx]`` at an index plane fixed at build
+    time: the role of ``build_static_table_lookup``. The numpy plane is
+    checked once here (``0 <= idx < table_size``, the contract of the
+    TPU kernel) and kept on ``device`` as int32; every call is one
+    :func:`table_lookup`."""
+
+    def __init__(self, idx_np, table_size: int, device):
+        idx = np.asarray(idx_np)
+        if not np.issubdtype(idx.dtype, np.integer):
+            raise TypeError(f"StaticLookup: indices must be integers, got {idx.dtype}")
+        if table_size < 1 or table_size > np.iinfo(np.int32).max:
+            raise ValueError(f"StaticLookup: bad table size {table_size}")
+        if idx.size and (idx.min() < 0 or idx.max() >= table_size):
+            raise ValueError(
+                f"StaticLookup: indices must lie in [0, {table_size}), got "
+                f"[{idx.min()}, {idx.max()}]")
+        self.table_size = int(table_size)
+        self.idx = torch.as_tensor(idx.astype(np.int32), device=device)
+
+    def __call__(self, table: torch.Tensor) -> torch.Tensor:
+        if table.shape[-1] != self.table_size:
+            raise ValueError(f"StaticLookup: table has {table.shape[-1]} "
+                             f"entries, built for {self.table_size}")
+        return table_lookup(table, self.idx)
+
+
+def fetch_1d(tex: torch.Tensor, i: torch.Tensor, sz: int) -> torch.Tensor:
+    """``tex[..., clip(i, 0, sz - 1)]``: the texel fetch of a (sz,)
+    texture (``_fetch_1d``), through :func:`table_lookup`."""
+    ic = torch.clamp(torch.as_tensor(i, device=tex.device), 0, sz - 1)
+    return table_lookup(tex, ic.to(torch.int32))

@@ -1,22 +1,29 @@
 """AudioPipeline: PCM windows -> per-uniform spectrum textures.
 
 The device-side "update" half of the reference's frame loop (the
-``handle_audio`` closure, glava/render.c:2113-2309): every fft uniform
-a module binds runs the standard chain ``window, fft, gravity, avg``,
-and the texture the rasterizer samples is the age-weighted average
-after the default smooth pass (render.c:2276-2303), a baked resample.
+``handle_audio`` closure, glava/render.c:2113-2309). A module's
+uniforms come in two kinds:
 
-The whole update of all fft uniforms is ONE call of
-``ops.fused.fused_update`` over the flat row batch ``(B, ...)`` with
-row order ``s * U + u`` (streams x uniforms): on CUDA tensors that is
-the hand-written kernel, on CPU tensors its plain torch version. The
-state layout is the JAX package's ``FusedChainState``
-(glava_tpu/pipeline.py:72-91).
+* **fft uniforms** run the standard chain ``window, fft, gravity,
+  avg``; the texture the rasterizer samples is the age-weighted average
+  after the default smooth pass (render.c:2276-2303), a baked resample.
+  The whole update of all fft uniforms is ONE call of
+  ``ops.fused.fused_update`` over the flat row batch ``(B, ...)`` with
+  row order ``s * U + u`` (streams x fft uniforms): on CUDA tensors
+  that is the hand-written kernel, on CPU tensors its plain torch
+  version. The state layout is the JAX package's ``FusedChainState``
+  (glava_tpu/pipeline.py:72-91).
+* **stateless uniforms** (no ``fft``, e.g. wave's ``window, wrange``)
+  carry no state: their texture is ``wrange`` of the frame's feed
+  audio, ``window`` being a no-op without ``fft``
+  (glava_tpu/pipeline.py:440-449). A module with no fft uniform keeps a
+  state of B = 0 rows and launches no kernel.
 
-Configurations the kernel does not take raise ``NotImplementedError``
-at construction: ``setaccelfft false`` (ROADMAP queue 3, the CPU-path
-chain), chains other than the standard one (ROADMAP slice 3, the
-interpreter's modules) and bufsizes outside 256..16384.
+Configurations not ported yet raise ``NotImplementedError`` at
+construction: ``setaccelfft false`` and the ``smooth`` transform
+(ROADMAP queue 3, the CPU-path chain), fft chains other than the
+standard one (ROADMAP slice 3, the interpreter's modules) and fft
+bufsizes outside 256..16384.
 """
 
 from __future__ import annotations
@@ -58,6 +65,11 @@ class FusedChainState(NamedTuple):
 
 
 STANDARD_CHAIN = ("window", "fft", "gravity", "avg")
+KNOWN_TRANSFORMS = {"window", "fft", "wrange", "avg", "gravity", "smooth"}
+
+
+def has_fft(chain) -> bool:
+    return "fft" in chain
 
 
 class AudioPipeline:
@@ -69,20 +81,28 @@ class AudioPipeline:
         self.uniforms = list(uniforms)
         self.device = resolve(device)
         self.sz = cfg.scaled_bufsize
+        for u in self.uniforms:
+            unknown = set(u.transforms) - KNOWN_TRANSFORMS
+            if unknown:
+                raise ValueError(
+                    f"transform function does not exist: {sorted(unknown)!r}")
         if not cfg.accel_fft:
             raise NotImplementedError(
                 "setaccelfft false (the CPU-path chain) is not yet ported "
                 "(ROADMAP queue 3)")
+        self.fft_uniforms = [u for u in self.uniforms if has_fft(u.transforms)]
         for u in self.uniforms:
-            if tuple(u.transforms) != STANDARD_CHAIN:
+            if has_fft(u.transforms) and tuple(u.transforms) != STANDARD_CHAIN:
                 raise NotImplementedError(
                     f"uniform '{u.name}' has transform chain "
                     f"{tuple(u.transforms)}; only {STANDARD_CHAIN} is ported "
-                    "(other chains come with ROADMAP slice 3)")
-        if not self.uniforms:
-            raise NotImplementedError("a module without fft uniforms is not "
-                                      "yet ported (ROADMAP slice 2)")
-        if (self.sz < fused.MIN_N or self.sz > fused.MAX_N
+                    "for fft uniforms (other chains come with ROADMAP slice 3)")
+            if "smooth" in u.transforms:
+                raise NotImplementedError(
+                    f"uniform '{u.name}': the smooth transform is not yet "
+                    "ported (ROADMAP queue 3)")
+        if self.fft_uniforms and (
+                self.sz < fused.MIN_N or self.sz > fused.MAX_N
                 or self.sz & (self.sz - 1)):
             raise NotImplementedError(
                 f"bufsize {self.sz}: the fused update takes powers of two "
@@ -97,13 +117,13 @@ class AudioPipeline:
             smoothing.presmooth_op(
                 self.sz, smoothing.SmoothParams(factor=cfg.smooth_factor)
             ).on(dev)
-            if cfg.smooth_pass else None
+            if cfg.smooth_pass and self.fft_uniforms else None
         )
 
     # -- state ----------------------------------------------------------
 
     def init_state(self, batch: tuple[int, ...] = ()) -> FusedChainState:
-        B = len(self.uniforms) * int(np.prod(batch, dtype=np.int64))
+        B = len(self.fft_uniforms) * int(np.prod(batch, dtype=np.int64))
         m = self.sz // 2
         F = self.cfg.avg_frames
         z = lambda *s: torch.zeros(s, dtype=torch.float32,  # noqa: E731
@@ -127,7 +147,7 @@ class AudioPipeline:
             # host scalars: one host-to-device copy for all three rows
             host = np.repeat(np.asarray(vals, np.float32)[:, None], B, axis=1)
             return torch.as_tensor(host, device=self.device)
-        U = len(self.uniforms)
+        U = len(self.fft_uniforms)
         rows = []
         for v in vals:
             t = torch.as_tensor(v, dtype=torch.float32, device=self.device)
@@ -143,13 +163,17 @@ class AudioPipeline:
                 gravity_g=None) -> FusedChainState:
         """Apply one audio update to every row. ``audio_l``/``audio_r``
         are (*batch, bufsize). The gravity and history buffers of
-        ``state`` are updated in place and carried into the result."""
+        ``state`` are updated in place and carried into the result. A
+        module with no fft uniform has nothing to update."""
         cfg = self.cfg
+        if not self.fft_uniforms:
+            return state
         sources = {
             "audio_l": transforms.decimate(audio_l, cfg.bufscale),
             "audio_r": transforms.decimate(audio_r, cfg.bufscale),
         }
-        pcm = torch.stack([sources[u.source] for u in self.uniforms], dim=-2)
+        pcm = torch.stack([sources[u.source] for u in self.fft_uniforms],
+                          dim=-2)
         pcm = pcm.reshape(-1, self.sz).to(torch.float32).contiguous()
         B = pcm.shape[0]
         scale, cutoff, g = self._row_params(B, fft_scale, fft_cutoff, gravity_g)
@@ -163,16 +187,31 @@ class AudioPipeline:
 
     # -- textures ---------------------------------------------------------
 
-    def textures_from(self, state: FusedChainState,
-                      batch: tuple[int, ...] = ()) -> dict[str, torch.Tensor]:
-        """Every uniform's (*batch, P) texture from the (possibly
-        carried) averaged spectrum. Audio textures are GL_R16 unsigned
-        normalized (render.c:512-523): values clamp to [0, 1]."""
-        U = len(self.uniforms)
+    def textures_from(self, state: FusedChainState, audio_l: torch.Tensor,
+                      audio_r: torch.Tensor) -> dict[str, torch.Tensor]:
+        """Every uniform's (*batch, sz) texture: fft uniforms from the
+        (possibly carried) averaged spectrum, stateless ones from the
+        feed audio ``audio_l``/``audio_r`` (*batch, bufsize). Audio
+        textures are GL_R16 unsigned normalized (render.c:512-523):
+        values clamp to [0, 1]."""
+        batch = tuple(audio_l.shape[:-1])
+        U = len(self.fft_uniforms)
         m = self.sz // 2
         avg = state.avg.reshape(*batch, U, 2, m)
+        row = {u.name: i for i, u in enumerate(self.fft_uniforms)}
         textures = {}
-        for i, u in enumerate(self.uniforms):
+        for u in self.uniforms:
+            if u.name not in row:
+                src = audio_l if u.source == "audio_l" else audio_r
+                buf = transforms.decimate(
+                    torch.as_tensor(src, dtype=torch.float32,
+                                    device=self.device), self.cfg.bufscale)
+                for t in u.transforms:
+                    if t == "wrange":
+                        buf = transforms.wrange(buf)
+                textures[u.name] = torch.clamp(buf, 0.0, 1.0)
+                continue
+            i = row[u.name]
             re, im = avg[..., i, 0, :], avg[..., i, 1, :]
             if self.presmooth is not None:
                 # resample straight off the complex planes
@@ -192,7 +231,7 @@ class AudioPipeline:
         reference's only-transform-on-new-audio rule (render.c:2122).
         :meth:`advance` writes gravity and history in place, so
         ``old_state`` must hold copies taken before the advance."""
-        mask = modified.to(self.device).repeat_interleave(len(self.uniforms))
+        mask = modified.to(self.device).repeat_interleave(len(self.fft_uniforms))
 
         def sel(n, o):
             return torch.where(mask.reshape((-1,) + (1,) * (n.ndim - 1)), n, o)
@@ -206,7 +245,7 @@ class AudioPipeline:
                gravity_g=None):
         new_state = self.advance(state, audio_l, audio_r, fft_scale=fft_scale,
                                  fft_cutoff=fft_cutoff, gravity_g=gravity_g)
-        return new_state, self.textures_from(new_state, tuple(audio_l.shape[:-1]))
+        return new_state, self.textures_from(new_state, audio_l, audio_r)
 
 
 def clone_state(state: FusedChainState) -> FusedChainState:

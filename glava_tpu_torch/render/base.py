@@ -188,10 +188,12 @@ class ModuleContext:
 
 @dataclass
 class ModuleBuild:
-    """A built module: ordered enabled passes."""
+    """A built module: ordered enabled passes, and the static table
+    lookups (``ops.lookup.StaticLookup``) they run every frame."""
 
     name: str
     passes: list[PassFn] = field(default_factory=list)
+    lookups: list = field(default_factory=list)
 
     def render(self, inputs: PassInputs) -> Planes:
         out = inputs.prev
@@ -243,3 +245,10 @@ def color_planes(value, device) -> list:
         else torch.as_tensor(c, dtype=torch.float32, device=device)
         for c in value
     ]
+
+
+def color_tensors(value, device) -> list[torch.Tensor]:
+    """:func:`color_planes` with every component a float32 tensor on
+    ``device`` (colors evaluated once at build time)."""
+    return [torch.as_tensor(c, dtype=torch.float32, device=device)
+            for c in color_planes(value, device)]

@@ -1,8 +1,7 @@
-"""Built-in visualizer modules (reference: shaders/glava/<name>/).
-
-The port holds ``bars`` only; the other modules of the JAX package
-(radial, circle, wave, graph, test) are ROADMAP slice 2.
-"""
+"""Built-in visualizer modules (reference: shaders/glava/<name>/):
+bars, radial, circle, wave, graph and test, as in the JAX package.
+User modules (GLSL shader directories, Python module files) need the
+interpreter, ROADMAP slice 3; the loader refuses them."""
 
 from __future__ import annotations
 
@@ -14,8 +13,6 @@ _STEREO_FFT = (
     ("audio_l", "audio_l", ("window", "fft", "gravity", "avg")),
     ("audio_r", "audio_r", ("window", "fft", "gravity", "avg")),
 )
-
-_NOT_YET_PORTED = ("radial", "circle", "wave", "graph", "test")
 
 # module -> (builder, uniform declarations (name, source, transforms))
 # mirroring each module's `#request uniform`/`#request transform` lines.
@@ -33,9 +30,6 @@ def register(name: str, uniforms: tuple = _STEREO_FFT):
 def _resolve(name: str):
     if name in _REGISTRY:
         return _REGISTRY[name]
-    if name in _NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"module '{name}' is not yet ported (ROADMAP slice 2)")
     raise KeyError(f"module '{name}' does not exist "
                    f"(available: {sorted(_REGISTRY)})")
 
@@ -51,4 +45,11 @@ def module_uniforms(name: str) -> tuple:
 
 
 # import for registration side effects
-from glava_tpu_torch.render.modules import bars  # noqa: E402,F401
+from glava_tpu_torch.render.modules import (  # noqa: E402,F401
+    bars,
+    circle,
+    graph,
+    radial,
+    test,
+    wave,
+)

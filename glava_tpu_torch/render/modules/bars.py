@@ -86,12 +86,8 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
     d = (ah - ay) if flip else ay               # distance from baseline
     d_col = torch.as_tensor(d.astype(np.float32), device=dev)[:, None]
 
-    def planes_of(knob):
-        return [torch.as_tensor(c, dtype=torch.float32, device=dev)
-                for c in base.color_planes(ctx.color_fn(knob)(d=d_col), dev)]
-
-    color = planes_of("COLOR")
-    outline = planes_of("BAR_OUTLINE")
+    color = base.color_tensors(ctx.color_fn("COLOR")(d=d_col), dev)
+    outline = base.color_tensors(ctx.color_fn("BAR_OUTLINE")(d=d_col), dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
 
     def pass1(inputs: base.PassInputs) -> base.Planes:

@@ -1,0 +1,168 @@
+"""`graph` module: filled stereo spectrum graph (4 passes).
+
+Re-expression of shaders/glava/graph/{1,2,3,4}.frag:
+
+* pass 1 (graph/1.frag) — filled columns from 3-tap smoothed samples
+  with end-clamp easing and optional channel joining.
+* pass 2 (graph/2.frag) — outline / edge highlight; disabled when
+  both DRAW_OUTLINE and DRAW_HIGHLIGHT are 0 (`#error __disablestage`).
+* pass 3 (graph/3.frag) — column anti-aliasing; disabled unless
+  ANTI_ALIAS. The reference walks pixels up/down per column; pass 1's
+  output is a contiguous fill, so the walk reduces to per-column top
+  indices, computed vectorized.
+* pass 4 (graph/4.frag) — premultiply.
+
+Every column-only quantity is baked in numpy; per frame the passes are
+(W, 3) spectrum gathers and (H, W) masks. The COLOR knob depends only
+on the row (``pos``) and is evaluated once at build time.
+
+Knobs (shaders/glava/graph.glsl): VSCALE, DIRECTION, GRADIENT, COLOR,
+DRAW_OUTLINE, DRAW_HIGHLIGHT, ANTI_ALIAS, OUTLINE, JOIN_CHANNELS,
+INVERT.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from glava_tpu_torch.render import base
+from glava_tpu_torch.render.modules import register
+from glava_tpu_torch.render.modules.wave import neighbor_sum
+
+
+@register("graph")
+def build(ctx: base.ModuleContext) -> base.ModuleBuild:
+    w, h = ctx.screen
+    dev = ctx.device
+    vscale = ctx.knob_f("VSCALE", 300)
+    direction = ctx.knob_i("DIRECTION", 1)
+    draw_outline = ctx.knob_i("DRAW_OUTLINE", 0)
+    draw_highlight = ctx.knob_i("DRAW_HIGHLIGHT", 1)
+    anti_alias = ctx.knob_i("ANTI_ALIAS", 0)
+    join = ctx.knob_i("JOIN_CHANNELS", 0)
+    invert = ctx.knob_i("INVERT", 0)
+    outline = base.color_tensors(ctx.color_fn("OUTLINE")(), dev)
+
+    # ---- static column math (graph/1.frag:62-104) -----------------------
+    x, yrow = base.frag_coords(w, h, pixel_center_integer=True)
+    half_w = float(w // 2)  # float(screen.x / 2): int division
+    pixel = 1.0 / float(w)
+    left_mask = x < half_w
+
+    if direction < 0:
+        left_idx, right_idx = x, -x + w
+    else:
+        left_idx, right_idx = half_w - x, x - half_w
+    idx = np.where(left_mask, left_idx, right_idx) / half_w
+
+    def adj_positions(i):
+        """smooth_audio_adj taps (smooth.glsl:67-73)."""
+        return np.stack(
+            [np.maximum(i - pixel, 0.0), i, np.minimum(i + pixel, 1.0)], axis=-1
+        )
+
+    col_pos = np.clip(adj_positions(idx), 0.0, 1.0)        # (W, 3)
+    mid_pos = np.clip(adj_positions(np.array([1.0, 0.0])), 0.0, 1.0)  # (2, 3)
+    sample_cols = ctx.sampler(col_pos)
+    sample_mid = ctx.sampler(mid_pos)
+
+    fact_c = np.clip((np.abs(w // 2 - x) / w) * 48.0, 0.0, 1.0)
+    if join > 0:
+        fact_c = -2.0 * fact_c**3 + 3.0 * fact_c**2
+    fact_e = np.clip((np.minimum(x, w - x) / w) * 48.0, 0.0, 1.0)
+
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    left_mask_t = t(left_mask)
+    fact_c_t = t(fact_c.astype(np.float32))
+    fact_e_t = t(fact_e.astype(np.float32))
+
+    d_rows = (float(h) - yrow) if invert > 0 else yrow
+    d_col = t(d_rows.astype(np.float32))[:, None]
+    color = base.color_tensors(ctx.color_fn("COLOR")(pos=d_col), dev)
+
+    def line_heights(textures) -> torch.Tensor:
+        """Per-column s (graph/1.frag:87-104), shape (W,)."""
+        sl = torch.mean(sample_cols(textures["audio_l"]), dim=-1)
+        sr = torch.mean(sample_cols(textures["audio_r"]), dim=-1)
+        s = torch.where(left_mask_t, sl, sr) * vscale
+        if join > 0:
+            ml = torch.mean(sample_mid(textures["audio_l"]), dim=-1)[0]
+            mr = torch.mean(sample_mid(textures["audio_r"]), dim=-1)[1]
+            middle = vscale * (ml + mr) / 2.0
+            s = fact_c_t * s + (1.0 - fact_c_t) * middle
+        else:
+            s = s * fact_c_t
+        return s * fact_e_t
+
+    def pass1(inputs: base.PassInputs) -> base.Planes:
+        s = line_heights(inputs.textures)
+        mask = (d_col + 1.5) <= s[None, :]
+        return tuple(torch.where(mask, color[c], 0.0) for c in range(4))
+
+    passes = [pass1]
+
+    # graph/2.frag — outline + highlight
+    if draw_outline > 0 or draw_highlight > 0:
+        def pass2(inputs: base.PassInputs) -> base.Planes:
+            frame = inputs.prev
+            # graph/2.frag only ever consumes avg.A (the outline branch
+            # writes a constant; the highlight multiplies by avg.a), so
+            # only the alpha plane feeds the neighbourhood average
+            alpha = frame[3]
+            avg_a = neighbor_sum(alpha)
+            near = avg_a > 0
+            out = list(frame)
+            if draw_outline > 0:
+                m = near & (alpha <= 0)
+                out = [torch.where(m, outline[c], out[c]) for c in range(4)]
+            if draw_highlight > 0:
+                m = near & (alpha > 0) & (avg_a < 1)
+                out[:3] = [torch.where(m, out[c] * (avg_a * 2.0), out[c])
+                           for c in range(3)]
+            return tuple(out)
+
+        passes.append(pass2)
+
+    # graph/3.frag — anti-alias: alpha-feather empty pixels between the
+    # tops of adjacent columns.
+    if anti_alias > 0:
+        col_ids = torch.arange(w, device=dev)
+        edge = torch.full((1,), -1.0, device=dev)
+
+        def pass3(inputs: base.PassInputs) -> base.Planes:
+            frame = inputs.prev
+            # contiguous fill: colored rows of column x are d in
+            # [0, s-1.5] -> top index ty = floor(s - 1.5) in d-space
+            s = line_heights(inputs.textures)
+            ty = torch.floor(s - 1.5)
+            ty_l = torch.cat([edge, ty[:-1]])
+            ty_r = torch.cat([ty[1:], edge])
+            empty = frame[3] <= 0
+            # left / right neighbour colored at this row?
+            lcol = d_col <= ty_l[None, :]
+            rcol = d_col <= ty_r[None, :]
+            h2 = ty  # own column top (first colored going down)
+            # fragment colour of (x, h2): a plain per-column gather
+            rows = torch.clamp(ty, 0, h - 1).to(torch.int64)
+            rows_pix = torch.clamp(h - rows, 0, h - 1) if invert > 0 else rows
+            top = [frame[c][rows_pix, col_ids] for c in range(4)]
+            # (ty_l - d) / (h2 - ty_l) is 0/0 where both vanish; the NaN
+            # goes on through clamp/maximum as in the JAX module
+            af_l = torch.clamp(
+                torch.abs((ty_l[None, :] - d_col) / (h2 - ty_l)[None, :]), 0.0, 1.0)
+            af_r = torch.clamp(
+                torch.abs((ty_r[None, :] - d_col) / (h2 - ty_r)[None, :]), 0.0, 1.0)
+            a_fact = torch.where(lcol, af_l, 0.0)
+            a_fact = torch.maximum(a_fact, torch.where(rcol, af_r, 0.0))
+            feather = empty & (lcol | rcol)
+            new = [top[c][None, :] for c in range(3)]
+            new.append(top[3][None, :] * a_fact)
+            return tuple(torch.where(feather, new[c], frame[c]) for c in range(4))
+
+        passes.append(pass3)
+
+    if ctx.cfg.premultiply_alpha:
+        passes.append(base.premultiply_pass)  # graph/4.frag
+
+    return base.ModuleBuild("graph", passes)

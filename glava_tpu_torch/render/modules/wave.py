@@ -1,0 +1,109 @@
+"""`wave` module: raw time-domain waveform line.
+
+Re-expression of shaders/glava/wave/{1,2}.frag. Its one uniform takes
+the ``window`` (a no-op without ``fft``) and ``wrange`` transforms, so
+the texture holds the feed PCM mapped to [0, 1] (wave/1.frag:7-9) and
+the module keeps no spectrum state. Pass 1 draws the line with
+adaptive thickness; pass 2 is an unconditional neighbourhood outline
+pass. The per-column texel indices are static (numpy); per frame the
+pass is three (W,) gathers and (H, W) masks.
+
+Knobs (shaders/glava/wave.glsl): MIN_THICKNESS, MAX_THICKNESS,
+BASE_COLOR, AMPLIFY, OUTLINE.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from glava_tpu_torch.render import base
+from glava_tpu_torch.render.modules import register
+
+
+def _texture_nearest_repeat(coords: np.ndarray, sz: int) -> np.ndarray:
+    """GL `texture()` lookup indices: NEAREST filter, REPEAT wrap
+    (render.c:512-517)."""
+    u = coords - np.floor(coords)
+    return np.minimum(np.floor(u * sz), sz - 1).astype(np.int64)
+
+
+@register(
+    "wave",
+    uniforms=(("audio_l", "audio_l", ("window", "wrange")),),  # wave/1.frag:7-9
+)
+def build(ctx: base.ModuleContext) -> base.ModuleBuild:
+    w, h = ctx.screen
+    dev = ctx.device
+    min_t = ctx.knob_f("MIN_THICKNESS", 1)
+    max_t = ctx.knob_f("MAX_THICKNESS", 6)
+    amplify = ctx.knob_f("AMPLIFY", 500)
+    base_color = base.color_tensors(ctx.color_fn("BASE_COLOR")(), dev)
+    outline = base.color_tensors(ctx.color_fn("OUTLINE")(), dev)
+
+    # pixel_center_integer: integer fragment coords (wave/1.frag:2)
+    x, y = base.frag_coords(w, h, pixel_center_integer=True)
+    taps = [torch.as_tensor(_texture_nearest_repeat(c / w, ctx.sz), device=dev)
+            for c in (x, x - 1, x + 1)]
+    y_col = torch.as_tensor(y.astype(np.float32), device=dev)[:, None]
+
+    def pass1(inputs: base.PassInputs) -> base.Planes:
+        tex = inputs.textures["audio_l"]
+        os_, om, op = ((tex[ix] - 0.5) * amplify + 0.5 for ix in taps)
+        s0 = om - os_
+        s1 = op - os_
+        dmax = torch.maximum(s0, s1)
+        dmin = torch.minimum(s0, s1)
+
+        s = os_ + (h * 0.5) - 0.5
+        diff = y_col - s[None, :]
+        thick = torch.clamp(torch.abs(s - (h * 0.5)) * 6.0, min_t, max_t)
+        on_line = torch.abs(diff) < thick[None, :]
+        in_slope = (diff <= dmax[None, :]) & (diff >= dmin[None, :])
+        mask = on_line | in_slope
+
+        # BASE_COLOR + scalar brightens all components incl. alpha
+        # (wave/1.frag:35)
+        bright = (torch.abs((h * 0.5) - s) * 0.02)[None, :]
+        return tuple(torch.where(mask, base_color[c] + bright, 0.0)
+                     for c in range(4))
+
+    def pass2(inputs: base.PassInputs) -> base.Planes:
+        return neighbor_outline_pass(inputs.prev, outline, edge_columns=True)
+
+    return base.ModuleBuild("wave", [pass1, pass2])
+
+
+def neighbor_sum(alpha: torch.Tensor) -> torch.Tensor:
+    """The 8-fetch neighbourhood average of the outline passes
+    (wave/2.frag:14-32, graph/2.frag, circle/2.frag): the reference
+    fetches (+1, 0) and (-1, 0) twice each, and an out-of-bounds
+    texelFetch reads as transparent black (zero padding)."""
+    h, w = alpha.shape[-2:]
+    p = torch.nn.functional.pad(alpha, (1, 1, 1, 1))
+
+    def sh(dy, dx):  # neighbour at (x+dx, y+dy)
+        return p[..., 1 + dy: 1 + dy + h, 1 + dx: 1 + dx + w]
+
+    return (
+        2.0 * sh(0, 1) + sh(1, 1) + sh(1, 0) + 2.0 * sh(0, -1)
+        + sh(-1, -1) + sh(-1, 0)
+    ) / 8.0
+
+
+def neighbor_outline_pass(frame: base.Planes, outline: list[torch.Tensor],
+                          edge_columns: bool) -> base.Planes:
+    """wave/2.frag: outline colour where the neighbourhood alpha average
+    is positive and the pixel itself is transparent (or, with
+    ``edge_columns``, in the first or last column). Only the alpha plane
+    feeds the average; the rgb planes see one select each."""
+    alpha = frame[3]
+    h, w = alpha.shape
+    cond = neighbor_sum(alpha) > 0
+    inner = alpha <= 0
+    if edge_columns:
+        col = torch.arange(w, device=alpha.device)
+        inner = inner | ((col == 0) | (col == w - 1))[None, :]
+    mask = cond & inner
+    return tuple(torch.where(mask, outline[c], frame[c])
+                 for c in range(4))

@@ -89,7 +89,6 @@ class Renderer:
         if pipe:
             raise NotImplementedError(
                 "--pipe uniforms are not yet ported (ROADMAP slice 5)")
-        batch = tuple(audio.shape[:-2])
         # Keyframe push on update (render.c:2348-2353): start <- end,
         # end <- new buffers.
         if modified:
@@ -105,7 +104,9 @@ class Renderer:
             key_start, key_end = state.key_start, state.key_end
             chains = state.chains
 
-        textures = self.pipeline.textures_from(chains, batch)
+        # stateless uniforms (wave) read the feed: the newest keyframe
+        textures = self.pipeline.textures_from(
+            chains, key_end[..., 0, :], key_end[..., 1, :])
         planes = self.module.render(
             PassInputs(prev=None, textures=textures, time=time))
         if not self.cfg.premultiply_alpha:

@@ -218,14 +218,44 @@ def test_frame_windows_match_jax():
                           jframe_windows(pcm, 1024, 256))
 
 
-@pytest.mark.parametrize("case", ["cpu_path", "chain", "small", "large"])
+WAVE = ("wave_l", "audio_l", ("window", "wrange"))
+
+
+@pytest.mark.parametrize("uniforms", [[WAVE], BARS + [WAVE]],
+                         ids=["stateless", "mixed"])
+def test_stateless_chain_textures_match_jax(uniforms):
+    """A uniform with no fft (wave's ``window, wrange``) is the feed
+    audio in [0, 1], beside fft uniforms or alone; alone it keeps a
+    state of no rows and runs no update."""
+    lc, jlc = _load()
+    port = AudioPipeline(lc.cfg, [UniformSpec(*u) for u in uniforms], device="cpu")
+    ref = JaxPipeline(jlc.cfg, [JaxUniform(*u) for u in uniforms], use_fused=False)
+    rng = np.random.default_rng(12)
+    sp, sj = port.init_state(), ref.init_state()
+    assert sp.count.shape == (len(uniforms) - 1,)
+    for _ in range(3):
+        al = (rng.standard_normal(1024) * 0.7).astype(np.float32)
+        ar = (rng.standard_normal(1024) * 0.7).astype(np.float32)
+        sp, tp = port.update(sp, torch.as_tensor(al), torch.as_tensor(ar))
+        sj, tj = ref.update(sj, jnp.asarray(al), jnp.asarray(ar))
+        assert tp.keys() == tj.keys()
+        for k in tp:
+            np.testing.assert_allclose(tp[k].numpy(), np.asarray(tj[k]),
+                                       atol=5e-5)
+    assert torch.equal(tp["wave_l"], torch.clamp(
+        (torch.as_tensor(al) + 1.0) / 2.0, 0.0, 1.0))
+
+
+@pytest.mark.parametrize("case", ["cpu_path", "chain", "smooth", "small", "large"])
 def test_unported_configurations_raise(case):
     cfg = RenderConfig(bufsize=1024)
     uniforms = [UniformSpec(*u) for u in BARS]
     if case == "cpu_path":
         cfg = dataclasses.replace(cfg, accel_fft=False)
     elif case == "chain":
-        uniforms = [UniformSpec("audio_l", "audio_l", ("wrange",))]
+        uniforms = [UniformSpec("audio_l", "audio_l", ("window", "fft", "avg"))]
+    elif case == "smooth":
+        uniforms = [UniformSpec("audio_l", "audio_l", ("wrange", "smooth"))]
     elif case == "small":
         cfg = dataclasses.replace(cfg, bufsize=128)
     else:

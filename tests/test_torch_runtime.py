@@ -78,3 +78,34 @@ def test_stream_sinks_write_port_frames(spec):
         assert len(data.split(b"FRAME\n", 1)[1]) == 64 * 48 * 3 // 2
     else:
         assert data == frame.numpy().tobytes()
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_run_tests_passes(device):
+    """``--run-tests`` loads test_rc.glsl (the `test` module) and its
+    one frame meets `settesteval` within +-0.5/255."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from glava_tpu_torch import cli
+
+    assert cli.main(["--device", device, "--run-tests", "--sink", "null"]) == 0
+
+
+@pytest.mark.parametrize("module", ["radial", "circle", "wave", "graph"])
+def test_engine_drives_every_module_on_cpu(module):
+    """``-m <module>`` through the Engine: frames render, and the CPU
+    path launches neither kernel."""
+    from glava_tpu_torch.ops import fused, lookup
+    from glava_tpu_torch.runtime.engine import Engine, EngineOptions
+    from glava_tpu_torch.runtime.sinks import LatestFrameSink
+
+    sink = LatestFrameSink()
+    eng = Engine(EngineOptions(device="cpu", force_module=module, requests=(
+        "setgeometry 0 0 64 48", "setbufsize 1024", "setsamplesize 256",
+        "setprintframes false")), sink=sink)
+    before = (fused.launches, lookup.launches)
+    eng.run(max_frames=6)
+    assert eng.frames_rendered == 6
+    assert (fused.launches, lookup.launches) == before
+    frame = sink.latest()
+    assert frame.shape == (48, 64, 4) and frame.dtype.name == "uint8"
