@@ -7,8 +7,9 @@ code is non-zero and no result line is printed):
 
 1. device    — needs ``torch.cuda.is_available()``; prints the card's
                name and power limit (nvidia-smi).
-2. build     — builds both CUDA kernels from ``csrc/`` (fused_update,
-               table_lookup), the nvcc runs side by side.
+2. build     — builds the four CUDA kernels from ``csrc/``
+               (fused_update, table_lookup, rowwise_lookup, latch_scan),
+               the nvcc runs side by side.
 3. kernel    — each kernel vs its plain torch version on the card.
                fused_update at n in {256, 1024, 4096, 16384}, F = 6,
                B in {2, 128}: 8 updates of fresh audio with staggered
@@ -20,24 +21,37 @@ code is non-zero and no result line is printed):
                32768-entry table (the dynamic shared memory path), a
                random 2M-point plane, a 97-point plane and a (3, T)
                table; an out-of-range static plane must raise.
+               latch_scan BIT-IDENTICAL at (1081, 1920), C in {0, 4},
+               both directions; rowwise_lookup BIT-IDENTICAL at
+               1920x1080 (N 1920, T 1080, P 1080), C in {1, 4}, on
+               contiguous operands and on the ``.T`` views of (H, W)
+               planes the interpreter passes.
 4. main path — ``Engine`` with the synth backend and a null sink, the
                kernel counts set to 0 just before each run and read
                just after: bars (the shipped rc.glsl) at 800x600 and
                1920x1080, radial and circle at 800x600 and 1920x1080
-               (bufsize 4096), wave and graph at 800x600. fused_update
-               launches must equal the audio updates of fft modules,
-               table_lookup launches the frames of radial and circle (one
-               a frame). ``Engine.run_tests()`` (test_rc.glsl) must pass
-               on cuda. Every module's frame after 24 updates of fixed
-               stereo tones renders on cuda and cpu at 800x600 and must
-               meet the golden rule (under 0.2% of pixels more than 2 LSB
-               apart), and at tests/golden/frames.npz's size against the
-               archive.
-5. times     — device times (torch.profiler) of the fused update and
-               of the lookup on circle's 1080p planes, kernel and plain;
-               CUDA-event frame times of bars, radial and circle at
-               800x600 and 1920x1080; a profiler breakdown of bars at
-               800x600 and circle at 1920x1080.
+               (bufsize 4096), wave and graph at 800x600, and three user
+               GLSL shader modules written into a temporary config dir
+               (``SHADER_MODULES``: docs/examples/rings, a first-hit
+               anti-alias walk and a fetch at run-time rows) at 800x600
+               and 1920x1080. fused_update launches must equal the
+               audio updates of fft modules; table_lookup launches and
+               rowwise_lookup and latch_scan launches by channel count
+               C the frames times each module's launches a frame
+               (``LAUNCHES``).
+               ``Engine.run_tests()`` (test_rc.glsl) must pass on cuda.
+               Every module's frame after 24 updates of fixed stereo
+               tones renders on cuda and cpu at 800x600 and must meet
+               the golden rule (under 0.2% of pixels more than 2 LSB
+               apart), and the built-in ones at tests/golden/frames.npz's
+               size against the archive.
+5. times     — device times (torch.profiler) of each kernel and its
+               plain version at the main path's shapes, and of one
+               PyTorch call computing the same function where there is
+               one; CUDA-event frame times of bars, radial and circle
+               and of the shader modules at 800x600 and 1920x1080; a
+               profiler breakdown of bars at 800x600, circle at
+               1920x1080 and the anti-alias walk module at 1920x1080.
 
 The second-to-last line is the kernels JSON, the last the device JSON.
 """
@@ -47,6 +61,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -55,8 +70,176 @@ import torch
 
 TOL = 2e-5           # spectra (the JAX suite's fused-vs-unfused tolerance)
 ROOT = Path(__file__).resolve().parent
-KERNELS = ("fused_update", "table_lookup")
+KERNELS = ("fused_update", "table_lookup", "rowwise_lookup", "latch_scan")
+# what the main path launches, a kernel for each C it takes: the kernels
+# JSON has one entry each; "rowwise_lookup C=1" (checked, timed) must
+# stay off the path
+PATH = ("fused_update", "table_lookup", "rowwise_lookup C=4",
+        "latch_scan C=0", "latch_scan C=4")
+COUNTED = PATH + ("rowwise_lookup C=1",)
 MODULES = ("bars", "radial", "circle", "wave", "graph", "test")
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
+
+# -- user GLSL shader modules (<user_dir>/<name>/{1,2}.frag) -------------
+
+BASE_FRAG = """
+/* A spectrum bar pass (the interpreter tests' first pass): smoothed
+ * audio per column, a shaded bar below it, transparent above. */
+in vec4 gl_FragCoord;
+#request uniform "screen" screen
+uniform ivec2 screen;
+#request uniform "audio_sz" audio_sz
+uniform int audio_sz;
+#request uniform "audio_l" audio_l
+#request transform audio_l "window"
+#request transform audio_l "fft"
+#request transform audio_l "gravity"
+#request transform audio_l "avg"
+uniform sampler1D audio_l;
+out vec4 fragment;
+
+void main() {
+    float pos = gl_FragCoord.x / screen.x;
+    float v = smooth_audio(audio_l, audio_sz, pos) * 250;
+    if (gl_FragCoord.y < v) {
+        float t = clamp(gl_FragCoord.y / v, 0.0, 1.0);
+        fragment = vec4(vec3(0.13, 0.67, 0.4) * (1.0 - 0.5 * t), 1.0);
+        return;
+    }
+    fragment = vec4(0, 0, 0, 0);
+}
+"""
+
+AA_WALK_FRAG = """
+/* Anti-alias pass in the manner of graph/3.frag: walk each column from
+ * the pixel to the edge of the drawn area (first-hit walks: the key
+ * scan), then blend towards the texel at the edge (fetches at the walk
+ * results: the latch scan). */
+in vec4 gl_FragCoord;
+#request uniform "screen" screen
+uniform ivec2 screen;
+#request uniform "prev" tex
+uniform sampler2D tex;
+out vec4 fragment;
+
+float get_col_height_up(float x, float oy) {
+    float y = oy;
+    while (y < screen.y) {
+        vec4 f = texelFetch(tex, ivec2(x, y), 0);
+        if (f.a <= 0) {
+            y -= 1;
+            break;
+        }
+        y += 1;
+    }
+    return y;
+}
+
+float get_col_height_down(float x, float oy) {
+    float y = oy;
+    while (y >= 0) {
+        vec4 f = texelFetch(tex, ivec2(x, y), 0);
+        if (f.a > 0) {
+            break;
+        }
+        y -= 1;
+    }
+    return y;
+}
+
+void main() {
+    fragment = texelFetch(tex, ivec2(gl_FragCoord.x, gl_FragCoord.y), 0);
+    float a0 = get_col_height_up(gl_FragCoord.x - 1, gl_FragCoord.y);
+    float a1 = get_col_height_up(gl_FragCoord.x + 1, gl_FragCoord.y);
+    float b = get_col_height_down(gl_FragCoord.x, gl_FragCoord.y);
+    vec4 edge = texelFetch(tex, ivec2(gl_FragCoord.x - 1, a0), 0);
+    vec4 below = texelFetch(tex, ivec2(gl_FragCoord.x, b), 0);
+    if (fragment.a <= 0) {
+        float d = min(abs(gl_FragCoord.y - a0), abs(gl_FragCoord.y - a1));
+        float k = clamp(1.0 - d / 4.0, 0.0, 1.0) * 0.5;
+        fragment = mix(fragment, edge, k);
+    } else {
+        float t = clamp((gl_FragCoord.y - b) / 64.0, 0.0, 1.0);
+        fragment = mix(below, fragment, 0.5 + 0.5 * t);
+    }
+}
+"""
+
+COL_FETCH_FRAG = """
+/* Fetches of the previous pass at rows known only at run time: at an
+ * audio-driven row and at a walk result in another column than the
+ * walk's (the row-wise lookup, four channels in one launch, each). */
+in vec4 gl_FragCoord;
+#request uniform "screen" screen
+uniform ivec2 screen;
+#request uniform "audio_l" audio_l
+#request transform audio_l "window"
+#request transform audio_l "fft"
+#request transform audio_l "gravity"
+#request transform audio_l "avg"
+uniform sampler1D audio_l;
+#request uniform "prev" tex
+uniform sampler2D tex;
+out vec4 fragment;
+
+float top(float x) {
+    float y = gl_FragCoord.y;
+    while (y < screen.y) {
+        vec4 f = texelFetch(tex, ivec2(x, y), 0);
+        if (f.a <= 0) {
+            break;
+        }
+        y += 1;
+    }
+    return y;
+}
+
+void main() {
+    float h2 = top(gl_FragCoord.x);
+    vec4 c = texelFetch(tex, ivec2(gl_FragCoord.x + 1, h2), 0);
+    float v = texture(audio_l, gl_FragCoord.x / screen.x).r;
+    vec4 d = texelFetch(tex, ivec2(gl_FragCoord.x, v * screen.y * 4.0), 0);
+    vec4 here = texelFetch(tex, ivec2(gl_FragCoord.x, gl_FragCoord.y), 0);
+    fragment = max(here, vec4(c.rgb * 0.5, c.a * 0.5))
+               + vec4(0, 0, d.g * 0.25, d.a * 0.25);
+}
+"""
+
+RINGS = ROOT / "docs" / "examples" / "rings"
+SHADER_MODULES = {
+    "rings": lambda: tuple((RINGS / f"{i}.frag").read_text() for i in (1, 2)),
+    "aawalk": lambda: (BASE_FRAG, AA_WALK_FRAG),
+    "colfetch": lambda: (BASE_FRAG, COL_FETCH_FRAG),
+}
+
+# kernel launches a frame (fused_update: one an audio update instead).
+# rings: one smooth_audio table fetch (its polar index plane). aawalk:
+# the bar pass's smooth_audio fetch; three first-hit walks whose two
+# signatures make two key scans (C = 0), the x+1 up-walk sharing the
+# x-1 scan; two fetches at walk results in the walks' own columns, two
+# latch scans (C = 4). colfetch: two table fetches (smooth_audio and
+# texture); one walk, one key scan; the fetch at the walk result in
+# the next column and the fetch at the audio-driven row, one row-wise
+# lookup with C = 4 each.
+LAUNCHES = {
+    "bars": {}, "wave": {}, "graph": {}, "test": {},
+    "radial": {"table_lookup": 1}, "circle": {"table_lookup": 1},
+    "rings": {"table_lookup": 1},
+    "aawalk": {"table_lookup": 1, "latch_scan C=0": 2, "latch_scan C=4": 2},
+    "colfetch": {"table_lookup": 2, "rowwise_lookup C=4": 2,
+                 "latch_scan C=0": 1},
+}
+
+
+def write_shader_modules(root: Path) -> Path:
+    """Write every ``SHADER_MODULES`` entry as ``root/<name>/<k>.frag``
+    (a config dir for ``loader.load(user_dir=root)``); returns root."""
+    for name, frags in SHADER_MODULES.items():
+        d = root / name
+        d.mkdir(parents=True, exist_ok=True)
+        for i, src in enumerate(frags(), start=1):
+            (d / f"{i}.frag").write_text(src)
+    return root
 
 
 def golden_rule(got: np.ndarray, want: np.ndarray) -> float:
@@ -102,14 +285,16 @@ def phase_build():
     from glava_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    built = _build.load_all(KERNELS)
+    built = _build.load_all()
     total = time.perf_counter() - t0
+    if tuple(built) != KERNELS:
+        raise AssertionError(f"built {tuple(built)}, expected {KERNELS}")
     for name, b in built.items():
         ptxas = " | ".join(ln.strip() for ln in b.log.splitlines()
                            if "registers" in ln or "smem" in ln)
         print(f"[2 build] {name}: nvcc {b.seconds:.2f} s, {b.path.name}; "
               f"{ptxas or 'no ptxas log'}")
-    print(f"[2 build] both kernels built and loaded in {total:.2f} s")
+    print(f"[2 build] {len(built)} kernels built and loaded in {total:.2f} s")
 
 
 def _case(n: int, B: int, F: int, rng) -> float:
@@ -226,13 +411,97 @@ def phase_lookup() -> float:
     return worst
 
 
-def _fixed_frame(device: str, screen=None, reqs=(), module="bars") -> np.ndarray:
+LATCH_SHAPE = (1081, 1920)   # a 1080p walk's rows [-1, h) x columns
+
+
+def latch_inputs(C: int, reverse: bool, seed: int = 5):
+    """A first-hit key plane (``2*row + type`` at 15% of the cells, the
+    sentinel elsewhere, the last column event-free) and C candidate
+    planes on the card, at ``LATCH_SHAPE``."""
+    rng = np.random.default_rng(seed)
+    E, W = LATCH_SHAPE
+    sent = float(np.float32(1 << 30)) if reverse else -1.0
+    rows = np.arange(E, dtype=np.int64)[:, None]
+    event = rng.random((E, W)) < 0.15
+    event[:, -1] = False
+    key = np.where(event, 2 * rows + rng.integers(0, 2, (E, W)), sent)
+    t = lambda a: torch.as_tensor(a.astype(np.float32), device="cuda")  # noqa: E731
+    return t(key), tuple(t(rng.standard_normal((E, W))) for _ in range(C)), sent
+
+
+def phase_latch() -> float:
+    """latch_scan vs latch_scan_plain, bit for bit."""
+    from glava_tpu_torch.ops import latch
+
+    cases = []
+    for C in (0, 4):
+        for reverse in (True, False):
+            key, cands, sent = latch_inputs(C, reverse)
+            got = latch.latch_scan(key, cands, reverse, sent)
+            want = latch.latch_scan_plain(key, cands, reverse, sent)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"latch_scan C={C} reverse={reverse}: "
+                                     "kernel != plain")
+            cases.append(f"C{C}/{'suffix-min' if reverse else 'prefix-max'}")
+    print(f"[3 kernel] latch_scan vs plain at {LATCH_SHAPE}, torch.equal on "
+          f"every output: {', '.join(cases)}; max abs err 0.0")
+    return 0.0
+
+
+ROWWISE_SHAPE = (1920, 1080, 1080)   # N = W columns, T = P = H rows
+
+
+def rowwise_inputs(C: int, transposed: bool, seed: int = 6):
+    """C (N, T) tables and an (N, P) int32 index plane on the card at
+    ``ROWWISE_SHAPE``; ``transposed`` gives ``.T`` views of (H, W)
+    planes, as the interpreter's column fetch passes them."""
+    rng = np.random.default_rng(seed)
+    N, T, P = ROWWISE_SHAPE
+    t = lambda a: torch.as_tensor(a, device="cuda")  # noqa: E731
+    if transposed:
+        tabs = tuple(t(rng.standard_normal((T, N)).astype(np.float32)).T
+                     for _ in range(C))
+        idx = t(rng.integers(0, T, (P, N)).astype(np.int32)).T
+    else:
+        tabs = tuple(t(rng.standard_normal((N, T)).astype(np.float32))
+                     for _ in range(C))
+        idx = t(rng.integers(0, T, (N, P)).astype(np.int32))
+    return tabs, idx
+
+
+def phase_rowwise() -> float:
+    """rowwise_lookup vs rowwise_lookup_plain, bit for bit."""
+    from glava_tpu_torch.ops import lookup
+
+    worst = 0.0
+    cases = []
+    for C in (1, 4):
+        for transposed in (False, True):
+            tabs, idx = rowwise_inputs(C, transposed)
+            got = lookup.rowwise_lookup(tabs, idx)
+            want = lookup.rowwise_lookup_plain(tabs, idx)
+            torch.cuda.synchronize()
+            if not all(g.shape == w.shape and torch.equal(g, w)
+                       for g, w in zip(got, want)):
+                raise AssertionError(f"rowwise_lookup C={C} "
+                                     f"transposed={transposed}: kernel != plain")
+            worst = max(worst, max((g - w).abs().max().item()
+                                   for g, w in zip(got, want)))
+            cases.append(f"C{C}/{'T views' if transposed else 'contiguous'}")
+    print(f"[3 kernel] rowwise_lookup vs plain at (N, T, P) {ROWWISE_SHAPE}, "
+          f"torch.equal: {', '.join(cases)}; max abs err {worst}")
+    return worst
+
+
+def _fixed_frame(device: str, screen=None, reqs=(), module="bars",
+                 user_dir=None) -> np.ndarray:
     """The final uint8 frame of 24 updates of fixed stereo tones
     (tests/test_golden.py's input) through the shipped rc.glsl."""
     from glava_tpu_torch.config import loader
     from glava_tpu_torch.renderer import Renderer
 
-    lc = loader.load(cli_requests=reqs, force_module=module)
+    lc = loader.load(cli_requests=reqs, force_module=module, user_dir=user_dir)
     r = Renderer(lc, screen=screen, device=device)
     cfg = lc.cfg
     tt = np.arange(cfg.sample_rate) / cfg.sample_rate
@@ -251,31 +520,48 @@ def _fixed_frame(device: str, screen=None, reqs=(), module="bars") -> np.ndarray
     return frame.cpu().numpy()
 
 
-def _engine_run(frames: int, screen=None, module=None):
+def _counts() -> dict:
+    from glava_tpu_torch.ops import fused, latch, lookup
+
+    counts = {"fused_update": fused.launches, "table_lookup": lookup.launches}
+    counts.update({f"rowwise_lookup C={C}": n
+                   for C, n in lookup.rowwise_launches.items()})
+    counts.update({f"latch_scan C={C}": n for C, n in latch.launches.items()})
+    return counts
+
+
+def _zero_counts() -> None:
+    from glava_tpu_torch.ops import fused, latch, lookup
+
+    fused.launches = lookup.launches = 0
+    lookup.rowwise_launches = dict.fromkeys(lookup.rowwise_launches, 0)
+    latch.launches = dict.fromkeys(latch.launches, 0)
+
+
+def _engine_run(frames: int, screen=None, module=None, user_dir=None):
     """One main-path run: the counts are set to 0 just before the run
     and read just after it."""
-    from glava_tpu_torch.ops import fused, lookup
     from glava_tpu_torch.runtime.engine import Engine, EngineOptions
     from glava_tpu_torch.runtime.sinks import NullSink
 
     eng = Engine(EngineOptions(audio_backend="synth", screen=screen,
-                               force_module=module, device="cuda"),
+                               force_module=module, user_dir=user_dir,
+                               device="cuda"),
                  sink=NullSink())
-    fused.launches = 0
-    lookup.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     eng.run(max_frames=frames)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = {"fused_update": fused.launches, "table_lookup": lookup.launches}
+    counts = _counts()
     name = eng.loaded.module
     w, h = eng.renderer.screen
     if eng.frames_rendered != frames:
         raise AssertionError(f"{name}: engine rendered {eng.frames_rendered} "
                              f"of {frames}")
     fft = name != "wave"
-    want = {"fused_update": eng.updates if fft else 0,
-            "table_lookup": frames if name in ("radial", "circle") else 0}
+    want = {k: frames * LAUNCHES[name].get(k, 0) for k in COUNTED}
+    want["fused_update"] = eng.updates if fft else 0
     if counts != want or (fft and eng.updates == 0):
         raise AssertionError(f"{name} {w}x{h}: launches {counts}, expected "
                              f"{want} ({eng.updates} updates)")
@@ -289,17 +575,22 @@ RUNS = (
     ("radial", None, 200), ("radial", (1920, 1080), 120),
     ("circle", None, 200), ("circle", (1920, 1080), 120),
     ("wave", None, 200), ("graph", None, 200),
+    ("rings", None, 40), ("rings", (1920, 1080), 20),
+    ("aawalk", None, 40), ("aawalk", (1920, 1080), 20),
+    ("colfetch", None, 40), ("colfetch", (1920, 1080), 20),
 )
 
 
-def phase_main_path() -> dict:
+def phase_main_path(user_dir: str) -> dict:
     from glava_tpu_torch.runtime.engine import Engine, EngineOptions
     from glava_tpu_torch.runtime.sinks import NullSink
 
-    totals = dict.fromkeys(KERNELS, 0)
+    totals = dict.fromkeys(PATH, 0)
     for module, screen, frames in RUNS:
-        counts = _engine_run(frames, screen, module)
-        for k in KERNELS:
+        shader = module in SHADER_MODULES
+        counts = _engine_run(frames, screen, module,
+                             user_dir if shader else None)
+        for k in PATH:
             totals[k] += counts[k]
     if not all(totals.values()):
         raise AssertionError(f"a kernel of the path never launched: {totals}")
@@ -312,9 +603,10 @@ def phase_main_path() -> dict:
     golden = np.load(ROOT / "tests" / "golden" / "frames.npz")
     sizes = {"bars": (192, 128), "radial": (300, 300), "graph": (192, 128),
              "wave": (192, 128), "circle": (300, 300)}   # test_golden.CASES
-    for module in MODULES:
-        gpu = _fixed_frame("cuda", module=module)
-        cpu = _fixed_frame("cpu", module=module)
+    for module in MODULES + tuple(SHADER_MODULES):
+        ud = user_dir if module in SHADER_MODULES else None
+        gpu = _fixed_frame("cuda", module=module, user_dir=ud)
+        cpu = _fixed_frame("cpu", module=module, user_dir=ud)
         frac = golden_rule(gpu, cpu)
         if frac >= 0.002 or not (gpu[..., 3] > 0).any():
             raise AssertionError(f"{module} cuda vs cpu 800x600: {frac:.4%} off")
@@ -349,8 +641,14 @@ def _update_times(n: int, B: int):
     )
     kernel = cuda_ms(lambda: fused.fused_update(*args), 500)
     plain = cuda_ms(lambda: fused.fused_update_plain(*args), 200)
+    m = n // 2
+    plane = B * 2 * m * 4
+    # read once: pcm, window, weights, slots + 3 row params, gravity and
+    # the whole history; written once: gravity, one history slot, average
+    nbytes = (B * n * 4 + n * 4 + F * 4 + 4 * B * 4 + plane + F * plane
+              + 3 * plane)
     return kernel, plain, device_ms(lambda: fused.fused_update(*args)), \
-        device_ms(lambda: fused.fused_update_plain(*args))
+        device_ms(lambda: fused.fused_update_plain(*args)), nbytes
 
 
 def device_ms(fn, iters: int = 100) -> float:
@@ -372,6 +670,14 @@ def device_ms(fn, iters: int = 100) -> float:
     return busy / 1e3 / iters
 
 
+def bound_ms(nbytes: float) -> float:
+    """Least time to move ``nbytes`` through device memory. Every kernel
+    here does a handful of operations a byte (compares, selects, one
+    float64 FFT of ~5 m log2 m flops a row), orders of magnitude under
+    the card's peak rates, so the bytes bound each one."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
 def _lookup_times():
     """Device time per call of the lookup on circle's 1080p planes."""
     from glava_tpu_torch.ops import lookup
@@ -380,16 +686,65 @@ def _lookup_times():
     tab = torch.as_tensor(np.random.default_rng(4).random(lk.table_size,
                                                           dtype=np.float32),
                           device="cuda")
-    return (device_ms(lambda: lookup.table_lookup(tab, lk.idx)),
-            device_ms(lambda: lookup.table_lookup_plain(tab, lk.idx)),
-            lk.idx.numel())
+    flat = lk.idx.reshape(-1)
+    P = lk.idx.numel()
+    return {"ms": device_ms(lambda: lookup.table_lookup(tab, lk.idx)),
+            "plain_ms": device_ms(lambda: lookup.table_lookup_plain(tab, lk.idx)),
+            "library_ms": device_ms(lambda: torch.index_select(tab, 0, flat)),
+            "bound_ms": bound_ms(lk.table_size * 4 + 2 * P * 4),
+            "what": f"circle 1920x1080 ({P} points, T {lk.table_size}); "
+                    "library torch.index_select"}
 
 
-def _frame_ms(screen, module="bars"):
+def _rowwise_times():
+    """Device time per call at 1080p on ``.T`` views, C in {1, 4} (the
+    column fetch at a run-time row takes C = 4)."""
+    from glava_tpu_torch.ops import lookup
+
+    N, T, P = ROWWISE_SHAPE
+    out = {}
+    for C in (1, 4):
+        tabs, idx = rowwise_inputs(C, True)
+        idx64 = idx.long()
+        out[C] = {
+            "ms": device_ms(lambda: lookup.rowwise_lookup(tabs, idx)),
+            "plain_ms": device_ms(lambda: lookup.rowwise_lookup_plain(tabs, idx), 20),
+            "library_ms": device_ms(
+                lambda: [torch.gather(t, 1, idx64) for t in tabs]),
+            "bound_ms": bound_ms(N * P * 4 + C * (N * T + N * P) * 4),
+            "what": f"C {C}, (N, T, P) {ROWWISE_SHAPE}, .T views; "
+                    f"library torch.gather x{C} (int64 index made once)"}
+    return out
+
+
+def _latch_times():
+    """Device time per call at (1081, 1920): C = 0 prefix max (where
+    one library call, torch.cummax, computes the same key scan) and
+    C = 4 suffix min."""
+    from glava_tpu_torch.ops import latch
+
+    E, W = LATCH_SHAPE
+    out = {}
+    for C, reverse in ((0, False), (4, True)):
+        key, cands, sent = latch_inputs(C, reverse)
+        out[C] = {
+            "ms": device_ms(lambda: latch.latch_scan(key, cands, reverse, sent)),
+            "plain_ms": device_ms(
+                lambda: latch.latch_scan_plain(key, cands, reverse, sent), 3),
+            "library_ms": (device_ms(lambda: torch.cummax(key, 0))
+                           if C == 0 else None),
+            "bound_ms": bound_ms(2 * (1 + C) * E * W * 4),
+            "what": f"C {C}, {'suffix min' if reverse else 'prefix max'}, "
+                    f"({E}, {W})" + ("; library torch.cummax" if C == 0 else "")}
+    return out
+
+
+def _frame_ms(screen, module="bars", user_dir=None, iters=200):
     from glava_tpu_torch.config import loader
     from glava_tpu_torch.renderer import Renderer
 
-    r = Renderer(loader.load(force_module=module), screen=screen, device="cuda")
+    r = Renderer(loader.load(force_module=module, user_dir=user_dir),
+                 screen=screen, device="cuda")
     rng = np.random.default_rng(2)
     audio = torch.as_tensor(rng.standard_normal((64, 2, 4096)) * 0.3,
                             dtype=torch.float32, device="cuda")
@@ -401,16 +756,16 @@ def _frame_ms(screen, module="bars"):
         box["k"] += 1
         return f.cpu()
 
-    return cuda_ms(frame, 200), r, frame
+    return cuda_ms(frame, iters), r, frame
 
 
-def _profile(frame, label: str, card: str):
+def _profile(frame, label: str, card: str, frames: int = 50):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(50):
+        for _ in range(frames):
             frame()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
@@ -424,64 +779,90 @@ def _profile(frame, label: str, card: str):
     if busy > 0:
         share = ", ".join(f"{e.key[:48]} {e.self_device_time_total / busy:.0%}"
                           for e in top)
-        print(f"[5 times] profile 50 frames {label}: device busy "
-              f"{busy / wall_us:.1%} of {wall_us / 50:.0f} us/frame wall, "
-              f"{busy / 50:.0f} us/frame device; kernel share: {share} ({card})")
+        print(f"[5 times] profile {frames} frames {label}: device busy "
+              f"{busy / wall_us:.1%} of {wall_us / frames:.0f} us/frame wall, "
+              f"{busy / frames:.0f} us/frame device; kernel share: {share} "
+              f"({card})")
     else:
         print(f"[5 times] profile {label}: no device time recorded (not measured)")
 
 
-def phase_times(card: str):
+def _print_kernel_time(name: str, t: dict, card: str) -> None:
+    lib = ("none" if t["library_ms"] is None
+           else f"{t['library_ms'] * 1e3:.2f} us")
+    print(f"[5 times] {name} {t['what']}: device time kernel "
+          f"{t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} us, "
+          f"library {lib}, bound {t['bound_ms'] * 1e3:.2f} us (bytes) ({card})")
+
+
+def phase_times(card: str, user_dir: str) -> dict:
     times = {}
     for B in (2, 128):
-        times[B] = _update_times(4096, B)
-        lk, lp, dk, dp = (v * 1e3 for v in times[B])
+        lk, lp, dk, dp, nbytes = _update_times(4096, B)
+        times[B] = {"ms": dk, "plain_ms": dp, "library_ms": None,
+                    "bound_ms": bound_ms(nbytes)}
         print(f"[5 times] fused update n4096 B{B}: device time kernel "
-              f"{dk:.2f} us, plain {dp:.2f} us; event-timed host loop kernel "
-              f"{lk:.2f} us, plain {lp:.2f} us ({card})")
-    lk_k, lk_p, points = _lookup_times()
-    print(f"[5 times] table_lookup circle 1920x1080 ({points} points, T 8192): "
-          f"device time kernel {lk_k * 1e3:.2f} us, plain {lk_p * 1e3:.2f} us "
-          f"({card})")
+              f"{dk * 1e3:.2f} us, plain {dp * 1e3:.2f} us, bound "
+              f"{times[B]['bound_ms'] * 1e3:.3f} us (bytes); event-timed host "
+              f"loop kernel {lk * 1e3:.2f} us, plain {lp * 1e3:.2f} us ({card})")
+    out = {"fused_update": times[2], "table_lookup": _lookup_times()}
+    _print_kernel_time("table_lookup", out["table_lookup"], card)
+    for C, t in _rowwise_times().items():
+        out[f"rowwise_lookup C={C}"] = t
+        _print_kernel_time("rowwise_lookup", t, card)
+    for C, t in _latch_times().items():
+        out[f"latch_scan C={C}"] = t
+        _print_kernel_time("latch_scan", t, card)
     frames = {}
-    for module in ("bars", "radial", "circle"):
-        ms8, _, f8 = _frame_ms(None, module)
-        ms10, _, f10 = _frame_ms((1920, 1080), module)
+    for module in ("bars", "radial", "circle") + tuple(SHADER_MODULES):
+        shader = module in SHADER_MODULES
+        ud = user_dir if shader else None
+        iters = 20 if shader else 200
+        ms8, _, f8 = _frame_ms(None, module, ud, iters)
+        ms10, _, f10 = _frame_ms((1920, 1080), module, ud, iters)
         frames[module] = (f8, f10)
         print(f"[5 times] {module} frame (update + raster + uint8 + host copy) "
               f"800x600: {ms8:.3f} ms = {1e3 / ms8:.1f} fps; 1920x1080: "
               f"{ms10:.3f} ms = {1e3 / ms10:.1f} fps ({card})")
     _profile(frames["bars"][0], "bars 800x600", card)
     _profile(frames["circle"][1], "circle 1920x1080", card)
-    return times[2][2], times[2][3], lk_k, lk_p
+    _profile(frames["aawalk"][1], "aawalk 1920x1080", card, frames=10)
+    _profile(frames["colfetch"][1], "colfetch 1920x1080", card, frames=10)
+    return out
+
+
+# the TPU kernel each entry of PATH replaces
+REPLACES = {
+    "fused_update": "glava_tpu/ops/pallas/fused.py:712",
+    "table_lookup": "glava_tpu/ops/pallas/lookup.py:53,289,319",
+    "rowwise_lookup C=4": "glava_tpu/ops/pallas/lookup.py:210",
+    "latch_scan C=0": "glava_tpu/ops/pallas/latch.py:82",
+    "latch_scan C=4": "glava_tpu/ops/pallas/latch.py:82",
+}
 
 
 def main() -> int:
     card = phase_device()
     phase_build()
-    worst = phase_kernel()
-    lk_worst = phase_lookup()
-    launches = phase_main_path()
-    k2, p2, lk_k, lk_p = phase_times(card)
+    errs = {"fused_update": phase_kernel(), "table_lookup": phase_lookup(),
+            "latch_scan": phase_latch(), "rowwise_lookup": phase_rowwise()}
+    with tempfile.TemporaryDirectory() as td:
+        user_dir = str(write_shader_modules(Path(td)))
+        launches = phase_main_path(user_dir)
+        times = phase_times(card, user_dir)
     print(json.dumps({"kernels": [{
-        "name": "fused_update",
+        "name": name,
         "route": "cuda",
-        "source": "glava_tpu_torch/csrc/fused_update.cu",
-        "replaces": "glava_tpu/ops/pallas/fused.py:712",
-        "launches": launches["fused_update"],
-        "max_abs_err": worst,
-        "ms": k2,
-        "plain_ms": p2,
-    }, {
-        "name": "table_lookup",
-        "route": "cuda",
-        "source": "glava_tpu_torch/csrc/table_lookup.cu",
-        "replaces": "glava_tpu/ops/pallas/lookup.py:53,289,319",
-        "launches": launches["table_lookup"],
-        "max_abs_err": lk_worst,
-        "ms": lk_k,
-        "plain_ms": lk_p,
-    }]}))
+        "source": f"glava_tpu_torch/csrc/{name.split()[0]}.cu",
+        "replaces": REPLACES[name],
+        "launches": launches[name],
+        "max_abs_err": errs[name.split()[0]],
+        "ms": times[name]["ms"],
+        "plain_ms": times[name]["plain_ms"],
+        "bound_ms": times[name]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": times[name]["library_ms"],
+    } for name in PATH]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

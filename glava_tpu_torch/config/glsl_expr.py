@@ -211,8 +211,11 @@ def _tensor(x, device=None) -> torch.Tensor:
     jnp-without-x64 promotion the JAX package's evaluator sees)."""
     if isinstance(x, torch.Tensor):
         return x
-    t = torch.as_tensor(x if isinstance(x, (bool, int, float))
-                        else np.asarray(x), device=device)
+    if not isinstance(x, (bool, int, float)):
+        x = np.asarray(x)
+        if not x.flags.writeable:   # e.g. a broadcast view
+            x = x.copy()
+    t = torch.as_tensor(x, device=device)
     if t.dtype == torch.float64:
         return t.to(torch.float32)
     if t.dtype == torch.int64:

@@ -45,6 +45,9 @@ class LoadedConfig:
     entry_path: Path
     module: str
     defines: dict[str, str] = field(default_factory=dict)
+    # user GLSL shader modules this load registered: name -> (builder,
+    # uniforms), shadowing built-ins of the same name
+    module_overrides: dict = field(default_factory=dict)
 
 
 def _dispatcher(cfg: RenderConfig):
@@ -114,12 +117,21 @@ def load(
         if args:
             on_request(args[0], args[1:], "<request>", 0)
 
-    # 4. module knobs + smoothing params. User Python modules and
-    # drop-in GLSL shader modules (the reference scans config-root
-    # module dirs, render.c:1488-1597) need the GLSL interpreter,
-    # which is not ported yet.
+    # 4. drop-in GLSL shader modules (the reference scans config-root
+    # module dirs, render.c:1488-1597), registered into this load's
+    # override map, then module knobs + smoothing params. User Python
+    # modules are JAX programs and are refused.
+    module_overrides: dict = {}
     if user_dir is not None:
-        _refuse_user_modules(user_dir)
+        _refuse_python_modules(user_dir)
+        from glava_tpu_torch.render.modules.glsl_module import (
+            register_shader_module,
+            scan_shader_modules,
+        )
+
+        for mname, mdir in scan_shader_modules(user_dir).items():
+            register_shader_module(mname, mdir, user_dir, system_dir,
+                                   registry=module_overrides)
     if force_module:
         cfg.module = force_module
     module = cfg.module
@@ -138,28 +150,22 @@ def load(
     )
     return LoadedConfig(
         cfg=cfg, env=env, entry_path=entry_path, module=module,
-        defines=dict(ctx.defines),
+        defines=dict(ctx.defines), module_overrides=module_overrides,
     )
 
 
-def _refuse_user_modules(user_dir: Path) -> None:
-    """Raise on the user module kinds the port cannot run yet:
-    ``<user_dir>/modules/*.py`` and ``<user_dir>/<name>/1.frag``
-    shader directories (the JAX package's ``load_user_modules`` and
-    ``scan_shader_modules``). Knob files (``<user_dir>/<module>.glsl``)
-    load as usual."""
+def _refuse_python_modules(user_dir: Path) -> None:
+    """Raise on ``<user_dir>/modules/*.py``: the JAX package's user
+    Python modules (``load_user_modules``) are JAX programs, which the
+    port does not run. Shader directories and knob files load."""
     if not user_dir.is_dir():
         return
     found = sorted(p.name for p in (user_dir / "modules").glob("*.py"))
-    found += sorted(
-        d.name for d in user_dir.iterdir()
-        if d.is_dir() and d.name not in ("modules", "profiles", "util")
-        and (d / "1.frag").is_file()
-    )
     if found:
         raise NotImplementedError(
-            f"user modules {found} in '{user_dir}' need the GLSL "
-            "interpreter, which is not yet ported (ROADMAP slice 3)"
+            f"user Python modules {found} in '{user_dir / 'modules'}' are "
+            "JAX programs; the port runs GLSL shader modules "
+            "(<user_dir>/<name>/1.frag) only"
         )
 
 

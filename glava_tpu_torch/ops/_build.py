@@ -24,6 +24,8 @@ from dataclasses import dataclass
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
+# every kernel of the package, one source each
+KERNELS = ("fused_update", "table_lookup", "rowwise_lookup", "latch_scan")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "glava_tpu_torch"
 # no --use_fast_math: logf accuracy is part of the 2e-5 spectrum contract
 NVCC_FLAGS = (
@@ -67,9 +69,10 @@ def load(name: str) -> Built:
     return load_all([name])[name]
 
 
-def load_all(names) -> dict[str, Built]:
-    """Build (if needed) and load several sources, their ``nvcc`` runs
-    started together so the builds overlap."""
+def load_all(names=KERNELS) -> dict[str, Built]:
+    """Build (if needed) and load several sources (by default every
+    kernel of the package), their ``nvcc`` runs started together so the
+    builds overlap."""
     jobs = {}
     for name in names:
         if name in _LOADED:

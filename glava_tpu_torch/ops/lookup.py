@@ -11,9 +11,13 @@ fetch ``_fetch_1d`` (``glava_tpu/config/glsl_shader.py``).
 * :class:`StaticLookup` holds an index plane fixed at build time on the
   device (the radial and circle rasters), checked once.
 * :func:`fetch_1d` clips texel indices into a texture, then gathers.
+* :func:`rowwise_lookup` gathers every row from its own table row, the
+  counterpart of ``build_rowwise_lookup`` and
+  ``build_rowwise_lookup_mc`` (kernel: ``csrc/rowwise_lookup.cu``):
+  the interpreter's column-aligned texel fetch at a runtime row.
 
-The result is pure data movement, so the kernel and the plain version
-agree bit for bit.
+Every result is pure data movement, so each kernel and its plain
+version agree bit for bit.
 """
 
 from __future__ import annotations
@@ -122,3 +126,99 @@ def fetch_1d(tex: torch.Tensor, i: torch.Tensor, sz: int) -> torch.Tensor:
     texture (``_fetch_1d``), through :func:`table_lookup`."""
     ic = torch.clamp(torch.as_tensor(i, device=tex.device), 0, sz - 1)
     return table_lookup(tex, ic.to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# row-wise lookup: every row gathers from its own table row
+# ---------------------------------------------------------------------------
+
+ROWWISE_CHANNELS = (1, 4)
+
+# kernel launches made by rowwise_lookup (CUDA tensors only), by C
+rowwise_launches = dict.fromkeys(ROWWISE_CHANNELS, 0)
+
+
+def rowwise_lookup_plain(tabs, idx: torch.Tensor) -> tuple:
+    """``out[c][i, j] = tabs[c][i, idx[i, j]]`` with ``torch.gather``:
+    tabs a tuple of C (N, T) float32, idx (N, P) integer in [0, T)
+    (raises otherwise) -> a tuple of C (N, P) float32."""
+    T = tabs[0].shape[1]
+    if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= T):
+        raise ValueError(f"rowwise_lookup: indices must lie in [0, {T}), got "
+                         f"[{int(idx.min())}, {int(idx.max())}]")
+    il = idx.long()
+    return tuple(torch.gather(t, 1, il) for t in tabs)
+
+
+def rowwise_lookup(tabs, idx: torch.Tensor) -> tuple:
+    """:func:`rowwise_lookup_plain` on CPU tensors; the CUDA kernel
+    (``csrc/rowwise_lookup.cu``, the counterpart of the TPU kernels
+    ``build_rowwise_lookup`` and ``build_rowwise_lookup_mc``) on CUDA
+    tensors, which raises when the inputs are not what it takes. Every
+    operand may be a strided view (``plane.T`` of an (H, W) plane): the
+    kernel reads through the strides, and an output takes the layout of
+    ``idx``. Indices must lie in [0, T): the kernel does not check them
+    (one outside reads as NaN), the plain version raises."""
+    tabs = tuple(tabs)
+    if idx.device.type == "cpu":
+        return rowwise_lookup_plain(tabs, idx)
+    if idx.device.type != "cuda":
+        raise ValueError(f"rowwise_lookup: unsupported device {idx.device}")
+    return _launch_rowwise(tabs, idx)
+
+
+def _launch_rowwise(tabs, idx):
+    C = len(tabs)
+    if C not in ROWWISE_CHANNELS:
+        raise ValueError(f"rowwise_lookup: C must be one of "
+                         f"{ROWWISE_CHANNELS}, got {C}")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"rowwise_lookup: indices must be int32, got {idx.dtype}")
+    if idx.ndim != 2:
+        raise ValueError(f"rowwise_lookup: idx must be (N, P), got "
+                         f"{tuple(idx.shape)}")
+    N, P = idx.shape
+    shape = tabs[0].shape
+    for c, t in enumerate(tabs):
+        if t.dtype != torch.float32:
+            raise TypeError(f"rowwise_lookup: tabs[{c}] must be float32, got "
+                            f"{t.dtype}")
+        if t.device != idx.device:
+            raise ValueError(f"rowwise_lookup: tabs[{c}] on {t.device}, idx on "
+                             f"{idx.device}")
+        if t.ndim != 2 or t.shape[0] != N or t.shape != shape:
+            raise ValueError(f"rowwise_lookup: tabs[{c}] has shape "
+                             f"{tuple(t.shape)}, expected ({N}, T) like tabs[0]")
+        if t.stride() != tabs[0].stride():
+            raise ValueError("rowwise_lookup: the tables must share one layout")
+    T = shape[1]
+    if min(N, P, T) < 1:
+        raise ValueError(f"rowwise_lookup: empty operand (N {N}, T {T}, P {P})")
+    # outputs take idx's layout: a transposed view stays transposed, so
+    # the points that are neighbours in memory stay neighbours
+    i_fast = idx.stride(0) < idx.stride(1)
+    if i_fast:
+        outs = [torch.empty((P, N), dtype=torch.float32, device=idx.device).T
+                for _ in tabs]
+    else:
+        outs = [torch.empty((N, P), dtype=torch.float32, device=idx.device)
+                for _ in tabs]
+
+    from glava_tpu_torch.ops import _build
+
+    fn = _build.load("rowwise_lookup").lib.glava_rowwise_lookup
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+        ctypes.c_longlong] * 6 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    tab_ptrs = (ctypes.c_void_p * C)(*[t.data_ptr() for t in tabs])
+    out_ptrs = (ctypes.c_void_p * C)(*[o.data_ptr() for o in outs])
+    ts, xs, os_ = tabs[0].stride(), idx.stride(), outs[0].stride()
+    with torch.cuda.device(idx.device):
+        stream = torch.cuda.current_stream(idx.device).cuda_stream
+        err = fn(tab_ptrs, idx.data_ptr(), out_ptrs, C, N, T, P,
+                 ts[0], ts[1], xs[0], xs[1], os_[0], os_[1], int(i_fast),
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"rowwise_lookup kernel launch failed: CUDA error {err}")
+    rowwise_launches[C] += 1
+    return tuple(outs)

@@ -4,9 +4,12 @@ The device-side "update" half of the reference's frame loop (the
 ``handle_audio`` closure, glava/render.c:2113-2309). A module's
 uniforms come in two kinds:
 
-* **fft uniforms** run the standard chain ``window, fft, gravity,
-  avg``; the texture the rasterizer samples is the age-weighted average
-  after the default smooth pass (render.c:2276-2303), a baked resample.
+* **fft uniforms** (any chain holding ``fft``) run the accel path's
+  spectrum -> gravity -> history -> average update whatever the rest of
+  their chain, as the JAX package does (glava_tpu/pipeline.py:283-334,
+  419-439); the texture the rasterizer samples is the age-weighted
+  average after the default smooth pass (render.c:2276-2303), a baked
+  resample.
   The whole update of all fft uniforms is ONE call of
   ``ops.fused.fused_update`` over the flat row batch ``(B, ...)`` with
   row order ``s * U + u`` (streams x fft uniforms): on CUDA tensors
@@ -21,9 +24,8 @@ uniforms come in two kinds:
 
 Configurations not ported yet raise ``NotImplementedError`` at
 construction: ``setaccelfft false`` and the ``smooth`` transform
-(ROADMAP queue 3, the CPU-path chain), fft chains other than the
-standard one (ROADMAP slice 3, the interpreter's modules) and fft
-bufsizes outside 256..16384.
+(ROADMAP queue 3, the CPU-path chain) and fft bufsizes outside
+256..16384.
 """
 
 from __future__ import annotations
@@ -64,7 +66,6 @@ class FusedChainState(NamedTuple):
     #                         (the next ring slot to write)
 
 
-STANDARD_CHAIN = ("window", "fft", "gravity", "avg")
 KNOWN_TRANSFORMS = {"window", "fft", "wrange", "avg", "gravity", "smooth"}
 
 
@@ -92,11 +93,6 @@ class AudioPipeline:
                 "(ROADMAP queue 3)")
         self.fft_uniforms = [u for u in self.uniforms if has_fft(u.transforms)]
         for u in self.uniforms:
-            if has_fft(u.transforms) and tuple(u.transforms) != STANDARD_CHAIN:
-                raise NotImplementedError(
-                    f"uniform '{u.name}' has transform chain "
-                    f"{tuple(u.transforms)}; only {STANDARD_CHAIN} is ported "
-                    "for fft uniforms (other chains come with ROADMAP slice 3)")
             if "smooth" in u.transforms:
                 raise NotImplementedError(
                     f"uniform '{u.name}': the smooth transform is not yet "

@@ -1,7 +1,9 @@
 """Built-in visualizer modules (reference: shaders/glava/<name>/):
 bars, radial, circle, wave, graph and test, as in the JAX package.
-User modules (GLSL shader directories, Python module files) need the
-interpreter, ROADMAP slice 3; the loader refuses them."""
+User GLSL shader directories (``<user_dir>/<name>/1.frag``) run through
+the interpreter (``glsl_module``); the config loader registers them in
+its own override map, which takes precedence over this registry. User
+Python module files are JAX programs, and the loader refuses them."""
 
 from __future__ import annotations
 
@@ -27,21 +29,24 @@ def register(name: str, uniforms: tuple = _STEREO_FFT):
     return deco
 
 
-def _resolve(name: str):
+def _resolve(name: str, overrides: dict | None = None):
+    if overrides and name in overrides:
+        return overrides[name]
     if name in _REGISTRY:
         return _REGISTRY[name]
-    raise KeyError(f"module '{name}' does not exist "
-                   f"(available: {sorted(_REGISTRY)})")
+    avail = sorted(set(_REGISTRY) | set(overrides or ()))
+    raise KeyError(f"module '{name}' does not exist (available: {avail})")
 
 
-def build_module(name: str, ctx: ModuleContext) -> ModuleBuild:
-    builder, _ = _resolve(name)
+def build_module(name: str, ctx: ModuleContext,
+                 overrides: dict | None = None) -> ModuleBuild:
+    builder, _ = _resolve(name, overrides)
     return builder(ctx)
 
 
-def module_uniforms(name: str) -> tuple:
+def module_uniforms(name: str, overrides: dict | None = None) -> tuple:
     """Uniform declarations for a module's audio pipeline."""
-    return _resolve(name)[1]
+    return _resolve(name, overrides)[1]
 
 
 # import for registration side effects

@@ -46,7 +46,10 @@ class Renderer:
             raise NotImplementedError(
                 "the setbgimg wallpaper composite is not yet ported "
                 "(ROADMAP slice 5)")
-        self.uniforms = [UniformSpec(*u) for u in module_uniforms(self.loaded.module)]
+        # user shader modules registered by this load shadow built-ins
+        overrides = self.loaded.module_overrides
+        self.uniforms = [UniformSpec(*u) for u in
+                         module_uniforms(self.loaded.module, overrides)]
         self.pipeline = AudioPipeline(cfg, self.uniforms, device=self.device)
         env = self.module_env = self.loaded.env
         env.variables.update(builtin_variables(cfg))
@@ -58,7 +61,7 @@ class Renderer:
             device=self.device,
             channels=1 if cfg.mirror_input else 2,
         )
-        self.module = build_module(self.loaded.module, mctx)
+        self.module = build_module(self.loaded.module, mctx, overrides)
         # xroot/none opacity composites over the `setbg` clear color
         self._bg_planes = tuple(np.float32(c) for c in cfg.clear_color)
 

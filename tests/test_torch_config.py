@@ -75,14 +75,22 @@ def test_user_knob_file_loads(tmp_path):
 
 @pytest.mark.parametrize("kind", ["python", "shader"])
 def test_user_modules_are_not_yet_ported(tmp_path, kind):
+    """User Python modules (JAX programs) still raise; a user shader
+    directory now registers as a module of this load, as in the JAX
+    loader."""
     if kind == "python":
         (tmp_path / "modules").mkdir()
         (tmp_path / "modules" / "mine.py").write_text("")
-    else:
-        (tmp_path / "mine").mkdir()
-        (tmp_path / "mine" / "1.frag").write_text("")
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        loader.load(user_dir=tmp_path)
+        with pytest.raises(NotImplementedError, match="JAX programs"):
+            loader.load(user_dir=tmp_path)
+        return
+    (tmp_path / "mine").mkdir()
+    (tmp_path / "mine" / "1.frag").write_text("")
+    got = loader.load(user_dir=tmp_path)
+    want = jloader.load(user_dir=tmp_path)
+    assert sorted(got.module_overrides) == sorted(want.module_overrides) \
+        == ["mine"]
+    assert got.module_overrides["mine"][1] == want.module_overrides["mine"][1]
 
 
 def _env(mod, d):

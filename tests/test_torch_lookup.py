@@ -7,8 +7,14 @@ of the JAX suite (tests/test_fused.py, tests/test_ops.py) and on the
 radial and circle rasters' real 64x64 index planes. A lookup is pure
 data movement, so the tolerance is zero.
 
-Cases marked ``cuda`` hold the CUDA kernel (csrc/table_lookup.cu)
-against the plain version on the card, also bit for bit.
+``rowwise_lookup_plain`` is held bit-exact against
+``build_rowwise_lookup`` (C = 1) and ``build_rowwise_lookup_mc``
+(C = 4) in interpret mode, with contiguous operands and with the
+transposed views of (H, W) planes the interpreter hands over.
+
+Cases marked ``cuda`` hold the CUDA kernels (csrc/table_lookup.cu,
+csrc/rowwise_lookup.cu) against the plain versions on the card, also
+bit for bit.
 """
 
 from __future__ import annotations
@@ -23,7 +29,8 @@ import jax.numpy as jnp
 
 from glava_tpu.config.glsl_shader import _fetch_1d as jfetch_1d
 from glava_tpu.ops.pallas.lookup import (
-    build_static_table_lookup, build_table_lookup,
+    build_rowwise_lookup, build_rowwise_lookup_mc, build_static_table_lookup,
+    build_table_lookup,
 )
 from glava_tpu_torch.config import loader
 from glava_tpu_torch.ops import lookup
@@ -140,6 +147,64 @@ def test_other_devices_raise():
         lookup.table_lookup(tab, idx)
 
 
+def _rowwise_inputs(N, T, P, C, transposed, seed=17):
+    """C (N, T) tables and an (N, P) int32 index plane; ``transposed``
+    makes each a ``.T`` view of a contiguous (T, N) / (P, N) array, as
+    the interpreter passes the columns of (H, W) planes."""
+    rng = np.random.default_rng(seed)
+    if transposed:
+        tabs = tuple(torch.as_tensor(rng.standard_normal((T, N))
+                                     .astype(np.float32)).T for _ in range(C))
+        idx = torch.as_tensor(rng.integers(0, T, (P, N)).astype(np.int32)).T
+    else:
+        tabs = tuple(torch.as_tensor(rng.standard_normal((N, T))
+                                     .astype(np.float32)) for _ in range(C))
+        idx = torch.as_tensor(rng.integers(0, T, (N, P)).astype(np.int32))
+    return tabs, idx
+
+
+@pytest.mark.parametrize("transposed", [False, True], ids=["contiguous", "T_views"])
+@pytest.mark.parametrize("C", [1, 4])
+def test_rowwise_plain_matches_pallas_rowwise_lookup(C, transposed):
+    """tests/test_fused.py's case (N, T, P off the 8/128 multiples):
+    C = 1 against build_rowwise_lookup, C = 4 against
+    build_rowwise_lookup_mc."""
+    N, T, P = 21, 300, 260
+    tabs, idx = _rowwise_inputs(N, T, P, C, transposed)
+    jt = tuple(jnp.asarray(t.numpy()) for t in tabs)
+    ji = jnp.asarray(idx.numpy())
+    if C == 1:
+        want = (build_rowwise_lookup(N, T, P, interpret=True)(jt[0], ji),)
+    else:
+        want = build_rowwise_lookup_mc(N, T, P, C, interpret=True)(jt, ji)
+    got = lookup.rowwise_lookup(tabs, idx)
+    assert len(got) == C
+    for g, w in zip(got, want):
+        assert g.shape == (N, P) and g.dtype == torch.float32
+        assert np.array_equal(g.numpy(), np.asarray(w))
+
+
+def test_rowwise_plain_matches_interpreter_column_fetch():
+    """The interpreter's column-aligned fetch: out[y, x] = plane[yi[y, x],
+    x] through ``.T`` views of (H, W) planes and a (H, W) row plane."""
+    rng = np.random.default_rng(23)
+    H, W = 37, 53
+    planes = [rng.random((H, W), dtype=np.float32) for _ in range(4)]
+    yi = rng.integers(0, H, (H, W)).astype(np.int32)
+    got = lookup.rowwise_lookup(tuple(torch.as_tensor(p).T for p in planes),
+                                torch.as_tensor(yi).T)
+    for g, p in zip(got, planes):
+        assert np.array_equal(g.T.numpy(), np.take_along_axis(p, yi, axis=0))
+
+
+@pytest.mark.parametrize("bad", [-1, 300])
+def test_rowwise_out_of_range_raises(bad):
+    tabs, idx = _rowwise_inputs(5, 300, 9, 1, False)
+    idx[2, 3] = bad
+    with pytest.raises(ValueError, match=r"\[0, 300\)"):
+        lookup.rowwise_lookup(tabs, idx)
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -180,3 +245,33 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="T <="):
         lookup.table_lookup(torch.zeros(lookup.MAX_TABLE + 1, device=cuda),
                             torch.zeros(4, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transposed", [False, True], ids=["contiguous", "T_views"])
+@pytest.mark.parametrize("C", [1, 4])
+@pytest.mark.parametrize("shape", [(1920, 1080, 1080), (21, 300, 260)],
+                         ids=["1080p", "ragged"])
+def test_rowwise_kernel_matches_plain_on_card(cuda, shape, C, transposed):
+    N, T, P = shape
+    tabs, idx = _rowwise_inputs(N, T, P, C, transposed)
+    tabs = tuple(t.to(cuda) for t in tabs)
+    idx = idx.to(cuda)
+    before = lookup.rowwise_launches[C]
+    got = lookup.rowwise_lookup(tabs, idx)
+    torch.cuda.synchronize()
+    assert lookup.rowwise_launches[C] == before + 1
+    for g, w in zip(got, lookup.rowwise_lookup_plain(tabs, idx)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_rowwise_kernel_refuses_what_it_does_not_take(cuda):
+    tab = torch.zeros((8, 16), device=cuda)
+    idx = torch.zeros((8, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="C must be"):
+        lookup.rowwise_lookup((tab, tab), idx)
+    with pytest.raises(TypeError, match="int32"):
+        lookup.rowwise_lookup((tab,), idx.long())
+    with pytest.raises(ValueError, match="expected"):
+        lookup.rowwise_lookup((torch.zeros((9, 16), device=cuda),), idx)

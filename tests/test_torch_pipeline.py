@@ -59,6 +59,41 @@ def test_textures_match_jax_unfused(bufsize):
                                        atol=5e-5)
 
 
+CHAINS = {
+    "window_fft": ("window", "fft"),
+    "window_fft_avg": ("window", "fft", "avg"),
+    "fft_gravity": ("fft", "gravity"),
+}
+
+
+@pytest.mark.parametrize("chain", sorted(CHAINS))
+def test_any_fft_chain_matches_jax_unfused(chain):
+    """A uniform whose chain holds ``fft`` but is not the standard one
+    (tests/test_walk_fuzz.py's ``window, fft``) takes the same spectrum
+    -> gravity -> history -> average update as in the JAX package;
+    beside it a stateless ``wrange`` uniform. Textures within 5e-5 over
+    8 updates."""
+    uniforms = [("audio_l", "audio_l", CHAINS[chain]),
+                ("audio_r", "audio_r", ("window", "wrange"))]
+    lc, jlc = _load()
+    port = AudioPipeline(lc.cfg, [UniformSpec(*u) for u in uniforms],
+                         device="cpu")
+    ref = JaxPipeline(jlc.cfg, [JaxUniform(*u) for u in uniforms],
+                      use_fused=False)
+    assert [u.name for u in port.fft_uniforms] == ["audio_l"]
+    rng = np.random.default_rng(12)
+    sp, sj = port.init_state(), ref.init_state()
+    for _ in range(8):
+        al = (rng.standard_normal(1024) * 0.3).astype(np.float32)
+        ar = (rng.standard_normal(1024) * 0.3).astype(np.float32)
+        sp, tp = port.update(sp, torch.as_tensor(al), torch.as_tensor(ar))
+        sj, tj = ref.update(sj, jnp.asarray(al), jnp.asarray(ar))
+        assert tp.keys() == tj.keys()
+        for k in tp:
+            np.testing.assert_allclose(tp[k].numpy(), np.asarray(tj[k]),
+                                       atol=5e-5)
+
+
 def test_batched_textures_and_per_stream_params():
     """Streams ride a leading batch axis with per-stream parameters
     (rows s * U + u), matching the JAX pipeline's batched update."""
@@ -253,7 +288,9 @@ def test_unported_configurations_raise(case):
     if case == "cpu_path":
         cfg = dataclasses.replace(cfg, accel_fft=False)
     elif case == "chain":
-        uniforms = [UniformSpec("audio_l", "audio_l", ("window", "fft", "avg"))]
+        # any fft chain runs the fused update now; one with the smooth
+        # transform still raises
+        uniforms = [UniformSpec("audio_l", "audio_l", ("window", "fft", "smooth"))]
     elif case == "smooth":
         uniforms = [UniformSpec("audio_l", "audio_l", ("wrange", "smooth"))]
     elif case == "small":

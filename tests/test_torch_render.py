@@ -237,10 +237,12 @@ def test_variants_meet_live_jax_frame(variant, tmp_path):
 
 
 def test_unported_module_raises(tmp_path):
-    """A user GLSL shader module needs the interpreter (slice 3)."""
-    (tmp_path / "mine").mkdir()
-    (tmp_path / "mine" / "1.frag").write_text("void main() {}\n")
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    """A user Python module (``<user_dir>/modules/*.py``, a JAX
+    program) is refused; user GLSL shader modules load
+    (tests/test_torch_interp.py)."""
+    (tmp_path / "modules").mkdir()
+    (tmp_path / "modules" / "mine.py").write_text("MODULE = None\n")
+    with pytest.raises(NotImplementedError, match="JAX programs"):
         loader.load(cli_requests=_requests((48, 32), False),
                     force_module="mine", user_dir=tmp_path)
 
