@@ -7,9 +7,9 @@ code is non-zero and no result line is printed):
 
 1. device    — needs ``torch.cuda.is_available()``; prints the card's
                name and power limit (nvidia-smi).
-2. build     — builds the four CUDA kernels from ``csrc/``
-               (fused_update, table_lookup, rowwise_lookup, latch_scan),
-               the nvcc runs side by side.
+2. build     — builds the five CUDA kernels from ``csrc/``
+               (fused_update, table_lookup, rowwise_lookup, latch_scan,
+               bars_raster), the nvcc runs side by side.
 3. kernel    — each kernel vs its plain torch version on the card.
                fused_update at n in {256, 1024, 4096, 16384}, F = 6,
                B in {2, 128}: 8 updates of fresh audio with staggered
@@ -25,7 +25,11 @@ code is non-zero and no result line is printed):
                both directions; rowwise_lookup BIT-IDENTICAL at
                1920x1080 (N 1920, T 1080, P 1080), C in {1, 4}, on
                contiguous operands and on the ``.T`` views of (H, W)
-               planes the interpreter passes.
+               planes the interpreter passes. bars_raster BIT-IDENTICAL
+               at S = 64 streams 800x600 and 1920x1080 and at S = 1
+               through a MIRROR_YX view (rows 1920, columns 1080, read
+               transposed), both outline branches, per-stream and shared
+               colour tables.
 4. main path — ``Engine`` with the synth backend and a null sink, the
                kernel counts set to 0 just before each run and read
                just after: bars (the shipped rc.glsl) at 800x600 and
@@ -38,20 +42,34 @@ code is non-zero and no result line is printed):
                audio updates of fft modules; table_lookup launches and
                rowwise_lookup and latch_scan launches by channel count
                C the frames times each module's launches a frame
-               (``LAUNCHES``).
+               (``LAUNCHES``; bars launches the raster once a frame).
+               ``FleetEngine`` with 64 bars streams (the shipped rc.glsl,
+               bufsize 4096, per-stream synth tones and ``fg`` colours) at
+               800x600 and 1920x1080: one fused_update launch a frame over
+               B = 128 rows and one bars_raster launch a frame; a mixed
+               fleet (bars, radial, wave; S = 6) adds one table_lookup a
+               frame for its radial group. An S = 4 fleet's cuda frames
+               must meet its cpu frames under the golden rule.
                ``Engine.run_tests()`` (test_rc.glsl) must pass on cuda.
                Every module's frame after 24 updates of fixed stereo
                tones renders on cuda and cpu at 800x600 and must meet
                the golden rule (under 0.2% of pixels more than 2 LSB
                apart), and the built-in ones at tests/golden/frames.npz's
                size against the archive.
-5. times     — device times (torch.profiler) of each kernel and its
-               plain version at the main path's shapes, and of one
-               PyTorch call computing the same function where there is
-               one; CUDA-event frame times of bars, radial and circle
-               and of the shader modules at 800x600 and 1920x1080; a
-               profiler breakdown of bars at 800x600, circle at
-               1920x1080 and the anti-alias walk module at 1920x1080.
+5. times     — device times of each kernel and its plain version at
+               the main path's shapes, and of one PyTorch call computing
+               the same function where there is one: fused_update (B 2
+               and B 128) and bars_raster (S = 64 at 800x600 and
+               1920x1080) from CUDA events around back-to-back launches
+               on fresh inputs held behind a spin kernel (``event_ms``),
+               the others from torch.profiler; CUDA-event frame times of
+               bars, radial and circle and of the shader modules at
+               800x600 and 1920x1080; fleet frame times at S in {1, 8,
+               64} at both sizes, split into the device step and the
+               frame copy, with the device busy share; a profiler
+               breakdown of bars at 800x600, circle at 1920x1080, the
+               anti-alias walk module at 1920x1080 and the 64-stream
+               fleet at 800x600.
 
 The second-to-last line is the kernels JSON, the last the device JSON.
 """
@@ -70,12 +88,13 @@ import torch
 
 TOL = 2e-5           # spectra (the JAX suite's fused-vs-unfused tolerance)
 ROOT = Path(__file__).resolve().parent
-KERNELS = ("fused_update", "table_lookup", "rowwise_lookup", "latch_scan")
+KERNELS = ("fused_update", "table_lookup", "rowwise_lookup", "latch_scan",
+           "bars_raster")
 # what the main path launches, a kernel for each C it takes: the kernels
 # JSON has one entry each; "rowwise_lookup C=1" (checked, timed) must
 # stay off the path
 PATH = ("fused_update", "table_lookup", "rowwise_lookup C=4",
-        "latch_scan C=0", "latch_scan C=4")
+        "latch_scan C=0", "latch_scan C=4", "bars_raster")
 COUNTED = PATH + ("rowwise_lookup C=1",)
 MODULES = ("bars", "radial", "circle", "wave", "graph", "test")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
@@ -222,7 +241,7 @@ SHADER_MODULES = {
 # the next column and the fetch at the audio-driven row, one row-wise
 # lookup with C = 4 each.
 LAUNCHES = {
-    "bars": {}, "wave": {}, "graph": {}, "test": {},
+    "bars": {"bars_raster": 1}, "wave": {}, "graph": {}, "test": {},
     "radial": {"table_lookup": 1}, "circle": {"table_lookup": 1},
     "rings": {"table_lookup": 1},
     "aawalk": {"table_lookup": 1, "latch_scan C=0": 2, "latch_scan C=4": 2},
@@ -494,6 +513,51 @@ def phase_rowwise() -> float:
     return worst
 
 
+# (name, streams, rows, columns): the fleet's frames, and one stream of
+# MIRROR_YX at 1080p, whose raster runs at (rows, columns) = (W, H) and
+# is read through the transposed view
+RASTER_CASES = (("S64 800x600", 64, 600, 800), ("S64 1920x1080", 64, 1080, 1920),
+                ("S1 1920x1080 MIRROR_YX", 1, 1920, 1080))
+
+
+def raster_inputs(S: int, H: int, W: int, shared: bool, seed: int = 7):
+    """bars_raster inputs on the card: bar heights up to the frame's
+    height with a fifth of the columns at -inf (gaps), an inner mask,
+    half-pixel row distances and (1 or S, H, 4) colour tables."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, device="cuda")  # noqa: E731
+    v = rng.uniform(-10.0, H, (S, W)).astype(np.float32)
+    v[:, rng.random(W) < 0.2] = -np.inf
+    L = 1 if shared else S
+    return (t(v), t(rng.random(W) < 0.6), t(np.arange(H, dtype=np.float32) + 0.5),
+            t(rng.random((L, H, 4)).astype(np.float32)),
+            t((rng.random((L, H, 4)) * 1.5).astype(np.float32)))
+
+
+def phase_raster() -> float:
+    """bars_raster vs bars_raster_plain, bit for bit."""
+    from glava_tpu_torch.ops import raster
+
+    cases = []
+    for name, S, H, W in RASTER_CASES:
+        for shared in (False, True):
+            args = raster_inputs(S, H, W, shared)
+            for outlined in (True, False):
+                got = raster.bars_raster(*args, 1.0, outlined)
+                want = raster.bars_raster_plain(*args, 1.0, outlined)
+                torch.cuda.synchronize()
+                if name.endswith("MIRROR_YX"):
+                    got, want = got.transpose(-1, -2), want.transpose(-1, -2)
+                if got.shape != want.shape or not torch.equal(got, want):
+                    raise AssertionError(f"bars_raster {name} shared={shared} "
+                                         f"outlined={outlined}: kernel != plain")
+                del got, want
+            cases.append(f"{name}/{'shared' if shared else 'per-stream'}")
+    print(f"[3 kernel] bars_raster vs plain, torch.equal with and without the "
+          f"outline: {', '.join(cases)}; max abs err 0.0")
+    return 0.0
+
+
 def _fixed_frame(device: str, screen=None, reqs=(), module="bars",
                  user_dir=None) -> np.ndarray:
     """The final uint8 frame of 24 updates of fixed stereo tones
@@ -521,9 +585,10 @@ def _fixed_frame(device: str, screen=None, reqs=(), module="bars",
 
 
 def _counts() -> dict:
-    from glava_tpu_torch.ops import fused, latch, lookup
+    from glava_tpu_torch.ops import fused, latch, lookup, raster
 
-    counts = {"fused_update": fused.launches, "table_lookup": lookup.launches}
+    counts = {"fused_update": fused.launches, "table_lookup": lookup.launches,
+              "bars_raster": raster.launches}
     counts.update({f"rowwise_lookup C={C}": n
                    for C, n in lookup.rowwise_launches.items()})
     counts.update({f"latch_scan C={C}": n for C, n in latch.launches.items()})
@@ -531,9 +596,9 @@ def _counts() -> dict:
 
 
 def _zero_counts() -> None:
-    from glava_tpu_torch.ops import fused, latch, lookup
+    from glava_tpu_torch.ops import fused, latch, lookup, raster
 
-    fused.launches = lookup.launches = 0
+    fused.launches = lookup.launches = raster.launches = 0
     lookup.rowwise_launches = dict.fromkeys(lookup.rowwise_launches, 0)
     latch.launches = dict.fromkeys(latch.launches, 0)
 
@@ -570,6 +635,84 @@ def _engine_run(frames: int, screen=None, module=None, user_dir=None):
     return counts
 
 
+def _fleet_streams(n: int, loadeds=(None,)) -> list:
+    """``n`` fleet streams: synth tones (stream i at 110 (i + 1) Hz and
+    1.5x that), its own ``fg`` colour, a null sink; stream i runs
+    ``loadeds[i % len(loadeds)]`` (None: the engine's own)."""
+    from glava_tpu_torch.runtime.fleet import StreamSpec
+    from glava_tpu_torch.runtime.sinks import NullSink
+
+    rng = np.random.default_rng(n)
+    return [StreamSpec(f"s{i}", source=f"synth:{110 * (i + 1)},{165 * (i + 1)}",
+                       sink=NullSink(),
+                       pipe={"fg": (*rng.uniform(0.3, 1.0, 3), 1.0)},
+                       loaded=loadeds[i % len(loadeds)])
+            for i in range(n)]
+
+
+def _fleet_run(n: int, frames: int, screen=None, mixed: bool = False) -> dict:
+    """One fleet main-path run through ``FleetEngine.run``: the counts
+    are set to 0 just before and read just after. 64 bars streams: one
+    fused update over B = 2 n rows and one raster a frame; a mixed fleet
+    (bars, radial, wave) adds one table lookup a frame (its radial
+    group)."""
+    from glava_tpu_torch.config import loader
+    from glava_tpu_torch.runtime.fleet import FleetEngine
+
+    lc = loader.load()
+    loadeds = ((None, loader.load(force_module="radial"),
+                loader.load(force_module="wave")) if mixed else (None,))
+    eng = FleetEngine(lc, _fleet_streams(n, loadeds), screen=screen,
+                      device="cuda")
+    _zero_counts()
+    t0 = time.perf_counter()
+    eng.run(max_frames=frames)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = _counts()
+    rows = eng.state.chains.count.shape[0]
+    want = dict.fromkeys(COUNTED, 0)
+    want["fused_update"] = want["bars_raster"] = frames
+    if mixed:
+        want["table_lookup"] = frames
+    w, h = eng.br.screen
+    label = f"{'mixed' if mixed else 'bars'} fleet S {n} {w}x{h}"
+    if eng.frames_rendered != frames or counts != want or rows != 2 * n:
+        raise AssertionError(f"{label}: {eng.frames_rendered} frames, launches "
+                             f"{counts}, expected {want}; B {rows}, expected {2 * n}")
+    print(f"[4 main path] {label}: {frames} frames, fused_update B {rows}, "
+          f"launches {counts}, {frames / dt:.1f} fps host clock")
+    return counts
+
+
+def _fleet_fixed_frames(device: str, n: int = 4) -> np.ndarray:
+    """(n, 600, 800, 4) uint8 frames of a bars fleet after 24 steps of
+    fixed per-stream tones on staggered clocks, with per-stream colours."""
+    from glava_tpu_torch.config import loader
+    from glava_tpu_torch.parallel import BatchedRenderer
+
+    lc = loader.load()
+    cfg = lc.cfg
+    br = BatchedRenderer(lc, n_streams=n, device=device)
+    tt = np.arange(cfg.sample_rate) / cfg.sample_rate
+    tones = np.stack([np.stack([0.4 * np.sin(2 * np.pi * 220.0 * (s + 1) * tt),
+                                0.4 * np.sin(2 * np.pi * 1500.0 * (s + 1) * tt)])
+                      for s in range(n)]).astype(np.float32)
+    pipe = {"fg": np.random.default_rng(1).uniform(0.3, 1.0, (n, 4))
+            .astype(np.float32)}
+    g = np.full(n, cfg.gravity_step / cfg.nominal_ups, np.float32)
+    state = br.init_state()
+    for k in range(24):
+        end = (k + 1) * cfg.hop
+        snap = np.zeros((n, 2, cfg.bufsize), np.float32)
+        seg = tones[..., max(end - cfg.bufsize, 0):end]
+        snap[..., cfg.bufsize - seg.shape[-1]:] = seg
+        mods = np.array([k % (s + 1) == 0 for s in range(n)])
+        state, frames = br.step(state, snap, mods, np.zeros(n), np.ones(n), g,
+                                pipe, quantize=True)
+    return frames.cpu().numpy()
+
+
 RUNS = (
     ("bars", None, 200), ("bars", (1920, 1080), 120),
     ("radial", None, 200), ("radial", (1920, 1080), 120),
@@ -579,6 +722,11 @@ RUNS = (
     ("aawalk", None, 40), ("aawalk", (1920, 1080), 20),
     ("colfetch", None, 40), ("colfetch", (1920, 1080), 20),
 )
+
+
+# (streams, screen, frames, mixed): the fleet's main-path runs
+FLEET_RUNS = ((64, None, 30, False), (64, (1920, 1080), 8, False),
+              (6, None, 30, True))
 
 
 def phase_main_path(user_dir: str) -> dict:
@@ -592,8 +740,19 @@ def phase_main_path(user_dir: str) -> dict:
                              user_dir if shader else None)
         for k in PATH:
             totals[k] += counts[k]
+    for n, screen, frames, mixed in FLEET_RUNS:
+        counts = _fleet_run(n, frames, screen, mixed)
+        for k in PATH:
+            totals[k] += counts[k]
     if not all(totals.values()):
         raise AssertionError(f"a kernel of the path never launched: {totals}")
+    gpu, cpu = _fleet_fixed_frames("cuda"), _fleet_fixed_frames("cpu")
+    fracs = [golden_rule(g, c) for g, c in zip(gpu, cpu)]
+    if max(fracs) >= 0.002 or not all((g[..., 3] > 0).any() for g in gpu):
+        raise AssertionError(f"bars fleet S 4 cuda vs cpu: {fracs} of pixels off")
+    print(f"[4 main path] bars fleet S 4 800x600, per-stream colours and "
+          f"staggered clocks: cuda vs cpu "
+          f"{', '.join(f'{f:.4%}' for f in fracs)} px > 2 LSB")
     eng = Engine(EngineOptions(audio_backend="synth", test_mode=True,
                                device="cuda"), sink=NullSink())
     if not eng.run_tests():
@@ -623,32 +782,69 @@ def phase_main_path(user_dir: str) -> dict:
     return totals
 
 
+def event_ms(fn, iters: int) -> float:
+    """Mean device milliseconds per call of ``fn(i)``, i = 0 .. iters-1,
+    from CUDA events: the calls are enqueued behind a spin kernel
+    (``torch.cuda._sleep``) that outlasts their enqueueing, so the card
+    runs them back to back and the events time the device alone, not
+    the host's launches. ``fn`` must not synchronise; the check that the
+    spin was still running when the last call was enqueued makes sure."""
+    fn(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(i)
+    enqueue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(4 * enqueue * 2e9) + 10_000_000     # ~4x at up to 2 GHz
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for i in range(iters):
+            fn(i)
+        end.record()
+        covered = not start.query()
+        torch.cuda.synchronize()
+        if covered:
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+    raise AssertionError("event_ms: the spin kernel never outlasted the "
+                         "enqueueing of the timed calls")
+
+
 def _update_times(n: int, B: int):
+    """fused_update at bufsize n and B rows: event times of the kernel
+    and its plain version, each call on fresh inputs (a rotation of
+    input sets larger than the 50 MB L2 together), the profiler's device
+    time of the kernel (the reading PRs 1-3 reported) and the bytes."""
     from glava_tpu_torch.ops import fused, windows
 
     F = 6
+    m = n // 2
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
     t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=dev)  # noqa: E731
-    args = (
-        t(rng.standard_normal((B, n)) * 0.3),
-        t(rng.uniform(0, 1, (B, 2, n // 2))),
-        t(rng.uniform(0, 1, (B, F, 2, n // 2))),
-        t(np.arange(B) % F, torch.int32),
-        t(np.full(B, 10.2)), t(np.full(B, 0.3)), t(np.full(B, 0.05)),
-        t(windows.pcm_window(n)),
-        t(fused.age_weights(windows.avg_weights(F, True, True))),
-    )
-    kernel = cuda_ms(lambda: fused.fused_update(*args), 500)
-    plain = cuda_ms(lambda: fused.fused_update_plain(*args), 200)
-    m = n // 2
     plane = B * 2 * m * 4
     # read once: pcm, window, weights, slots + 3 row params, gravity and
     # the whole history; written once: gravity, one history slot, average
     nbytes = (B * n * 4 + n * 4 + F * 4 + 4 * B * 4 + plane + F * plane
               + 3 * plane)
-    return kernel, plain, device_ms(lambda: fused.fused_update(*args)), \
-        device_ms(lambda: fused.fused_update_plain(*args)), nbytes
+    window = t(windows.pcm_window(n))
+    w_age = t(fused.age_weights(windows.avg_weights(F, True, True)))
+    sets = [(t(rng.standard_normal((B, n)) * 0.3),
+             t(rng.uniform(0, 1, (B, 2, m))),
+             t(rng.uniform(0, 1, (B, F, 2, m))),
+             t(np.arange(B) % F, torch.int32),
+             t(np.full(B, 10.2)), t(np.full(B, 0.3)), t(np.full(B, 0.05)),
+             window, w_age)
+            for _ in range(max(2, -(-64 * 2 ** 20 // nbytes)))]
+    K = len(sets)
+    kernel = event_ms(lambda i: fused.fused_update(*sets[i % K]), 200)
+    plain = event_ms(lambda i: fused.fused_update_plain(*sets[i % K]), 10)
+    profiled = device_ms(lambda: fused.fused_update(*sets[0]))
+    return kernel, plain, profiled, nbytes, K
 
 
 def device_ms(fn, iters: int = 100) -> float:
@@ -759,7 +955,11 @@ def _frame_ms(screen, module="bars", user_dir=None, iters=200):
     return cuda_ms(frame, iters), r, frame
 
 
-def _profile(frame, label: str, card: str, frames: int = 50):
+def _profile(frame, label: str, card: str, frames: int = 50,
+             show: bool = True) -> float:
+    """Device busy share of ``frames`` calls of ``frame`` under
+    torch.profiler (device rows only), with the top kernels printed when
+    ``show``; 0.0 when the profiler recorded no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -776,15 +976,17 @@ def _profile(frame, label: str, card: str, frames: int = 50):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in rows)
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
-    if busy > 0:
+    if busy <= 0:
+        print(f"[5 times] profile {label}: no device time recorded (not measured)")
+        return 0.0
+    if show:
         share = ", ".join(f"{e.key[:48]} {e.self_device_time_total / busy:.0%}"
                           for e in top)
         print(f"[5 times] profile {frames} frames {label}: device busy "
               f"{busy / wall_us:.1%} of {wall_us / frames:.0f} us/frame wall, "
               f"{busy / frames:.0f} us/frame device; kernel share: {share} "
               f"({card})")
-    else:
-        print(f"[5 times] profile {label}: no device time recorded (not measured)")
+    return busy / wall_us
 
 
 def _print_kernel_time(name: str, t: dict, card: str) -> None:
@@ -795,17 +997,94 @@ def _print_kernel_time(name: str, t: dict, card: str) -> None:
           f"library {lib}, bound {t['bound_ms'] * 1e3:.2f} us (bytes) ({card})")
 
 
+def _raster_times(S: int, H: int, W: int):
+    """bars_raster at S streams of H x W, per-stream colours: event
+    times of the kernel (4 input sets in turn) and its plain version."""
+    from glava_tpu_torch.ops import raster
+
+    sets = [raster_inputs(S, H, W, False, seed) for seed in range(4)]
+    # written once: the (S, 4, H, W) planes; read once: v, inner, d and
+    # the two colour tables
+    nbytes = S * 4 * H * W * 4 + S * W * 4 + W + H * 4 + 2 * S * H * 16
+    return {"ms": event_ms(lambda i: raster.bars_raster(*sets[i % 4], 1.0, True),
+                           100),
+            "plain_ms": event_ms(
+                lambda i: raster.bars_raster_plain(*sets[i % 4], 1.0, True), 20),
+            "library_ms": None, "bound_ms": bound_ms(nbytes),
+            "what": f"S {S} {W}x{H}, outlined, per-stream colours (CUDA "
+                    "events, back to back); no library call computes it"}
+
+
+def _fleet_times(n: int, screen, frames: int, card: str,
+                 breakdown: bool = False) -> float:
+    """One fleet frame as ``FleetEngine.run`` makes it (host snapshots to
+    the card, the step, the uint8 frames back), n bars streams with
+    their own colours, every stream updating: the host clock per frame,
+    CUDA events around the step (the snapshot copy and the kernels,
+    with any idle gaps) and around the frame copy, and the device busy
+    share under the profiler."""
+    from glava_tpu_torch.config import loader
+    from glava_tpu_torch.runtime.fleet import FleetEngine
+
+    eng = FleetEngine(loader.load(), _fleet_streams(n), screen=screen,
+                      device="cuda")
+    cfg = eng.loaded.cfg
+    rng = np.random.default_rng(2)
+    pool = [(rng.standard_normal((n, 2, cfg.bufsize)) * 0.3).astype(np.float32)
+            for _ in range(4)]
+    mods, interp = np.ones(n, bool), np.ones(n, np.float32)
+    g = np.full(n, cfg.gravity_step / cfg.nominal_ups, np.float32)
+    box = {"k": 0}
+
+    def frame():
+        box["k"] += 1
+        return eng.step(pool[box["k"] % 4], mods, 0.0, interp, g).cpu()
+
+    for _ in range(2):
+        frame()
+    torch.cuda.synchronize()
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
+          for _ in range(frames)]
+    t0 = time.perf_counter()
+    for e in ev:
+        box["k"] += 1
+        e[0].record()
+        out = eng.step(pool[box["k"] % 4], mods, 0.0, interp, g)
+        e[1].record()
+        out.cpu()
+        e[2].record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / frames
+    step = sum(e[0].elapsed_time(e[1]) for e in ev) / frames
+    copy = sum(e[1].elapsed_time(e[2]) for e in ev) / frames
+    w, h = eng.br.screen
+    label = f"bars fleet S {n} {w}x{h}"
+    busy = _profile(frame, label, card, frames=3 if n > 8 else 10,
+                    show=breakdown)
+    mb = n * w * h * 4 / 1e6
+    print(f"[5 times] {label} frame: {wall:.3f} ms host clock = "
+          f"{1e3 / wall:.1f} fps x {n} streams; step {step:.3f} ms, frame copy "
+          f"{copy:.3f} ms ({mb:.1f} MB, {mb / copy:.2f} GB/s) (CUDA events); "
+          f"device busy {busy:.1%} ({card})")
+    return wall
+
+
 def phase_times(card: str, user_dir: str) -> dict:
     times = {}
     for B in (2, 128):
-        lk, lp, dk, dp, nbytes = _update_times(4096, B)
+        dk, dp, prof, nbytes, K = _update_times(4096, B)
         times[B] = {"ms": dk, "plain_ms": dp, "library_ms": None,
                     "bound_ms": bound_ms(nbytes)}
-        print(f"[5 times] fused update n4096 B{B}: device time kernel "
-              f"{dk * 1e3:.2f} us, plain {dp * 1e3:.2f} us, bound "
-              f"{times[B]['bound_ms'] * 1e3:.3f} us (bytes); event-timed host "
-              f"loop kernel {lk * 1e3:.2f} us, plain {lp * 1e3:.2f} us ({card})")
-    out = {"fused_update": times[2], "table_lookup": _lookup_times()}
+        print(f"[5 times] fused update n4096 B{B}: kernel {dk * 1e3:.2f} us, "
+              f"plain {dp * 1e3:.2f} us (CUDA events, back to back, {K} input "
+              f"sets in turn), bound {times[B]['bound_ms'] * 1e3:.3f} us "
+              f"(bytes); profiler device time of the kernel {prof * 1e3:.2f} "
+              f"us ({card})")
+    raster_t = {(H, W): _raster_times(64, H, W) for H, W in ((600, 800), (1080, 1920))}
+    for t in raster_t.values():
+        _print_kernel_time("bars_raster", t, card)
+    out = {"fused_update": times[2], "table_lookup": _lookup_times(),
+           "bars_raster": raster_t[(600, 800)]}
     _print_kernel_time("table_lookup", out["table_lookup"], card)
     for C, t in _rowwise_times().items():
         out[f"rowwise_lookup C={C}"] = t
@@ -828,6 +1107,10 @@ def phase_times(card: str, user_dir: str) -> dict:
     _profile(frames["circle"][1], "circle 1920x1080", card)
     _profile(frames["aawalk"][1], "aawalk 1920x1080", card, frames=10)
     _profile(frames["colfetch"][1], "colfetch 1920x1080", card, frames=10)
+    for n in (1, 8, 64):
+        for screen, count in ((None, 20), ((1920, 1080), 5 if n == 64 else 10)):
+            _fleet_times(n, screen, count, card,
+                         breakdown=n == 64 and screen is None)
     return out
 
 
@@ -838,6 +1121,7 @@ REPLACES = {
     "rowwise_lookup C=4": "glava_tpu/ops/pallas/lookup.py:210",
     "latch_scan C=0": "glava_tpu/ops/pallas/latch.py:82",
     "latch_scan C=4": "glava_tpu/ops/pallas/latch.py:82",
+    "bars_raster": "scripts/exp_pallas_bars.py:138",
 }
 
 
@@ -845,7 +1129,8 @@ def main() -> int:
     card = phase_device()
     phase_build()
     errs = {"fused_update": phase_kernel(), "table_lookup": phase_lookup(),
-            "latch_scan": phase_latch(), "rowwise_lookup": phase_rowwise()}
+            "latch_scan": phase_latch(), "rowwise_lookup": phase_rowwise(),
+            "bars_raster": phase_raster()}
     with tempfile.TemporaryDirectory() as td:
         user_dir = str(write_shader_modules(Path(td)))
         launches = phase_main_path(user_dir)

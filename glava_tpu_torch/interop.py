@@ -16,6 +16,12 @@ either the ``__xla__`` ``RingChainState`` (the default path) or the
   store, is recomputed from the history with the age weights and the
   clamp, so that a frame with ``modified=False`` renders the same.
 
+A batched state (``BatchedRenderer``, a leading stream axis S) comes in
+and goes out the same way: the fused layout is flat over the same rows
+``s * U + u`` already, the ring layout's (S, U, ...) leaves flatten to
+them with each stream's count repeated over its U uniforms, and the
+keyframes keep their (S, 2, bufsize) shape.
+
 The baked resample matrices are the only "weights" of the system; both
 packages bake them with the same numpy code, bit for bit, so nothing
 else needs carrying.

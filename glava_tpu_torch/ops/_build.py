@@ -25,7 +25,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # every kernel of the package, one source each
-KERNELS = ("fused_update", "table_lookup", "rowwise_lookup", "latch_scan")
+KERNELS = ("fused_update", "table_lookup", "rowwise_lookup", "latch_scan",
+           "bars_raster")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "glava_tpu_torch"
 # no --use_fast_math: logf accuracy is part of the 2e-5 spectrum contract
 NVCC_FLAGS = (

@@ -1,0 +1,263 @@
+"""BatchedRenderer: many independent audio streams in one step.
+
+The port of ``glava_tpu/parallel/batch.py`` for one card (BASELINE.json
+config 4: 64 concurrent streams with per-stream parameters). Where the
+JAX package ``vmap``s the single-stream raster over streams, the port
+writes the stream axis out:
+
+* the spectrum update of every stream is ONE fused call over B = S * U
+  rows (rows ``s * U + u``), the CUDA kernel on the card;
+* a batched module (bars, radial, wave: ``ModuleBuild.batched``)
+  rasterizes every stream in one call of its pass chain, with its
+  per-stream colours from each stream's pipe values;
+* any other module (circle, graph, test, user shader modules) renders
+  one stream at a time inside the same step, the eager form of
+  ``vmap``.
+
+Per-stream update gating follows the JAX step: every row advances and
+:meth:`AudioPipeline.select_updated` keeps the carried rows of the
+streams with no new audio. The advance writes the state in place, so
+the carried rows are copied first, and only when some stream is not
+modified. Per-stream scalars (``time``, ``interp_mod``, ``gravity_g``)
+and pipe values (name -> (S, ...)) have a leading stream axis; the
+``modified`` mask is read on the host.
+
+There is no ``sharded_step``/``shard_state``: one card (mesh sharding
+waits for more than one GPU, ROADMAP).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from glava_tpu_torch.config.loader import LoadedConfig
+from glava_tpu_torch.pipeline import (
+    AudioPipeline, FusedChainState, UniformSpec, clone_state,
+)
+from glava_tpu_torch.render.base import interleave, interleave_u8
+from glava_tpu_torch.renderer import Renderer, RenderState
+
+
+def _host(v) -> np.ndarray:
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+def _advance(pipeline: AudioPipeline, state: RenderState, audio, modified,
+             gravity_g) -> tuple[FusedChainState, torch.Tensor, torch.Tensor]:
+    """The keyframe push and the gated spectrum update of every stream
+    -> (chains, key_start, key_end)."""
+    dev = pipeline.device
+    audio = torch.as_tensor(audio, dtype=torch.float32, device=dev)
+    mod = _host(modified).astype(bool).reshape(-1)
+    m = torch.as_tensor(mod, device=dev)
+    m3 = m[:, None, None]
+    # keyframe push on update (render.c:2348-2353)
+    key_start = torch.where(m3, state.key_end, state.key_start)
+    key_end = torch.where(m3, audio, state.key_end)
+    # the accel path feeds the newest keyframe (render.c:2161-2173);
+    # AudioPipeline refuses the CPU-path chain that would interpolate
+    carried = None if mod.all() else clone_state(state.chains)
+    chains = pipeline.advance(state.chains, key_end[:, 0, :], key_end[:, 1, :],
+                              gravity_g=gravity_g)
+    if carried is not None:
+        chains = pipeline.select_updated(chains, carried, m)
+    return chains, key_start, key_end
+
+
+def _raster(rend: Renderer, textures: dict, time, pipe: dict | None,
+            n: int) -> tuple:
+    """Channel planes of ``n`` streams, each broadcastable to (n, H, W):
+    one pass chain for a batched module, else one a stream."""
+    if rend.module.batched:
+        return rend.render_planes(textures, time, pipe)
+    h, w = rend.screen[1], rend.screen[0]
+    per = [
+        rend.render_planes(
+            {k: t[s] for k, t in textures.items()}, float(time[s]),
+            {k: v[s] for k, v in pipe.items()} if pipe else None)
+        for s in range(n)
+    ]
+    return tuple(
+        torch.stack([torch.as_tensor(p[c], dtype=torch.float32,
+                                     device=rend.device).expand(h, w)
+                     for p in per])
+        for c in range(4))
+
+
+def _frames(rend: Renderer, planes, n: int, quantize: bool) -> torch.Tensor:
+    """(n, H, W, 4) frames: float32, or uint8 when ``quantize`` (the
+    serving wire format, quantized per channel plane before the
+    interleave)."""
+    pack = interleave_u8 if quantize else interleave
+    return pack(planes, rend.screen[1], rend.screen[0], rend.device,
+                batch=(n,))
+
+
+def _pipe_rows(pipe: dict | None) -> dict | None:
+    return {k: np.asarray(_host(v), np.float32) for k, v in pipe.items()} \
+        if pipe else None
+
+
+class BatchedRenderer:
+    """``n_streams`` streams of one module configuration."""
+
+    def __init__(self, loaded: LoadedConfig, n_streams: int,
+                 screen: tuple[int, int] | None = None, device="cuda"):
+        self.loaded = loaded
+        self.n_streams = n_streams
+        self.renderer = Renderer(loaded, screen=screen, device=device)
+        self.cfg = self.renderer.cfg
+        self.device = self.renderer.device
+        self.screen = self.renderer.screen
+
+    def init_state(self) -> RenderState:
+        return self.renderer.init_state(batch=(self.n_streams,))
+
+    def step(self, state: RenderState, audio, modified, time, interp_mod,
+             gravity_g, pipe: dict | None = None,
+             quantize: bool = False) -> tuple[RenderState, torch.Tensor]:
+        """One frame for every stream: ``audio`` (S, 2, bufsize),
+        ``modified``/``time``/``interp_mod``/``gravity_g`` (S,) and pipe
+        values name -> (S, ...) -> the new state and (S, H, W, 4)
+        frames on the device. ``interp_mod`` feeds only the CPU-path
+        interpolation, which the pipeline does not take yet."""
+        S = self.n_streams
+        rend = self.renderer
+        chains, key_start, key_end = _advance(rend.pipeline, state, audio,
+                                              modified, gravity_g)
+        textures = rend.pipeline.textures_from(chains, key_end[:, 0, :],
+                                               key_end[:, 1, :])
+        planes = _raster(rend, textures, _host(time), _pipe_rows(pipe), S)
+        return (RenderState(chains, key_start, key_end),
+                _frames(rend, planes, S, quantize))
+
+    def update_textures(self, chains: FusedChainState, audio, gravity_g):
+        """(S, 2, bufsize) -> (new chains, per-uniform (S, sz) textures),
+        the update alone (no raster)."""
+        audio = torch.as_tensor(audio, dtype=torch.float32, device=self.device)
+        return self.renderer.pipeline.update(
+            chains, audio[..., 0, :], audio[..., 1, :], gravity_g=gravity_g)
+
+
+class MixedBatchedRenderer:
+    """A fleet whose streams run different module variants in one step.
+
+    Spectrum chains are deduplicated by (source, transform chain) across
+    the variants into one union ``AudioPipeline``, whose fused update
+    runs once for every stream; the raster stage groups the streams by
+    their fixed variant, renders each group as a :class:`BatchedRenderer`
+    does, and puts the frames back in stream order. All variants must
+    agree on the DSP-shaping configuration (they share one spectrum
+    state) and on the frame size; modules, knobs and colours are free.
+    """
+
+    _COMPAT_FIELDS = (
+        "bufsize", "samplesize", "sample_rate", "bufscale", "avg_frames",
+        "avg_window", "accel_fft", "smooth_factor", "smooth_pass",
+        "interpolate", "mirror_input", "timecycle",
+    )
+
+    def __init__(self, loadeds: list[LoadedConfig], assign: list[int],
+                 screen: tuple[int, int] | None = None, device="cuda"):
+        if not loadeds:
+            raise ValueError("need at least one module variant")
+        if any(not 0 <= a < len(loadeds) for a in assign):
+            raise ValueError("stream assignment out of range")
+        base = loadeds[0].cfg
+        for lc in loadeds[1:]:
+            for f in self._COMPAT_FIELDS:
+                if getattr(lc.cfg, f) != getattr(base, f):
+                    raise ValueError(
+                        f"module variants disagree on '{f}' — spectrum "
+                        "state is shared, so DSP-shaping config must match")
+        self.loadeds = loadeds
+        self.assign = list(assign)
+        self.n_streams = len(assign)
+        self.renderers = [Renderer(lc, screen=screen, device=device)
+                          for lc in loadeds]
+        self.cfg = base
+        self.device = self.renderers[0].device
+        self.screen = self.renderers[0].screen
+        for r in self.renderers[1:]:
+            if r.screen != self.screen:
+                raise ValueError("variants must share the frame geometry")
+
+        # dedupe (source, chain) across variants into one union pipeline
+        canon: dict[tuple, str] = {}
+        self._variant_tex: list[dict[str, str]] = []
+        for r in self.renderers:
+            vm = {}
+            for u in r.uniforms:
+                key = (u.source, tuple(u.transforms))
+                vm[u.name] = canon.setdefault(key, f"__u{len(canon)}")
+            self._variant_tex.append(vm)
+        union = [UniformSpec(cname, src, ch) for (src, ch), cname in canon.items()]
+        self.pipeline = AudioPipeline(base, union, device=self.device)
+        # static stream grouping per variant, and the inverse permutation
+        # that puts the grouped frames back in stream order
+        self._groups = [
+            tuple(s for s, a in enumerate(self.assign) if a == k)
+            for k in range(len(loadeds))
+        ]
+        order = [s for g in self._groups for s in g]
+        inv = np.argsort(np.asarray(order))
+        self._inv = (None if np.array_equal(inv, np.arange(len(order)))
+                     else torch.as_tensor(inv, device=self.device))
+
+    def init_state(self) -> RenderState:
+        S = self.n_streams
+        z = torch.zeros((S, 2, self.cfg.bufsize), dtype=torch.float32,
+                        device=self.device)
+        return RenderState(self.pipeline.init_state(batch=(S,)), z, z.clone())
+
+    def step(self, state, audio, modified, time, interp_mod, gravity_g,
+             pipe=None, quantize=False):
+        """(S, H, W, 4) frames of every stream, each from its own
+        variant (float32, or uint8 when ``quantize``; see
+        :meth:`BatchedRenderer.step`)."""
+        chains, key_start, key_end = _advance(self.pipeline, state, audio,
+                                              modified, gravity_g)
+        textures = self.pipeline.textures_from(chains, key_end[:, 0, :],
+                                               key_end[:, 1, :])
+        time = _host(time)
+        pipe = _pipe_rows(pipe)
+        parts = []
+        for k, idxs in enumerate(self._groups):
+            if not idxs:
+                continue
+            rend = self.renderers[k]
+            rows = list(idxs)
+            rows_t = torch.as_tensor(rows, device=self.device)
+            sub_tex = {un: textures[cn][rows_t]
+                       for un, cn in self._variant_tex[k].items()}
+            sub_pipe = {n: v[rows] for n, v in pipe.items()} if pipe else None
+            planes = _raster(rend, sub_tex, time[rows], sub_pipe, len(rows))
+            parts.append(_frames(rend, planes, len(rows), quantize))
+        frames = torch.cat(parts) if len(parts) > 1 else parts[0]
+        if self._inv is not None:
+            frames = frames[self._inv]
+        return RenderState(chains, key_start, key_end), frames
+
+
+def example_batch(br, rng_seed: int = 0) -> dict:
+    """Synthetic per-stream inputs for checks and timing: one stereo
+    tone pair a stream (audio on the renderer's device; the per-stream
+    mask and scalars on the host, as a serving loop has them)."""
+    S = br.n_streams
+    cfg = br.cfg
+    rng = np.random.default_rng(rng_seed)
+    freqs = rng.uniform(100.0, 8000.0, size=S)
+    t = np.arange(cfg.bufsize) / cfg.sample_rate
+    audio = np.stack([
+        np.stack([0.4 * np.sin(2 * np.pi * f * t),
+                  0.4 * np.sin(2 * np.pi * (f * 1.5) * t)])
+        for f in freqs
+    ]).astype(np.float32)
+    return dict(
+        audio=torch.as_tensor(audio, device=br.device),
+        modified=np.ones((S,), bool),
+        time=np.zeros((S,), np.float32),
+        interp_mod=np.ones((S,), np.float32),
+        gravity_g=np.full((S,), cfg.gravity_step / cfg.nominal_ups, np.float32),
+    )

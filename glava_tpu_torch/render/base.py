@@ -13,6 +13,11 @@ pass ``k``'s output as ``prev`` (the reference's indirect FBO chain,
 render.c:1556-1563, 2314-2330). A pass returns channel planes (a
 3/4-tuple; alpha defaults to 1) or an interleaved (H, W, 4) tensor —
 :func:`as_planes` normalizes.
+
+A module whose build sets ``ModuleBuild.batched`` renders many streams
+at once: its textures carry a leading stream axis (S, sz), its pipe
+values (S, ...) rows, and its planes a leading S axis, broadcastable to
+(S, H, W). The single-stream renderer runs such a module with S = 1.
 """
 
 from __future__ import annotations
@@ -37,6 +42,9 @@ class PassInputs(NamedTuple):
     prev: Planes | None                 # previous pass output channel planes
     textures: dict[str, torch.Tensor]   # uniform name -> (sz,) texture
     time: float                         # seconds (wraps at `timecycle`)
+    # pipe uniform name -> (S, ...) float32 host array, one row a stream
+    # (batched modules only; None: every `@name:default` takes its default)
+    pipe: dict[str, np.ndarray] | None = None
 
 
 PassFn = Callable[[PassInputs], Any]
@@ -55,7 +63,7 @@ def as_planes(out) -> Planes:
             comps.append(1.0)
         if len(comps) != 4:
             raise TypeError(f"pass returned {len(comps)} channels")
-    elif hasattr(out, "ndim") and out.ndim == 3 and out.shape[-1] == 4:
+    elif hasattr(out, "ndim") and out.ndim >= 3 and out.shape[-1] == 4:
         comps = [out[..., c] for c in range(4)]
     else:
         raise TypeError(f"pass returned {type(out).__name__}, expected "
@@ -78,22 +86,27 @@ def clip_planes(planes: Planes, lo: float = 0.0, hi: float = 1.0) -> Planes:
     )
 
 
-def _full_plane(p, h: int, w: int, device) -> torch.Tensor:
-    return torch.as_tensor(p, dtype=torch.float32, device=device).expand(h, w)
+def _full_plane(p, shape: tuple, device) -> torch.Tensor:
+    return torch.as_tensor(p, dtype=torch.float32, device=device).expand(shape)
 
 
-def interleave(planes: Planes, h: int, w: int, device) -> torch.Tensor:
-    """Channel planes -> the final (H, W, 4) float32 RGBA tensor."""
-    return torch.stack([_full_plane(p, h, w, device) for p in planes], dim=-1)
+def interleave(planes: Planes, h: int, w: int, device,
+               batch: tuple = ()) -> torch.Tensor:
+    """Channel planes -> the final (*batch, H, W, 4) float32 RGBA
+    tensor (``batch`` = (S,) for a stream axis)."""
+    shape = tuple(batch) + (h, w)
+    return torch.stack([_full_plane(p, shape, device) for p in planes], dim=-1)
 
 
-def interleave_u8(planes: Planes, h: int, w: int, device) -> torch.Tensor:
-    """Channel planes -> (H, W, 4) uint8 RGBA: round-half-even
+def interleave_u8(planes: Planes, h: int, w: int, device,
+                  batch: tuple = ()) -> torch.Tensor:
+    """Channel planes -> (*batch, H, W, 4) uint8 RGBA: round-half-even
     quantize per channel plane (``torch.round``, like ``jnp.round``),
     THEN interleave. Matches ``clip(round(f * 255))`` of the f32 frame
     bit-exactly."""
+    shape = tuple(batch) + (h, w)
     comps = [
-        torch.clamp(torch.round(_full_plane(p, h, w, device) * 255.0), 0, 255)
+        torch.clamp(torch.round(_full_plane(p, shape, device) * 255.0), 0, 255)
         .to(torch.uint8)
         for p in planes
     ]
@@ -137,19 +150,21 @@ class ModuleContext:
         which the caller binds as tensors; the result is a component
         tuple for :func:`color_planes`.
         """
+        return lambda **vars: self.eval_color(name, None, **vars)
+
+    def eval_color(self, name: str, pipe_values: dict | None, **vars):
+        """Evaluate a colour knob with ``pipe_values`` (name -> value)
+        bound over the load's own: ``@name:default`` takes the bound
+        value, else its default expression."""
         expr = self.env.defines.get(name)
         if expr is None:
             raise KeyError(f"module knob '{name}' is not defined")
-
-        def evaluate(**vars):
-            env = glsl_expr.Env(
-                defines=self.env.defines,
-                variables={**self.env.variables, **vars},
-                pipe_values=self.env.pipe_values,
-            )
-            return glsl_expr.evaluate(expr, env)
-
-        return evaluate
+        env = glsl_expr.Env(
+            defines=self.env.defines,
+            variables={**self.env.variables, **vars},
+            pipe_values={**self.env.pipe_values, **(pipe_values or {})},
+        )
+        return glsl_expr.evaluate(expr, env)
 
     # -- spectrum sampling -----------------------------------------------
 
@@ -189,16 +204,19 @@ class ModuleContext:
 @dataclass
 class ModuleBuild:
     """A built module: ordered enabled passes, and the static table
-    lookups (``ops.lookup.StaticLookup``) they run every frame."""
+    lookups (``ops.lookup.StaticLookup``) they run every frame.
+    ``batched``: the passes take a leading stream axis (module
+    docstring)."""
 
     name: str
     passes: list[PassFn] = field(default_factory=list)
     lookups: list = field(default_factory=list)
+    batched: bool = False
 
     def render(self, inputs: PassInputs) -> Planes:
         out = inputs.prev
         for fn in self.passes:
-            out = as_planes(fn(PassInputs(out, inputs.textures, inputs.time)))
+            out = as_planes(fn(inputs._replace(prev=out)))
             # stage FBOs are 8-bit normalized color attachments
             # (render.c:543-556): every pass write clamps to [0, 1]
             out = clip_planes(out)
@@ -252,3 +270,88 @@ def color_tensors(value, device) -> list[torch.Tensor]:
     ``device`` (colors evaluated once at build time)."""
     return [torch.as_tensor(c, dtype=torch.float32, device=device)
             for c in color_planes(value, device)]
+
+
+def _host_f32(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    return np.ascontiguousarray(np.asarray(v, np.float32))
+
+
+def _pipe_value(row: np.ndarray):
+    """One stream's pipe value -> what ``@name`` evaluates to: float32
+    scalars on the host (a vecN is a component tuple), as the JAX
+    package's traced float32 values."""
+    if row.ndim == 0:
+        return torch.tensor(row)
+    return tuple(torch.tensor(row[i]) for i in range(row.shape[0]))
+
+
+class StreamColors:
+    """Colour knobs evaluated from each stream's pipe values.
+
+    A knob such as bars' ``COLOR`` (``@fg:mix(...)``) takes the pipe
+    value ``fg`` where a stream binds it and its default expression
+    elsewhere; ``variables`` are the per-pixel values the knobs read
+    (``d``), as float32 host tensors. A call with the step's ``pipe``
+    (``PassInputs.pipe``) returns ``{knob: [r, g, b, a]}``, each
+    component a float32 tensor on the device with a leading stream axis
+    (S, or 1 when every stream evaluates alike) and the knob's own
+    shape, left-padded to ``ndim`` dimensions. The expressions run on
+    the host once for each distinct stream, and the result (passed
+    through ``derive`` when given) is cached by the pipe values, so a
+    frame whose values did not change costs one hash.
+    """
+
+    CACHE = 8     # distinct pipe values kept
+
+    def __init__(self, ctx: ModuleContext, knobs: tuple, ndim: int = 2,
+                 derive: Callable | None = None, **variables):
+        self.ctx = ctx
+        self.knobs = tuple(knobs)
+        self.ndim = ndim
+        self.derive = derive
+        self.variables = variables
+        self._cache: dict = {}
+
+    def __call__(self, pipe: dict | None):
+        rows = {k: _host_f32(v) for k, v in (pipe or {}).items()}
+        key = tuple((k, a.shape, a.tobytes()) for k, a in sorted(rows.items()))
+        hit = self._cache.get(key)
+        if hit is None:
+            hit = self._build(rows)
+            if len(self._cache) >= self.CACHE:
+                self._cache.pop(next(iter(self._cache)))
+            self._cache[key] = hit
+        return hit
+
+    def _build(self, rows: dict[str, np.ndarray]):
+        n = max((a.shape[0] for a in rows.values()), default=1)
+        streams = [{k: a[s] for k, a in rows.items()} for s in range(n)]
+        keys = [tuple((k, r[k].tobytes()) for k in sorted(r)) for r in streams]
+        distinct = list(dict.fromkeys(keys))
+        which = torch.as_tensor([distinct.index(k) for k in keys])
+        evals = []
+        for k in distinct:
+            vals = {name: _pipe_value(streams[keys.index(k)][name])
+                    for name in rows}
+            evals.append({
+                knob: [torch.as_tensor(c, dtype=torch.float32) for c in
+                       color_planes(self.ctx.eval_color(knob, vals,
+                                                        **self.variables),
+                                    "cpu")]
+                for knob in self.knobs
+            })
+        out = {}
+        for knob in self.knobs:
+            comps = []
+            for c in range(4):
+                parts = [e[knob][c] for e in evals]
+                shape = torch.broadcast_shapes(*(p.shape for p in parts))
+                shape = (1,) * (self.ndim - len(shape)) + tuple(shape)
+                st = torch.stack([p.expand(shape) for p in parts])
+                if len(distinct) > 1:
+                    st = st[which]
+                comps.append(st.to(self.ctx.device))
+            out[knob] = comps
+        return self.derive(out) if self.derive is not None else out

@@ -1,15 +1,17 @@
 """`bars` module: split-center stereo bar spectrum.
 
 Pixel-for-pixel re-expression of shaders/glava/bars/1.frag (plus the
-premultiply pass bars/2.frag, gated on USE_ALPHA) as masked tensor
-math. Every column-only quantity (bar index, section position, sample
-position, which channel) is precomputed host-side in numpy, as in the
-JAX package — per frame the pass is one spectrum gather per channel
-plus (H, W) masks.
+premultiply pass bars/2.frag, gated on USE_ALPHA). Every column-only
+quantity (bar index, section position, sample position, which channel)
+is precomputed host-side in numpy, as in the JAX package — per frame
+the pass is one spectrum gather per channel and one raster launch
+(``ops/raster.py``, the CUDA kernel on the card) for every stream.
 
-The COLOR / BAR_OUTLINE knobs depend only on the row (``d``) and on
-``@fg``/``@bg`` pipe binds, which the port does not take yet (ROADMAP
-slice 5), so they are evaluated once at build time.
+The module is batched (``ModuleBuild.batched``): textures (S, sz) in,
+(S, H, W) planes out. The COLOR / BAR_OUTLINE knobs depend only on the
+row (``d``) and on the ``@fg``/``@bg`` pipe values, so each stream's
+colours are one (H, 4) table, evaluated on the host and cached by the
+pipe values (``base.StreamColors``).
 
 Knobs (shaders/glava/bars.glsl): BAR_WIDTH, BAR_GAP, BAR_OUTLINE_WIDTH,
 AMPLIFY, GRADIENT, COLOR, BAR_OUTLINE, DIRECTION, INVERT, FLIP,
@@ -21,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from glava_tpu_torch.ops import raster
 from glava_tpu_torch.render import base
 from glava_tpu_torch.render.modules import register
 
@@ -80,40 +83,38 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
     sample = ctx.sampler(np.clip(pos, 0.0, 1.0))
     use_right_t = torch.as_tensor(use_right, device=dev)
     visible_t = torch.as_tensor(visible, device=dev)
-    inner_t = torch.as_tensor(inner & visible, device=dev)[None, :]
+    inner_t = torch.as_tensor(inner & visible, device=dev)
 
     # ---- row-only quantities -------------------------------------------
-    d = (ah - ay) if flip else ay               # distance from baseline
-    d_col = torch.as_tensor(d.astype(np.float32), device=dev)[:, None]
+    d = ((ah - ay) if flip else ay).astype(np.float32)  # from the baseline
+    d_t = torch.as_tensor(d, device=dev)
 
-    color = base.color_tensors(ctx.color_fn("COLOR")(d=d_col), dev)
-    outline = base.color_tensors(ctx.color_fn("BAR_OUTLINE")(d=d_col), dev)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    def tables(c):
+        """COLOR, BAR_OUTLINE -> (S or 1, AH, 4) colour tables."""
+        return tuple(
+            torch.stack([p.expand(p.shape[0], ah, 1)[..., 0] for p in c[k]],
+                        dim=-1).contiguous()
+            for k in ("COLOR", "BAR_OUTLINE"))
+
+    colors = base.StreamColors(ctx, ("COLOR", "BAR_OUTLINE"), derive=tables,
+                               d=torch.as_tensor(d)[:, None])
 
     def pass1(inputs: base.PassInputs) -> base.Planes:
-        vl = sample(inputs.textures["audio_l"])
+        vl = sample(inputs.textures["audio_l"])         # (S, AW)
         vr = sample(inputs.textures["audio_r"])
         v = torch.where(use_right_t, vr, vl) * amplify
         v = torch.where(visible_t, v, -torch.inf)  # gap/oob columns never draw
-
-        body = d_col < (v - bow)[None, :]       # (AH, AW)
-        if bow > 0:
-            edge = d_col <= v[None, :]
-            # the three outline/body cases of bars/1.frag are disjoint
-            fill = body & inner_t
-            rim = (edge & ~body) | (body & ~inner_t)
-        else:
-            fill = body
-            rim = None
-        chans = []
-        for c in range(4):
-            out = zero if rim is None else torch.where(rim, outline[c], zero)
-            out = torch.where(fill, color[c], out)
-            chans.append(out.T if mirror_yx else out)
-        return tuple(chans)
+        color, outline = colors(inputs.pipe)
+        # the three outline/body cases of bars/1.frag (only the body
+        # without an outline), one launch for every stream
+        planes = raster.bars_raster(v.contiguous(), inner_t, d_t, color,
+                                    outline, bow, bow > 0)   # (S, 4, AH, AW)
+        if mirror_yx:
+            planes = planes.transpose(-1, -2)
+        return tuple(planes[:, c] for c in range(4))
 
     passes = [pass1]
     # bars/2.frag: premultiply, compiled only when USE_ALPHA == 1
     if use_alpha and ctx.cfg.premultiply_alpha:
         passes.append(base.premultiply_pass)
-    return base.ModuleBuild("bars", passes)
+    return base.ModuleBuild("bars", passes, batched=True)

@@ -3,16 +3,20 @@
 Re-expression of shaders/glava/radial/1.frag (in-shader alpha
 anti-aliasing via the APPLY_FRAG blend, radial/1.frag:34-39) plus the
 premultiply pass radial/2.frag. The per-pixel polar math is static, so
-bar ids, in-bar masks and alias factors bake to numpy constants, and
-the COLOR / BAR_OUTLINE knobs (which depend on the static distance
-``d``) are evaluated once at build time.
+bar ids, in-bar masks and alias factors bake to numpy constants. The
+COLOR / OUTLINE / BAR_OUTLINE knobs depend on the static distance ``d``
+and on the ``@fg``/``@bg`` pipe values; they are evaluated for each
+stream on the host, cached by the pipe values with the planes made
+from them (``base.StreamColors``).
 
-Per frame: one (NBARS/2 + 1,) spectrum sample per channel, then the
+The module is batched (``ModuleBuild.batched``). Per frame: one
+(NBARS/2 + 1,) spectrum sample per channel and stream, then the
 per-pixel bar value ``v`` from ONE table lookup at a static combined
 id plane (left ids first, right ids offset by NBARS/2 + 1) into the
-table ``cat([vl, vr]) * AMPLIFY`` — on CUDA tensors the hand-written
-lookup kernel (``ops/lookup.py``), one launch a frame; bit for bit the
-JAX form ``where(use_left, vl[bar_id], vr[bar_id]) * AMPLIFY``.
+(S, 2 * (NBARS/2 + 1)) tables ``cat([vl, vr]) * AMPLIFY`` — on CUDA
+tensors the hand-written lookup kernel (``ops/lookup.py``), one launch
+a frame for every stream; bit for bit the JAX form
+``where(use_left, vl[bar_id], vr[bar_id]) * AMPLIFY``.
 
 Knobs (shaders/glava/radial.glsl): C_RADIUS, C_LINE, OUTLINE, NBARS,
 BAR_WIDTH, AMPLIFY, GRADIENT, COLOR, ROTATE, INVERT, BAR_ALIAS_FACTOR,
@@ -101,44 +105,52 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
     t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
     f32 = lambda a: t(np.asarray(a, np.float32))  # noqa: E731
     bar_d_t = f32(bar_d)
-    outline_col = base.color_tensors(ctx.color_fn("OUTLINE")(), dev)
-    color = base.color_tensors(ctx.color_fn("COLOR")(d=bar_d_t), dev)
+    bar_d_host = torch.as_tensor(np.asarray(bar_d, np.float32))
+    ring_t = t(ring)
+    ring_alpha_t = f32(ring_alpha)
 
     def bar_values(textures) -> torch.Tensor:
-        vl = sample(textures["audio_l"])
+        vl = sample(textures["audio_l"])                 # (S, n1)
         vr = sample(textures["audio_r"])
-        return lookup_v(torch.cat([vl, vr]) * amplify)
+        return lookup_v(torch.cat([vl, vr], dim=-1) * amplify)  # (S, H, W)
 
     if bow <= 0 and use_alpha:
         # ---- default path: no bar outline, alpha AA ---------------------
         # in_bar folds into the alias plane (alias_enc >= 0 iff in_bar;
         # clip(alias) is the AA alpha) and the ring into its
         # premultiplied alpha f0a (0 off the ring); both layers' colours
-        # are static, so only the body mask is per frame
+        # hang on the pipe values only, so only the body mask is per frame
         alias_enc = f32(np.where(in_bar, np.clip(alias, 0.0, 1.0), -1.0))
-        o_a = np.float32(np.asarray(outline_col[3].cpu()))
-        f0a = f32(np.where(ring, o_a * ring_alpha.astype(np.float32),
-                           np.float32(0.0)))
-        ca = color[3] * torch.clamp_min(alias_enc, 0.0)
-        one_m = 1.0 - torch.clamp(f0a, 0.0, 1.0)
-        prem = [outline_col[k] * f0a for k in range(3)]
-        lit = [prem[k] + color[k] * one_m for k in range(3)]
-        lit.append(torch.maximum(ca, f0a))
-        prem.append(f0a)
+
+        def layers(c):
+            """(lit, prem): each stream's planes where a bar is drawn
+            and where it is not."""
+            outline_col, color = c["OUTLINE"], c["COLOR"]
+            f0a = torch.where(ring_t, outline_col[3] * ring_alpha_t, 0.0)
+            ca = color[3] * torch.clamp_min(alias_enc, 0.0)
+            one_m = 1.0 - torch.clamp(f0a, 0.0, 1.0)
+            prem = [outline_col[k] * f0a for k in range(3)]
+            lit = [prem[k] + color[k] * one_m for k in range(3)]
+            lit.append(torch.maximum(ca, f0a))
+            prem.append(f0a)
+            return lit, prem
+
+        colors = base.StreamColors(ctx, ("OUTLINE", "COLOR"), derive=layers,
+                                   d=bar_d_host)
 
         def pass1(inputs: base.PassInputs) -> base.Planes:
             v = bar_values(inputs.textures)
             body = (alias_enc >= 0.0) & (bar_d_t <= v)
+            lit, prem = colors(inputs.pipe)
             return tuple(torch.where(body, lit[k], prem[k]) for k in range(4))
     else:
         # ---- general path: a bar outline, or no alpha AA: the frame is
         # blended layer by layer as radial/1.frag does
         zero = torch.zeros((), dtype=torch.float32, device=dev)
-        ring_t = t(ring)
         in_bar_t = t(in_bar)
-        ring_alpha_t = f32(ring_alpha)
         alias_t = f32(alias)
-        bar_out = base.color_tensors(ctx.color_fn("BAR_OUTLINE")(d=bar_d_t), dev)
+        colors = base.StreamColors(ctx, ("OUTLINE", "COLOR", "BAR_OUTLINE"),
+                                   d=bar_d_host)
         # compared in float32, as the JAX module compares its f32 |ym| plane
         inner = in_bar_t & t(np.abs(ym).astype(np.float32)
                              < np.float32(bar_width / 2.0 - bow))
@@ -148,6 +160,9 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
 
         def pass1(inputs: base.PassInputs) -> base.Planes:
             v = bar_values(inputs.textures)
+            cols = colors(inputs.pipe)
+            outline_col, color, bar_out = (cols["OUTLINE"], cols["COLOR"],
+                                           cols["BAR_OUTLINE"])
             frag = (zero,) * 4
             # center ring (radial/1.frag:49-56)
             ring_col = list(_apply_frag(frag, outline_col, use_alpha))
@@ -184,5 +199,5 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
     passes = [pass1]
     if ctx.cfg.premultiply_alpha:
         passes.append(base.premultiply_pass)  # radial/2.frag
-    return base.ModuleBuild("radial", passes, [lookup_v])
+    return base.ModuleBuild("radial", passes, [lookup_v], batched=True)
 

@@ -6,7 +6,9 @@ the texture holds the feed PCM mapped to [0, 1] (wave/1.frag:7-9) and
 the module keeps no spectrum state. Pass 1 draws the line with
 adaptive thickness; pass 2 is an unconditional neighbourhood outline
 pass. The per-column texel indices are static (numpy); per frame the
-pass is three (W,) gathers and (H, W) masks.
+pass is three (S, W) gathers and (S, H, W) masks. The module is batched
+(``ModuleBuild.batched``); BASE_COLOR and OUTLINE take each stream's
+``@fg``/``@bg`` pipe values (``base.StreamColors``).
 
 Knobs (shaders/glava/wave.glsl): MIN_THICKNESS, MAX_THICKNESS,
 BASE_COLOR, AMPLIFY, OUTLINE.
@@ -38,8 +40,7 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
     min_t = ctx.knob_f("MIN_THICKNESS", 1)
     max_t = ctx.knob_f("MAX_THICKNESS", 6)
     amplify = ctx.knob_f("AMPLIFY", 500)
-    base_color = base.color_tensors(ctx.color_fn("BASE_COLOR")(), dev)
-    outline = base.color_tensors(ctx.color_fn("OUTLINE")(), dev)
+    colors = base.StreamColors(ctx, ("BASE_COLOR", "OUTLINE"))
 
     # pixel_center_integer: integer fragment coords (wave/1.frag:2)
     x, y = base.frag_coords(w, h, pixel_center_integer=True)
@@ -48,30 +49,32 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
     y_col = torch.as_tensor(y.astype(np.float32), device=dev)[:, None]
 
     def pass1(inputs: base.PassInputs) -> base.Planes:
-        tex = inputs.textures["audio_l"]
-        os_, om, op = ((tex[ix] - 0.5) * amplify + 0.5 for ix in taps)
+        tex = inputs.textures["audio_l"]                 # (S, sz)
+        os_, om, op = ((tex[..., ix] - 0.5) * amplify + 0.5 for ix in taps)
         s0 = om - os_
         s1 = op - os_
-        dmax = torch.maximum(s0, s1)
-        dmin = torch.minimum(s0, s1)
+        dmax = torch.maximum(s0, s1)[..., None, :]
+        dmin = torch.minimum(s0, s1)[..., None, :]
 
         s = os_ + (h * 0.5) - 0.5
-        diff = y_col - s[None, :]
+        diff = y_col - s[..., None, :]                   # (S, H, W)
         thick = torch.clamp(torch.abs(s - (h * 0.5)) * 6.0, min_t, max_t)
-        on_line = torch.abs(diff) < thick[None, :]
-        in_slope = (diff <= dmax[None, :]) & (diff >= dmin[None, :])
+        on_line = torch.abs(diff) < thick[..., None, :]
+        in_slope = (diff <= dmax) & (diff >= dmin)
         mask = on_line | in_slope
 
         # BASE_COLOR + scalar brightens all components incl. alpha
         # (wave/1.frag:35)
-        bright = (torch.abs((h * 0.5) - s) * 0.02)[None, :]
+        bright = (torch.abs((h * 0.5) - s) * 0.02)[..., None, :]
+        base_color = colors(inputs.pipe)["BASE_COLOR"]
         return tuple(torch.where(mask, base_color[c] + bright, 0.0)
                      for c in range(4))
 
     def pass2(inputs: base.PassInputs) -> base.Planes:
-        return neighbor_outline_pass(inputs.prev, outline, edge_columns=True)
+        return neighbor_outline_pass(inputs.prev, colors(inputs.pipe)["OUTLINE"],
+                                     edge_columns=True)
 
-    return base.ModuleBuild("wave", [pass1, pass2])
+    return base.ModuleBuild("wave", [pass1, pass2], batched=True)
 
 
 def neighbor_sum(alpha: torch.Tensor) -> torch.Tensor:
@@ -98,7 +101,7 @@ def neighbor_outline_pass(frame: base.Planes, outline: list[torch.Tensor],
     ``edge_columns``, in the first or last column). Only the alpha plane
     feeds the average; the rgb planes see one select each."""
     alpha = frame[3]
-    h, w = alpha.shape
+    w = alpha.shape[-1]
     cond = neighbor_sum(alpha) > 0
     inner = alpha <= 0
     if edge_columns:

@@ -87,11 +87,9 @@ class Renderer:
         interp_mod: float = 1.0,  # min(uratio*kcounter, 1); unused on the
         #                           accel path (render.c:2161-2173)
         gravity_g=None,         # gravity_step / measured UPS
-        pipe: dict | None = None,
+        pipe: dict | None = None,   # live pipe uniform values (name ->
+        #                            value), read by `@name:default` knobs
     ) -> tuple[RenderState, tuple]:
-        if pipe:
-            raise NotImplementedError(
-                "--pipe uniforms are not yet ported (ROADMAP slice 5)")
         # Keyframe push on update (render.c:2348-2353): start <- end,
         # end <- new buffers.
         if modified:
@@ -110,8 +108,31 @@ class Renderer:
         # stateless uniforms (wave) read the feed: the newest keyframe
         textures = self.pipeline.textures_from(
             chains, key_end[..., 0, :], key_end[..., 1, :])
+        if self.module.batched:
+            # one stream of a module that takes a stream axis
+            rows = None if not pipe else {
+                k: np.asarray(v, np.float32)[None] for k, v in pipe.items()}
+            planes = self.render_planes(
+                {k: t[None] for k, t in textures.items()}, time, rows)
+            planes = tuple(p[0] if np.ndim(p) == 3 else p for p in planes)
+        else:
+            planes = self.render_planes(textures, time, pipe)
+        return RenderState(chains, key_start, key_end), planes
+
+    def render_planes(self, textures: dict, time, pipe: dict | None) -> tuple:
+        """The module's pass chain and the background composite, for the
+        module's own input layout (a stream axis when it is batched:
+        ``pipe`` is then name -> (S, ...) rows)."""
+        if pipe and "__bg__" in pipe:
+            raise NotImplementedError(
+                "the live wallpaper (`__bg__` pipe key) is not yet ported "
+                "(ROADMAP slice 5)")
+        if pipe and not self.module.batched:
+            raise NotImplementedError(
+                f"pipe values for module '{self.module.name}' are not yet "
+                "ported: bars, radial and wave take them (ROADMAP slice 5)")
         planes = self.module.render(
-            PassInputs(prev=None, textures=textures, time=time))
+            PassInputs(prev=None, textures=textures, time=time, pipe=pipe))
         if not self.cfg.premultiply_alpha:
             # xroot/none opacity: the final draw blends src-alpha over
             # the background (render.c:1468-1469, 1700, 2028), per
@@ -121,7 +142,7 @@ class Renderer:
                 mul(c, a) + mul(b, 1.0 - a)
                 for c, b in zip(planes, self._bg_planes)
             )
-        return RenderState(chains, key_start, key_end), planes
+        return planes
 
     def step(self, *args, **kwargs) -> tuple[RenderState, torch.Tensor]:
         """:meth:`step_planes` + the (H, W, 4) float32 RGBA frame."""

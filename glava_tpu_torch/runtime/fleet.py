@@ -1,0 +1,229 @@
+"""FleetEngine: serve many visualizer streams from one card.
+
+The port of ``glava_tpu/runtime/fleet.py``. N independent audio sources
+batch onto one device step per frame (one fused spectrum update and
+one raster launch for the whole fleet), and each stream's frames flow
+to its own sink. Per frame the engine makes one host-to-device copy of
+the (S, 2, bufsize) ring snapshots, one step, and one device-to-host
+copy of the (S, H, W, 4) uint8 frames, which it hands to the sinks.
+
+Streams whose ``StreamSpec.loaded`` differs from the engine's run other
+modules in the same step (:class:`MixedBatchedRenderer`). Per-stream
+dynamics (gravity feedback from each stream's measured UPS, kcounter
+interpolation) mirror the single-stream engine loop, and the fused
+update keeps per-row ring-slot counters, so streams on independent
+audio clocks behave as separate engines would. Pipe values
+(``StreamSpec.pipe``, e.g. ``fg``/``bg`` colours) are per stream and
+change live with :meth:`FleetEngine.set_pipe`, with no rebuild.
+
+No ``mesh``: one card (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import time as _time
+from dataclasses import dataclass, field
+from typing import Any
+
+import numpy as np
+import torch
+
+from glava_tpu_torch.config.loader import LoadedConfig
+from glava_tpu_torch.parallel.batch import BatchedRenderer, MixedBatchedRenderer
+from glava_tpu_torch.runtime import audio as audio_mod
+from glava_tpu_torch.runtime.sinks import FrameSink, make_sink
+
+
+@dataclass
+class StreamSpec:
+    """One fleet member: an audio source and a frame destination."""
+
+    name: str
+    audio_backend: str = "synth"
+    source: str | None = None
+    sink: FrameSink | str = "latest"
+    pipe: dict[str, Any] = field(default_factory=dict)  # per-stream uniforms
+    #: optional per-stream module/knob config — streams whose `loaded`
+    #: differs from the engine's run other modules in the same step
+    #: (MixedBatchedRenderer); DSP-shaping config must match
+    loaded: LoadedConfig | None = None
+
+
+class FleetDynamics:
+    """Per-stream frame-clock dynamics, the vectorized mirror of the
+    single-stream engine loop (render.c:728, 1792-1809, 2380-2399):
+    per-stream kcounter-driven interpolation and measured-UPS gravity
+    feedback with the nominal/8 stall guard."""
+
+    def __init__(self, n_streams: int, nominal_ups: float, framerate: float):
+        self.S = n_streams
+        self.nominal_ups = float(nominal_ups)
+        self.fr = max(float(framerate) or 60.0, 1.0)
+        self.ur = np.full((n_streams,), self.nominal_ups, np.float64)
+        self.kcounter = np.zeros((n_streams,), np.int64)
+        self.ucount = np.zeros((n_streams,), np.int64)
+        self.ups = np.zeros((n_streams,), np.float64)
+
+    def frame(self, mods: np.ndarray, fps: float):
+        """Advance one frame: returns the (S,) f32 interpolation mod
+        (gravity decay comes from the separate :meth:`gravity`)."""
+        self.kcounter = np.where(mods, 0, self.kcounter + 1)
+        uratio = np.minimum(self.ur / max(fps or self.fr, 1.0), 1.0)
+        interp = np.minimum(
+            uratio * np.maximum(self.kcounter, 1), 1.0
+        ).astype(np.float32)
+        self.ucount += mods
+        return interp
+
+    def gravity(self, gravity_step: float) -> np.ndarray:
+        return (gravity_step / np.maximum(self.ur, 1.0)).astype(np.float32)
+
+    def tick(self, span: float) -> np.ndarray:
+        """Per-second accounting: returns per-stream UPS and feeds the
+        measured rate into the gravity step (stall-guarded)."""
+        self.ups = self.ucount / max(span, 1e-9)
+        self.ur = np.maximum(self.ups, self.nominal_ups / 8.0)
+        self.ucount = np.zeros((self.S,), np.int64)
+        return self.ups
+
+
+class FleetEngine:
+    """Multi-stream serving engine on one device (``"cuda"`` unless the
+    caller asks for ``"cpu"``)."""
+
+    def __init__(self, loaded: LoadedConfig, streams: list[StreamSpec],
+                 screen: tuple[int, int] | None = None, device="cuda"):
+        if not streams:
+            raise ValueError("fleet needs at least one stream")
+        self.loaded = loaded
+        self.streams = streams
+        # heterogeneous fleets: group streams by module-config variant
+        variants: list[LoadedConfig] = [loaded]
+        assign: list[int] = []
+        for s in streams:
+            lc = s.loaded if s.loaded is not None else loaded
+            k = next((i for i, v in enumerate(variants) if v is lc), None)
+            if k is None:
+                variants.append(lc)
+                k = len(variants) - 1
+            assign.append(k)
+        if len(variants) == 1:
+            self.br = BatchedRenderer(loaded, n_streams=len(streams),
+                                      screen=screen, device=device)
+        else:
+            self.br = MixedBatchedRenderer(variants, assign, screen=screen,
+                                           device=device)
+        self.device = self.br.device
+        cfg = loaded.cfg
+        self.sinks: list[FrameSink] = [
+            s.sink if isinstance(s.sink, FrameSink) else make_sink(s.sink)
+            for s in streams
+        ]
+        self.audio: list[audio_mod.AudioData] = []
+        self.backends = []
+        for s in streams:
+            ad = audio_mod.make_audio_data(
+                bufsize=cfg.bufsize, sample_sz=cfg.samplesize,
+                rate=cfg.sample_rate,
+                channels=1 if cfg.mirror_input else 2,
+                source=s.source if s.source is not None else cfg.audio_source,
+            )
+            backend = audio_mod.lookup(s.audio_backend)
+            backend.init(ad)
+            self.audio.append(ad)
+            self.backends.append(backend)
+        # stacked per-stream pipe values (static structure, live-updatable)
+        names = sorted({k for s in streams for k in s.pipe})
+        self._pipe_host = {
+            n: np.stack([
+                np.asarray(s.pipe.get(n, self._default_pipe(n)), np.float32)
+                for s in streams
+            ])
+            for n in names
+        }
+        self.state = self.br.init_state()
+        self.alive = False
+        self.frames_rendered = 0
+        self.fps = 0.0
+        self.ups = np.zeros((len(streams),), np.float64)  # per-stream
+
+    def _default_pipe(self, name):
+        for s in self.streams:
+            if name in s.pipe:
+                return np.zeros_like(np.asarray(s.pipe[name], np.float32))
+        return 0.0
+
+    def set_pipe(self, stream: int, name: str, value) -> None:
+        """Live per-stream uniform update (no rebuild)."""
+        self._pipe_host[name][stream] = np.asarray(value, np.float32)
+
+    def step(self, snaps: np.ndarray, mods: np.ndarray, tnow: float,
+             interp: np.ndarray, gravity_g: np.ndarray) -> torch.Tensor:
+        """One fleet frame from host snapshots (S, 2, bufsize): the
+        snapshots go to the device in one copy; returns the (S, H, W, 4)
+        uint8 frames on the device."""
+        S = len(self.streams)
+        audio = torch.from_numpy(snaps).to(self.device)
+        self.state, frames = self.br.step(
+            self.state, audio, mods, np.full((S,), tnow, np.float32), interp,
+            gravity_g, self._pipe_host, quantize=True)
+        return frames
+
+    def run(self, max_frames: int | None = None,
+            max_seconds: float | None = None) -> None:
+        cfg = self.loaded.cfg
+        S = len(self.streams)
+        threads = [b.spawn(a) for b, a in zip(self.backends, self.audio)]
+        self.alive = True
+        dyn = FleetDynamics(S, cfg.nominal_ups, cfg.framerate)
+        t0 = _time.monotonic()
+        fcount, mark = 0, t0
+        snaps = np.empty((S, 2, cfg.bufsize), np.float32)
+        mods = np.empty((S,), bool)
+        try:
+            while self.alive:
+                now = _time.monotonic()
+                if max_seconds is not None and now - t0 >= max_seconds:
+                    break
+                for i, (ad, th) in enumerate(zip(self.audio, threads)):
+                    err = getattr(th, "error", None)
+                    if err is not None:
+                        raise RuntimeError(
+                            f"audio backend of stream {i} failed: {err}") from err
+                    snaps[i], mods[i] = ad.snapshot()
+                interp = dyn.frame(mods, self.fps)
+                gravity_g = dyn.gravity(cfg.gravity_step)
+                tnow = (now - t0) % cfg.timecycle
+                frames = self.step(snaps, mods, tnow, interp, gravity_g)
+                self._distribute(frames, tnow)
+                self.frames_rendered += 1
+                fcount += 1
+                if now - mark >= 1.0:
+                    span = now - mark
+                    self.fps = fcount / span
+                    self.ups = dyn.tick(span)
+                    if cfg.print_frames:
+                        print(f"FPS: {self.fps:.1f}, UPS: "
+                              f"{float(np.mean(self.ups)):.1f} (fleet mean)")
+                    fcount, mark = 0, now
+                if max_frames is not None and self.frames_rendered >= max_frames:
+                    break
+        finally:
+            for ad in self.audio:
+                ad.terminate = True
+            for t in threads:
+                t.join(timeout=2.0)
+            for s in self.sinks:
+                s.close()
+
+    def _distribute(self, frames: torch.Tensor, tnow: float) -> None:
+        host = frames.cpu().numpy()  # (S, H, W, 4) uint8, one transfer
+        for i, sink in enumerate(self.sinks):
+            sink.submit(host[i], tnow)
+
+    def tex(self, stream: int) -> np.ndarray | None:
+        s = self.sinks[stream]
+        return s.latest() if hasattr(s, "latest") else None
+
+    def terminate(self) -> None:
+        self.alive = False

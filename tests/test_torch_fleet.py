@@ -1,0 +1,463 @@
+"""The port's many-stream path against the JAX package's.
+
+``BatchedRenderer``, ``MixedBatchedRenderer``, ``FleetDynamics`` and
+``FleetEngine`` of ``glava_tpu_torch`` on the CPU, fed the same numpy
+inputs as the JAX package's (``jax.jit`` of its steps). The
+configuration is tests/test_fleet.py's: 96x64, bufsize 1024, radial and
+circle with test_golden's small-radius knobs. S = 4 streams update on
+staggered clocks (stream s every (s + 1)-th step, as
+tests/test_fused.py's per-stream slot test) with per-stream gravity.
+
+Tolerances (the JAX suite's): fused state within 2e-5, textures within
+5e-5, frames under the golden rule (under 0.2% of pixels more than 2
+LSB apart), per stream; ``FleetDynamics`` exactly.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+from glava_tpu.config import loader as jloader
+from glava_tpu.parallel.batch import BatchedRenderer as JaxBatched
+from glava_tpu.parallel.batch import MixedBatchedRenderer as JaxMixed
+from glava_tpu.renderer import Renderer as JaxRenderer
+from glava_tpu.runtime.fleet import FleetDynamics as JaxDynamics
+from glava_tpu_torch import interop
+from glava_tpu_torch.config import loader
+from glava_tpu_torch.parallel import BatchedRenderer, MixedBatchedRenderer, example_batch
+from glava_tpu_torch.renderer import Renderer
+from glava_tpu_torch.runtime.fleet import FleetDynamics, FleetEngine, StreamSpec
+from tests.test_golden import TINY_KNOBS
+
+S = 4
+REQS = ("setgeometry 0 0 96 64", "setprintframes false", "setbufsize 1024",
+        "setsamplesize 256")
+
+
+def _loads(module, tmp_path, extra=()):
+    """(port, JAX) loads of ``module`` in the fleet configuration."""
+    kw = dict(cli_requests=REQS + tuple(extra), force_module=module)
+    if module in TINY_KNOBS:
+        d = tmp_path / module
+        d.mkdir(exist_ok=True)
+        (d / f"{module}.glsl").write_text(TINY_KNOBS[module])
+        kw["user_dir"] = d
+    return loader.load(**kw), jloader.load(**kw)
+
+
+def _inputs(rng, it, n=S):
+    """One step's inputs: seeded audio, the staggered mask, per-stream
+    gravity."""
+    audio = (rng.standard_normal((n, 2, 1024)) * 0.3).astype(np.float32)
+    modified = np.array([it % (s + 1) == 0 for s in range(n)])
+    g = rng.uniform(0.02, 0.08, n).astype(np.float32)
+    return audio, modified, np.zeros(n, np.float32), np.ones(n, np.float32), g
+
+
+def golden_fraction(got, want) -> float:
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    return float((np.abs(got.astype(np.int16) - want.astype(np.int16)) > 2).mean())
+
+
+def _u8(frame):
+    f = np.asarray(frame)
+    return f if f.dtype == np.uint8 else np.clip(np.round(f * 255.0), 0, 255).astype(np.uint8)
+
+
+def _assert_frames(got, want, what):
+    got, want = _u8(got.numpy()), _u8(want)
+    for s in range(got.shape[0]):
+        frac = golden_fraction(got[s], want[s])
+        assert frac < 0.002, f"{what}: stream {s} {frac:.4%} of pixels off"
+
+
+def _assert_state(pstate, jstate, cfg):
+    """The JAX state, carried into the port's layout, against the port's."""
+    carried = interop.state_from_jax_numpy(jax.tree.map(np.asarray, jstate), cfg, "cpu")
+    for name in ("gravity", "history", "avg"):
+        np.testing.assert_allclose(getattr(pstate.chains, name).numpy(),
+                                   getattr(carried.chains, name).numpy(),
+                                   atol=2e-5, err_msg=name)
+    assert torch.equal(pstate.chains.count, carried.chains.count)
+    assert torch.equal(pstate.key_start, carried.key_start)
+    assert torch.equal(pstate.key_end, carried.key_end)
+
+
+def _assert_textures(pipe, jpipe, pstate, jstate):
+    kp = pipe.textures_from(pstate.chains, pstate.key_end[:, 0], pstate.key_end[:, 1])
+    kj = jpipe.textures_from(jstate.chains, jstate.key_end[:, 0], jstate.key_end[:, 1])
+    assert kp.keys() == kj.keys()
+    for k in kp:
+        np.testing.assert_allclose(kp[k].numpy(), np.asarray(kj[k]), atol=5e-5)
+
+
+def _pipe(rng, n=S):
+    return {"fg": rng.uniform(0.2, 1.0, (n, 4)).astype(np.float32),
+            "bg": rng.uniform(0.0, 0.8, (n, 4)).astype(np.float32)}
+
+
+def _run_pair(module, tmp_path, quantize, pipe=None, steps=12, n=S):
+    lc, jlc = _loads(module, tmp_path)
+    br = BatchedRenderer(lc, n_streams=n, device="cpu")
+    jbr = JaxBatched(jlc, n_streams=n)
+    jstep = jax.jit(functools.partial(jbr.step, quantize=quantize))
+    ps, js = br.init_state(), jbr.init_state()
+    rng = np.random.default_rng(11)
+    jpipe = {k: jnp.asarray(v) for k, v in (pipe or {}).items()}
+    drawn = False
+    for it in range(steps):
+        audio, mod, t, im, g = _inputs(rng, it, n)
+        ps, got = br.step(ps, audio, mod, t, im, g, pipe, quantize=quantize)
+        js, want = jstep(js, jnp.asarray(audio), jnp.asarray(mod), jnp.asarray(t),
+                         jnp.asarray(im), jnp.asarray(g), jpipe)
+        assert got.shape == (n, 64, 96, 4)
+        assert got.dtype == (torch.uint8 if quantize else torch.float32)
+        _assert_frames(got, want, f"{module} step {it}")
+        drawn |= bool((got[..., 3] > 0).any())
+    assert drawn
+    return br, jbr, ps, js
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["f32", "u8"])
+@pytest.mark.parametrize("module", ["bars", "radial", "wave"])
+def test_batched_renderer_matches_jax(module, quantize, tmp_path):
+    br, jbr, ps, js = _run_pair(module, tmp_path, quantize)
+    if module != "wave":
+        _assert_state(ps, js, br.cfg)
+        _assert_textures(br.renderer.pipeline, jbr.renderer.pipeline, ps, js)
+    else:
+        assert ps.chains.count.numel() == 0 and not js.chains
+
+
+@pytest.mark.parametrize("module", ["bars", "radial", "wave"])
+def test_per_stream_pipe_colours_match_jax(module, tmp_path):
+    """fg/bg per stream. The reference for stream s is the JAX step of
+    one stream whose load binds s's values (``loader.load(pipe_values=
+    ...)``) and whose step gets them too: the JAX package reads a step's
+    pipe values only in the knobs it evaluates inside the pass (bars'
+    COLOR and BAR_OUTLINE, radial's COLOR), and bakes the load's values
+    into the others (radial's OUTLINE, wave's BASE_COLOR and OUTLINE)
+    at build time. The port binds every @fg/@bg knob per stream."""
+    pipe = _pipe(np.random.default_rng(5))
+    lc, _ = _loads(module, tmp_path)
+    br = BatchedRenderer(lc, n_streams=S, device="cpu")
+    refs = []
+    for s in range(S):
+        bound = {k: tuple(float(x) for x in v[s]) for k, v in pipe.items()}
+        kw = dict(cli_requests=REQS, force_module=module, pipe_values=bound)
+        if module in TINY_KNOBS:
+            kw["user_dir"] = tmp_path / module
+        jbr = JaxBatched(jloader.load(**kw), n_streams=1)
+        refs.append((jbr, jax.jit(functools.partial(jbr.step, quantize=True)),
+                     {k: jnp.asarray(v[s:s + 1]) for k, v in pipe.items()}))
+    ps = br.init_state()
+    js = [jbr.init_state() for jbr, _, _ in refs]
+    rng = np.random.default_rng(12)
+    for it in range(6):
+        audio, mod, t, im, g = _inputs(rng, it)
+        ps, got = br.step(ps, audio, mod, t, im, g, pipe, quantize=True)
+        for s, (_, jstep, jpipe) in enumerate(refs):
+            js[s], want = jstep(js[s], *(jnp.asarray(a[s:s + 1]) for a in
+                                         (audio, mod, t, im, g)), jpipe)
+            _assert_frames(got[s:s + 1], want, f"{module} stream {s} step {it}")
+    assert (got[..., 3] > 0).any()
+    assert not torch.equal(got[0], got[1])
+
+
+def test_single_stream_pipe_colours_match_jax(tmp_path):
+    """The single-stream Renderer takes the step's pipe values too."""
+    lc, jlc = _loads("bars", tmp_path)
+    r = Renderer(lc, device="cpu")
+    jr = JaxRenderer(jlc)
+    jstep = jr.jit_step(quantize=True)
+    pipe = {"fg": np.array([0.9, 0.1, 0.2, 1.0], np.float32)}
+    rng = np.random.default_rng(8)
+    ps, js = r.init_state(), jr.init_state()
+    for _ in range(5):
+        snap = (rng.standard_normal((2, 1024)) * 0.3).astype(np.float32)
+        ps, got = r.step_u8(ps, snap, True, 0.0, 1.0, 0.05, pipe)
+        js, want = jstep(js, jnp.asarray(snap), True, np.float32(0.0),
+                         np.float32(1.0), np.float32(0.05),
+                         {k: jnp.asarray(v) for k, v in pipe.items()})
+    assert golden_fraction(got.numpy(), want) < 0.002
+    drawn = got.numpy()[got.numpy()[..., 3] > 0]
+    assert drawn.size and drawn[:, :3].mean(axis=0).argmax() == 0   # red
+
+
+def test_pipe_values_of_unbatched_modules_are_refused(tmp_path):
+    lc, _ = _loads("circle", tmp_path)
+    br = BatchedRenderer(lc, n_streams=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        br.step(br.init_state(), np.zeros((2, 2, 1024), np.float32),
+                np.ones(2, bool), np.zeros(2), np.ones(2), np.full(2, 0.05),
+                {"fg": np.ones((2, 4), np.float32)})
+    r = Renderer(_loads("bars", tmp_path)[0], device="cpu")
+    with pytest.raises(NotImplementedError, match="wallpaper"):
+        r.step_u8(r.init_state(), np.zeros((2, 1024), np.float32), True, 0.0,
+                  1.0, 0.05, {"__bg__": np.zeros((4, 64, 96), np.float32)})
+
+
+def test_unbatched_module_renders_per_stream(tmp_path):
+    """circle is not batched: the batched renderer runs it one stream at
+    a time in the same step, and meets the JAX vmap."""
+    br, jbr, ps, js = _run_pair("circle", tmp_path, True, steps=6, n=3)
+    assert not br.renderer.module.batched
+    _assert_state(ps, js, br.cfg)
+
+
+def test_mixed_fleet_matches_jax(tmp_path):
+    """bars + radial + wave streams in one step, interleaved assignment;
+    each stream gets its own variant's frame, in stream order."""
+    mods = ["bars", "radial", "wave"]
+    loads = [_loads(m, tmp_path) for m in mods]
+    assign = [0, 1, 2, 1, 0]
+    n = len(assign)
+    mx = MixedBatchedRenderer([p for p, _ in loads], assign, device="cpu")
+    jmx = JaxMixed([j for _, j in loads], assign)
+    jstep = jax.jit(functools.partial(jmx.step, quantize=True))
+    ps, js = mx.init_state(), jmx.init_state()
+    rng = np.random.default_rng(7)
+    for it in range(8):
+        audio, mod, t, im, g = _inputs(rng, it, n)
+        ps, got = mx.step(ps, audio, mod, t, im, g, quantize=True)
+        js, want = jstep(js, jnp.asarray(audio), jnp.asarray(mod),
+                         jnp.asarray(t), jnp.asarray(im), jnp.asarray(g), {})
+        _assert_frames(got, want, f"mixed step {it}")
+    _assert_state(ps, js, mx.cfg)
+    f = got.numpy()
+    assert all((f[s][..., 3] > 0).any() for s in range(n))
+    assert not np.array_equal(f[0], f[1]) and not np.array_equal(f[1], f[2])
+
+
+def test_mixed_fleet_pipe_rows_follow_their_streams(tmp_path):
+    """With per-stream pipe values, stream s of the mixed fleet renders
+    as a one-stream fleet of its variant given row s."""
+    mods = ["bars", "radial", "wave"]
+    loads = [_loads(m, tmp_path)[0] for m in mods]
+    assign = [0, 1, 2, 1, 0]
+    n = len(assign)
+    pipe = _pipe(np.random.default_rng(9), n)
+    mx = MixedBatchedRenderer(loads, assign, device="cpu")
+    ones = [BatchedRenderer(loads[a], n_streams=1, device="cpu") for a in assign]
+    ps = mx.init_state()
+    ss = [b.init_state() for b in ones]
+    rng = np.random.default_rng(10)
+    for it in range(4):
+        audio, mod, t, im, g = _inputs(rng, it, n)
+        ps, got = mx.step(ps, audio, mod, t, im, g, pipe, quantize=True)
+        for s, b in enumerate(ones):
+            ss[s], want = b.step(ss[s], *(a[s:s + 1] for a in (audio, mod, t, im, g)),
+                                 {k: v[s:s + 1] for k, v in pipe.items()},
+                                 quantize=True)
+            _assert_frames(got[s:s + 1], want.numpy(), f"stream {s} step {it}")
+
+
+def test_mixed_fleet_rejects_dsp_mismatch(tmp_path):
+    a, _ = _loads("bars", tmp_path)
+    b, _ = _loads("wave", tmp_path, extra=("setbufsize 2048",))
+    with pytest.raises(ValueError, match="bufsize"):
+        MixedBatchedRenderer([a, b], [0, 1], device="cpu")
+
+
+def test_fleet_dynamics_match_jax():
+    """tests/test_fleet.py's throttled-clock sequence through both
+    copies: every output identical."""
+    nominal = 86.1328125
+    dyn, jdyn = FleetDynamics(2, nominal, 60), JaxDynamics(2, nominal, 60)
+
+    def same(a, b):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+    for i in range(60):
+        m = np.array([True, i % 4 == 0])
+        same(dyn.frame(m, fps=60.0), jdyn.frame(m, fps=60.0))
+    same(dyn.tick(1.0), jdyn.tick(1.0))
+    np.testing.assert_allclose(dyn.ups, [60.0, 15.0])
+    same(dyn.gravity(4.2), jdyn.gravity(4.2))
+    for i in range(4):
+        m = np.array([True, i == 0])
+        same(dyn.frame(m, fps=60.0), jdyn.frame(m, fps=60.0))
+    same(dyn.tick(1.0), jdyn.tick(1.0))
+    same(dyn.gravity(4.2), jdyn.gravity(4.2))
+    same(dyn.kcounter, jdyn.kcounter)
+
+
+def _fleet_load():
+    return loader.load(cli_requests=REQS)
+
+
+def test_fleet_engine_per_stream_sources_and_colours():
+    streams = [
+        StreamSpec("a", source="synth:300,900",
+                   pipe={"fg": (1, 0, 0, 1), "bg": (0, 0, 0, 0)}),
+        StreamSpec("b", source="synth:noise",
+                   pipe={"fg": (0, 0, 1, 1), "bg": (0, 0, 0, 0)}),
+    ]
+    f = FleetEngine(_fleet_load(), streams, device="cpu")
+    f.run(max_seconds=1.5)
+    fa, fb = f.tex(0), f.tex(1)
+    assert fa is not None and fb is not None and fa.shape == (64, 96, 4)
+    da, db = fa[fa[..., 3] > 0], fb[fb[..., 3] > 0]
+    assert da.size and db.size
+    assert da[:, :3].mean(axis=0).argmax() == 0  # red stream
+    assert db[:, :3].mean(axis=0).argmax() == 2  # blue stream
+    assert not np.array_equal(fa, fb)
+
+
+def test_fleet_engine_live_pipe_update():
+    streams = [StreamSpec("a", source="synth:500,1500",
+                          pipe={"fg": (1, 0, 0, 1), "bg": (0, 0, 0, 0)})]
+    f = FleetEngine(_fleet_load(), streams, device="cpu")
+    f.set_pipe(0, "fg", (0, 1, 0, 1))
+    f.run(max_seconds=1.0)
+    fr = f.tex(0)
+    drawn = fr[fr[..., 3] > 0]
+    assert drawn.size
+    assert drawn[:, 1].min() == 255  # updated to green before the run
+    f.set_pipe(0, "fg", (0, 0, 1, 1))
+    frames = f.step(np.zeros((1, 2, 1024), np.float32), np.zeros(1, bool), 0.0,
+                    np.ones(1, np.float32), np.full(1, 0.05, np.float32))
+    drawn = frames[0][frames[0][..., 3] > 0].numpy()
+    assert drawn.size and drawn[:, 2].min() == 255 and drawn[:, 1].max() == 0
+
+
+def test_fleet_engine_heterogeneous_modules(tmp_path):
+    shared, _ = _loads("bars", tmp_path)
+    radial, _ = _loads("radial", tmp_path)
+    wave, _ = _loads("wave", tmp_path)
+    streams = [StreamSpec("a", source="synth:400,800"),
+               StreamSpec("b", source="synth:400,800", loaded=radial),
+               StreamSpec("c", source="synth:400,800", loaded=wave)]
+    f = FleetEngine(shared, streams, device="cpu")
+    assert isinstance(f.br, MixedBatchedRenderer)
+    f.run(max_frames=20, max_seconds=30.0)
+    frames = [f.tex(i) for i in range(3)]
+    assert all(fr is not None and (fr[..., 3] > 0).any() for fr in frames)
+    assert not np.array_equal(frames[0], frames[1])
+    assert not np.array_equal(frames[1], frames[2])
+
+
+@pytest.mark.parametrize("modified", [True, False])
+def test_batched_state_carries_over_from_jax(modified, tmp_path):
+    """A JAX batched state (S = 4, five staggered steps; its ring layout
+    with a per-stream count) carried into the port: the next three
+    frames of both meet the golden rule, and the states the tolerances."""
+    lc, jlc = _loads("bars", tmp_path)
+    br = BatchedRenderer(lc, n_streams=S, device="cpu")
+    jbr = JaxBatched(jlc, n_streams=S)
+    jstep = jax.jit(functools.partial(jbr.step, quantize=True))
+    js = jbr.init_state()
+    rng = np.random.default_rng(13)
+    for it in range(5):
+        audio, mod, t, im, g = _inputs(rng, it)
+        js, _ = jstep(js, *(jnp.asarray(a) for a in (audio, mod, t, im, g)), {})
+    assert "__xla__" in js.chains and js.chains["__xla__"].count.shape == (S,)
+    ps = interop.state_from_jax_numpy(jax.tree.map(np.asarray, js), lc.cfg, "cpu")
+    for it in range(5, 8):
+        audio, mod, t, im, g = _inputs(rng, it)
+        mod = mod if modified else np.zeros(S, bool)
+        ps, got = br.step(ps, audio, mod, t, im, g, quantize=True)
+        js, want = jstep(js, *(jnp.asarray(a) for a in (audio, mod, t, im, g)), {})
+        _assert_frames(got, want, f"carried step {it}")
+    _assert_state(ps, js, lc.cfg)
+
+
+def test_batched_state_round_trips_through_numpy(tmp_path):
+    lc, _ = _loads("bars", tmp_path)
+    br = BatchedRenderer(lc, n_streams=S, device="cpu")
+    ex = example_batch(br, 3)
+    state = br.init_state()
+    rng = np.random.default_rng(2)
+    for it in range(4):
+        _, mod, _, _, g = _inputs(rng, it)
+        state, _ = br.step(state, ex["audio"], mod, ex["time"],
+                           ex["interp_mod"], g, quantize=True)
+    leaves = interop.state_to_numpy(state)
+    assert leaves["chains"]["__fused__"]["count"].shape == (2 * S,)
+    back = interop.state_from_jax_numpy(leaves, lc.cfg, "cpu")
+    for a, b in zip(back.chains, state.chains):
+        assert torch.equal(a, b)
+    assert torch.equal(back.key_end, state.key_end)
+    # rows s * U + u: each stream's two uniforms share its count
+    count = state.chains.count.reshape(S, 2)
+    assert torch.equal(count[:, 0], count[:, 1])
+    assert count[:, 0].tolist() == [4 % 6, 2, 2, 1]
+
+
+def test_update_textures_match_the_step(tmp_path):
+    lc, _ = _loads("bars", tmp_path)
+    br = BatchedRenderer(lc, n_streams=S, device="cpu")
+    ex = example_batch(br)
+    chains, tex = br.update_textures(br.init_state().chains, ex["audio"],
+                                     ex["gravity_g"])
+    state, _ = br.step(br.init_state(), ex["audio"], ex["modified"], ex["time"],
+                       ex["interp_mod"], ex["gravity_g"])
+    want = br.renderer.pipeline.textures_from(state.chains, ex["audio"][:, 0],
+                                              ex["audio"][:, 1])
+    for k in want:
+        assert tex[k].shape == (S, br.renderer.pipeline.sz)
+        assert torch.equal(tex[k], want[k])
+
+
+@pytest.mark.cuda
+def test_cuda_fleet_meets_cpu_fleet(tmp_path):
+    """On the card the fleet launches the fused update once (B = 2 S)
+    and the bars raster once a frame; its frames meet the CPU fleet's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from glava_tpu_torch.ops import fused, raster
+
+    lc, _ = _loads("bars", tmp_path)
+    frames = {}
+    for dev in ("cpu", "cuda"):
+        br = BatchedRenderer(lc, n_streams=S, device=dev)
+        state = br.init_state()
+        rng = np.random.default_rng(3)
+        f0, r0 = fused.launches, raster.launches
+        for it in range(6):
+            audio, mod, t, im, g = _inputs(rng, it)
+            state, fr = br.step(state, audio, mod, t, im, g, quantize=True)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert fused.launches - f0 == 6 and raster.launches - r0 == 6
+        frames[dev] = fr.cpu()
+    _assert_frames(frames["cuda"], frames["cpu"].numpy(), "cuda vs cpu")
+
+
+def test_batched_fused_layout_carries_over(tmp_path):
+    """The JAX package's other batched layout: its fused update (the
+    Pallas kernel in interpret mode, as tests/test_fused.py runs it)
+    keeps a flat ``__fused__`` state with per-row counts; carried into
+    the port after staggered steps, the next frames and states meet."""
+    from glava_tpu.ops.pallas import fused as jfused
+
+    lc, jlc = _loads("bars", tmp_path)
+    jbr = JaxBatched(jlc, n_streams=S)
+    jp = jbr.renderer.pipeline
+    jp.use_fused = True
+    jp._fused = jfused.build_fused_update_inc(
+        jp.sz, jlc.cfg.avg_frames,
+        tuple(float(x) for x in np.asarray(jp.avg_weights)),
+        batch_tile=4, interpret=True)
+    jstep = jax.jit(functools.partial(jbr.step, quantize=True))
+    js = jbr.init_state()
+    assert js.chains["__fused__"].count.shape == (2 * S,)
+    rng = np.random.default_rng(17)
+    for it in range(4):
+        audio, mod, t, im, g = _inputs(rng, it)
+        js, _ = jstep(js, *(jnp.asarray(a) for a in (audio, mod, t, im, g)), {})
+    br = BatchedRenderer(lc, n_streams=S, device="cpu")
+    ps = interop.state_from_jax_numpy(jax.tree.map(np.asarray, js), lc.cfg, "cpu")
+    for it in range(4, 6):
+        audio, mod, t, im, g = _inputs(rng, it)
+        ps, got = br.step(ps, audio, mod, t, im, g, quantize=True)
+        js, want = jstep(js, *(jnp.asarray(a) for a in (audio, mod, t, im, g)), {})
+        _assert_frames(got, want, f"fused-layout step {it}")
+    _assert_state(ps, js, lc.cfg)

@@ -59,6 +59,27 @@ def test_every_module_imports_without_jax():
     assert proc.stdout.startswith("ok")
 
 
+@pytest.mark.parametrize("module", [
+    "glava_tpu_torch.ops.raster", "glava_tpu_torch.parallel",
+    "glava_tpu_torch.parallel.batch", "glava_tpu_torch.runtime.fleet",
+])
+def test_fleet_modules_import_without_jax(module):
+    """The many-stream path and the raster kernel's module alone, each
+    in a fresh process with jax blocked."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        f"import {module}\n"
+        "bad = sorted(k for k in sys.modules if k == 'glava_tpu' "
+        "or k.startswith('glava_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
 def test_sources_name_neither_jax_nor_glava_tpu_modules():
     for p in PKG.rglob("*.py"):
         for line in p.read_text().splitlines():
