@@ -11,18 +11,21 @@ code is non-zero and no result line is printed):
                (fused_update, table_lookup, rowwise_lookup, latch_scan,
                bars_raster), the nvcc runs side by side.
 3. kernel    — each kernel vs its plain torch version on the card.
-               fused_update at n in {256, 1024, 4096, 16384}, F = 6,
-               B in {2, 128}: 8 updates of fresh audio with staggered
-               per-row slots; gravity, average and the written history
-               slot within 2e-5, the other history slots bit-identical.
+               fused_update at every n in {256, ..., 16384}, B in {1, 2,
+               128}, F in {1, 6, 16}, and F 24 at n 16384 (the streamed
+               route): 8 updates of fresh audio with staggered per-row
+               slots; gravity, average and the written history slot
+               within 2e-5, the other history slots bit-identical.
                table_lookup BIT-IDENTICAL (torch.equal) on: radial's
                162-entry table at its 1920x1080 id plane, an 8192-entry
                table at circle's three 1920x1080 site planes, a
                32768-entry table (the dynamic shared memory path), a
                random 2M-point plane, a 97-point plane and a (3, T)
                table; an out-of-range static plane must raise.
-               latch_scan BIT-IDENTICAL at (1081, 1920), C in {0, 4},
-               both directions; rowwise_lookup BIT-IDENTICAL at
+               latch_scan BIT-IDENTICAL, one launch a call, at (1081,
+               1920), (601, 800), (97, 131), (1, 7), (7, 1), (4097, 96)
+               and a 1080p plane with keys worse than the sentinel, C in
+               {0, 4}, both directions; rowwise_lookup BIT-IDENTICAL at
                1920x1080 (N 1920, T 1080, P 1080), C in {1, 4}, on
                contiguous operands and on the ``.T`` views of (H, W)
                planes the interpreter passes. bars_raster BIT-IDENTICAL
@@ -58,11 +61,15 @@ code is non-zero and no result line is printed):
                size against the archive.
 5. times     — device times of each kernel and its plain version at
                the main path's shapes, and of one PyTorch call computing
-               the same function where there is one: fused_update (B 2
-               and B 128) and bars_raster (S = 64 at 800x600 and
-               1920x1080) from CUDA events around back-to-back launches
-               on fresh inputs held behind a spin kernel (``event_ms``),
-               the others from torch.profiler; CUDA-event frame times of
+               the same function where there is one: fused_update (n
+               4096 and 16384, B 2 and B 128), latch_scan and
+               torch.cummax at (1081, 1920) (the latch also at (601,
+               800)) and bars_raster (S = 64 at 800x600 and 1920x1080)
+               from CUDA events around back-to-back launches on fresh
+               inputs held behind a spin kernel (``event_ms``),
+               fused_update and latch_scan also from torch.profiler on
+               one warm input set, the others from torch.profiler;
+               CUDA-event frame times of
                bars, radial and circle and of the shader modules at
                800x600 and 1920x1080; fleet frame times at S in {1, 8,
                64} at both sizes, split into the device step and the
@@ -72,10 +79,17 @@ code is non-zero and no result line is printed):
                fleet at 800x600.
 
 The second-to-last line is the kernels JSON, the last the device JSON.
+
+    python3 chip_smoke.py --fused-ab DIR [DIR ...]
+
+times the fused update of other trees beside this checkout's instead
+(``fused_ab``): each DIR holds a tree's ``ops/fused.py`` and
+``csrc/fused_update.cu``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -358,18 +372,30 @@ def _case(n: int, B: int, F: int, rng) -> float:
     return worst
 
 
+# (n, B, F) of the fused update's checks: every bufsize the kernel takes
+# at one stream, one stereo stream and 64; a ring of 1, 6 (the shipped
+# avg frames) and 16 slots; and at n 16384 a ring of 24 slots, more than
+# shared memory holds, which takes the streamed route
+FUSED_CASES = tuple((256 << i, B, F) for i in range(7) for B in (1, 2, 128)
+                    for F in (1, 6, 16)) + ((16384, 2, 24), (16384, 128, 24))
+
+
 def phase_kernel() -> float:
+    from glava_tpu_torch.ops import fused
+
     rng = np.random.default_rng(0)
-    worst = 0.0
-    cases = []
-    for n in (256, 1024, 4096, 16384):
-        for B in (2, 128):
-            err = _case(n, B, 6, rng)
-            cases.append(f"n{n}/B{B} {err:.2e}")
-            worst = max(worst, err)
-    print(f"[3 kernel] fused_update vs plain, max abs err per case: "
-          f"{', '.join(cases)} (tolerance {TOL})")
-    return worst
+    worst = {}
+    for n, B, F in FUSED_CASES:
+        err = _case(n, B, F, rng)
+        plan = fused.fft_plan(n)
+        key = f"n{n} (k {plan.k}{', streamed' if plan.slots(F) < F else ''})"
+        worst[key] = max(worst.get(key, 0.0), err)
+    print(f"[3 kernel] fused_update vs plain over B in {{1, 2, 128}}, F in "
+          f"{{1, 6, 16}} (and F 24 at n 16384), 8 updates each, untouched "
+          f"history slots torch.equal; max abs err by n: "
+          f"{', '.join(f'{k} {v:.2e}' for k, v in worst.items())} "
+          f"(tolerance {TOL})")
+    return max(worst.values())
 
 
 def _module_lookup(module: str, screen, reqs=()):
@@ -431,40 +457,52 @@ def phase_lookup() -> float:
 
 
 LATCH_SHAPE = (1081, 1920)   # a 1080p walk's rows [-1, h) x columns
+# the 1080p and 800x600 walks, odd and degenerate planes, and a plane
+# taller than one of the kernel's row super-blocks (1280 rows)
+LATCH_SHAPES = (LATCH_SHAPE, (601, 800), (97, 131), (1, 7), (7, 1), (4097, 96))
 
 
-def latch_inputs(C: int, reverse: bool, seed: int = 5):
+def latch_inputs(C: int, reverse: bool, seed: int = 5, shape=LATCH_SHAPE,
+                 worse: float = 0.0):
     """A first-hit key plane (``2*row + type`` at 15% of the cells, the
-    sentinel elsewhere, the last column event-free) and C candidate
-    planes on the card, at ``LATCH_SHAPE``."""
+    sentinel elsewhere, the last column event-free; with ``worse`` that
+    share of the cells keyed worse than the sentinel) and C candidate
+    planes on the card."""
     rng = np.random.default_rng(seed)
-    E, W = LATCH_SHAPE
+    E, W = shape
     sent = float(np.float32(1 << 30)) if reverse else -1.0
     rows = np.arange(E, dtype=np.int64)[:, None]
     event = rng.random((E, W)) < 0.15
     event[:, -1] = False
     key = np.where(event, 2 * rows + rng.integers(0, 2, (E, W)), sent)
+    key = np.where(rng.random((E, W)) < worse, 2 ** 31 if reverse else -2, key)
     t = lambda a: torch.as_tensor(a.astype(np.float32), device="cuda")  # noqa: E731
     return t(key), tuple(t(rng.standard_normal((E, W))) for _ in range(C)), sent
 
 
 def phase_latch() -> float:
-    """latch_scan vs latch_scan_plain, bit for bit."""
+    """latch_scan vs latch_scan_plain, bit for bit, one launch a call."""
     from glava_tpu_torch.ops import latch
 
-    cases = []
+    cases = [(shape, 0.0) for shape in LATCH_SHAPES] + [(LATCH_SHAPE, 0.3)]
     for C in (0, 4):
         for reverse in (True, False):
-            key, cands, sent = latch_inputs(C, reverse)
-            got = latch.latch_scan(key, cands, reverse, sent)
-            want = latch.latch_scan_plain(key, cands, reverse, sent)
-            torch.cuda.synchronize()
-            if not all(torch.equal(g, w) for g, w in zip(got, want)):
-                raise AssertionError(f"latch_scan C={C} reverse={reverse}: "
-                                     "kernel != plain")
-            cases.append(f"C{C}/{'suffix-min' if reverse else 'prefix-max'}")
-    print(f"[3 kernel] latch_scan vs plain at {LATCH_SHAPE}, torch.equal on "
-          f"every output: {', '.join(cases)}; max abs err 0.0")
+            for shape, worse in cases:
+                key, cands, sent = latch_inputs(C, reverse, shape=shape,
+                                                worse=worse)
+                before = latch.launches[C]
+                got = latch.latch_scan(key, cands, reverse, sent)
+                want = latch.latch_scan_plain(key, cands, reverse, sent)
+                torch.cuda.synchronize()
+                if latch.launches[C] != before + 1 or not all(
+                        torch.equal(g, w) for g, w in zip(got, want)):
+                    raise AssertionError(f"latch_scan {shape} C={C} reverse="
+                                         f"{reverse} worse={worse}: kernel != "
+                                         "plain")
+    print(f"[3 kernel] latch_scan vs plain, torch.equal on every output, C in "
+          f"{{0, 4}}, suffix min and prefix max, at "
+          f"{', '.join(map(str, LATCH_SHAPES))} and {LATCH_SHAPE} with 30% of "
+          "keys worse than the sentinel; max abs err 0.0")
     return 0.0
 
 
@@ -814,37 +852,197 @@ def event_ms(fn, iters: int) -> float:
                          "enqueueing of the timed calls")
 
 
-def _update_times(n: int, B: int):
-    """fused_update at bufsize n and B rows: event times of the kernel
-    and its plain version, each call on fresh inputs (a rotation of
-    input sets larger than the 50 MB L2 together), the profiler's device
-    time of the kernel (the reading PRs 1-3 reported) and the bytes."""
+def _update_bytes(n: int, B: int, F: int) -> int:
+    """Bytes the fused update must move. Read once: pcm, window,
+    weights, slots and 3 row parameters, gravity and the F - 1 history
+    slots a row does not overwrite (nothing reads the old value of its
+    own slot). Written once: gravity, that slot and the average."""
+    plane = B * n * 4            # one (B, 2, m) float32 plane set
+    return (B * n * 4 + n * 4 + F * 4 + 4 * B * 4 + plane + (F - 1) * plane
+            + 3 * plane)
+
+
+def _update_sets(n: int, B: int, F: int = 6) -> list:
+    """Input sets of fused_update, more of them than the 50 MB L2 holds
+    together, so a rotation through them gives each call fresh inputs."""
     from glava_tpu_torch.ops import fused, windows
 
-    F = 6
     m = n // 2
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
     t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=dev)  # noqa: E731
-    plane = B * 2 * m * 4
-    # read once: pcm, window, weights, slots + 3 row params, gravity and
-    # the whole history; written once: gravity, one history slot, average
-    nbytes = (B * n * 4 + n * 4 + F * 4 + 4 * B * 4 + plane + F * plane
-              + 3 * plane)
     window = t(windows.pcm_window(n))
     w_age = t(fused.age_weights(windows.avg_weights(F, True, True)))
-    sets = [(t(rng.standard_normal((B, n)) * 0.3),
+    return [(t(rng.standard_normal((B, n)) * 0.3),
              t(rng.uniform(0, 1, (B, 2, m))),
              t(rng.uniform(0, 1, (B, F, 2, m))),
              t(np.arange(B) % F, torch.int32),
              t(np.full(B, 10.2)), t(np.full(B, 0.3)), t(np.full(B, 0.05)),
              window, w_age)
-            for _ in range(max(2, -(-64 * 2 ** 20 // nbytes)))]
+            for _ in range(max(2, -(-64 * 2 ** 20 // _update_bytes(n, B, F))))]
+
+
+def _update_times(n: int, B: int):
+    """fused_update at bufsize n and B rows: event times of the kernel
+    and its plain version, each call on fresh inputs, the profiler's
+    device time of the kernel on one warm input set and the bytes."""
+    from glava_tpu_torch.ops import fused
+
+    sets = _update_sets(n, B)
     K = len(sets)
     kernel = event_ms(lambda i: fused.fused_update(*sets[i % K]), 200)
     plain = event_ms(lambda i: fused.fused_update_plain(*sets[i % K]), 10)
     profiled = device_ms(lambda: fused.fused_update(*sets[0]))
-    return kernel, plain, profiled, nbytes, K
+    return kernel, plain, profiled, _update_bytes(n, B, 6), K
+
+
+def host_us(fn, iters: int = 1000, repeats: int = 5) -> float:
+    """Median host microseconds per call of ``fn(i)``: the caller's time
+    to enqueue it, with the card keeping up (each call's kernel must be
+    shorter than its host time for this to hold)."""
+    fn(0)
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for i in range(iters):
+            fn(i)
+        runs.append((time.perf_counter() - t0) / iters * 1e6)
+        torch.cuda.synchronize()
+    return float(np.median(runs))
+
+
+def _fused_variants(dirs: list[str]) -> list:
+    """Other trees' fused updates, each from a directory holding its
+    ``fused.py`` and ``fused_update.cu``: (name, module loaded under its
+    own name, its kernel built into build/ and loaded), the nvcc runs
+    side by side."""
+    import ctypes
+    import importlib.util
+
+    from glava_tpu_torch.ops import _build
+
+    mods = []
+    for d in map(Path, dirs):
+        name = f"fused_ab_{d.name}"
+        spec = importlib.util.spec_from_file_location(name, d / "fused.py")
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod      # dataclasses look their module up
+        spec.loader.exec_module(mod)
+        mods.append((d, mod))
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = [subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+         str(_build.BUILD_DIR / f"fused_ab_{d.name}.so"),
+         str(d / "fused_update.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for d, _ in mods]
+    logs = [p.communicate()[0] for p in procs]
+    out = []
+    for (d, mod), proc, log in zip(mods, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {d}:\n{log}")
+        so = _build.BUILD_DIR / f"fused_ab_{d.name}.so"
+        ptxas = " | ".join(ln.strip() for ln in log.splitlines()
+                           if "registers" in ln)
+        print(f"[ab] built {d.name}: {ptxas}")
+        out.append((d.name, mod, _build.Built(ctypes.CDLL(str(so)), so, 0.0,
+                                              log)))
+    return out
+
+
+@contextlib.contextmanager
+def _serving(built):
+    """Let ``_build.load("fused_update")``, through which a variant's
+    wrapper finds its kernel, return ``built`` for a while."""
+    from glava_tpu_torch.ops import _build
+
+    saved = _build._LOADED["fused_update"]
+    _build._LOADED["fused_update"] = built
+    try:
+        yield
+    finally:
+        _build._LOADED["fused_update"] = saved
+
+
+def fused_ab(dirs: list[str]) -> int:
+    """``--fused-ab DIR ...``: the fused update of each DIR (a tree's
+    ``glava_tpu_torch/ops/fused.py`` and ``csrc/fused_update.cu``, for
+    example from ``git show <commit>:<path>``) beside this checkout's,
+    in one process on one card. At n in {512, ..., 16384} (k = 1, 2, 4,
+    8 and 8 with 1024-point CTA FFTs) and B in {2, 128}: CUDA-event time
+    on fresh inputs and the profiler's warm time, each variant twice, in
+    the order given and then reversed. Every variant's first call is
+    held against the plain version, so a mix-up of kernels fails the
+    run. Then the host time of one call at n 4096, B 2 (``_host_ab``)."""
+    from glava_tpu_torch.ops import _build, fused
+
+    card = phase_device()
+    variants = [("this", fused, _build.load("fused_update")),
+                *_fused_variants(dirs)]
+    for n in (512, 1024, 2048, 4096, 16384):
+        for B in (2, 128):
+            sets = _update_sets(n, B)
+            K = len(sets)
+            order = variants + variants[::-1]
+            for r, (name, mod, built) in enumerate(order):
+                # the timed calls update the sets' state in place
+                pg, _, pavg = fused.fused_update_plain(*sets[0])
+                with _serving(built):
+                    before = mod.launches
+                    args = [a.clone() for a in sets[0][:3]] + list(sets[0][3:])
+                    kg, kh, kavg = mod.fused_update(*args)
+                    err = max((kg - pg).abs().max().item(),
+                              (kavg - pavg).abs().max().item())
+                    if mod.launches != before + 1 or not err <= TOL:
+                        raise AssertionError(f"{name} n{n} B{B}: launches "
+                                             f"{mod.launches - before}, err {err}")
+                    ev = event_ms(lambda i: mod.fused_update(*sets[i % K]), 200)
+                    warm = device_ms(lambda: mod.fused_update(*sets[0]))
+                print(f"[ab] fused n{n} B{B} {name}: events {ev * 1e3:.2f} us, "
+                      f"warm {warm * 1e3:.2f} us, err {err:.2e}, round "
+                      f"{r // len(variants)} ({card})")
+            print(f"[ab] fused n{n} B{B}: bound "
+                  f"{bound_ms(_update_bytes(n, B, 6)) * 1e3:.3f} us (bytes), "
+                  f"{K} input sets in turn")
+    _host_ab(variants, card)
+    return 0
+
+
+def _host_ab(variants: list, card: str, rounds: int = 8) -> None:
+    """Host microseconds of one fused_update call at n 4096, B 2 (the
+    kernel, ~7 us, is shorter than the call, so the card keeps up), the
+    variants alternated over ``rounds``: through each wrapper, and, for
+    variants with this checkout's C interface, of the C entry alone
+    (ctypes, argument checks, tensor maps, the launch). Prints each
+    variant's least and median round."""
+    from glava_tpu_torch.ops import fused
+
+    n, B, F = 4096, 2, 6
+    sets = _update_sets(n, B, F)
+    K = len(sets)
+    tw = fused._twiddles(fused.fft_plan(n), sets[0][0].device)
+    stream = torch.cuda.current_stream().cuda_stream
+    argsets = []
+    for pcm, grav, hist, slot, fs, fc, g, win, w in sets:
+        avg = torch.empty_like(grav)
+        argsets.append((avg, tuple(t.data_ptr() for t in (
+            pcm, win, tw, w, slot, fs, fc, g, grav, hist, avg))
+            + (B, n, F, *fused._plan_args(n, F), stream)))
+    runs: dict[str, list[float]] = {}
+    for r in range(rounds):
+        for name, mod, built in (variants if r % 2 == 0 else variants[::-1]):
+            with _serving(built):
+                runs.setdefault(f"{name} wrapper", []).append(
+                    host_us(lambda i: mod.fused_update(*sets[i % K]), 300, 3))
+                if hasattr(mod, "_kernel"):
+                    fn = mod._kernel()
+                    runs.setdefault(f"{name} C entry", []).append(
+                        host_us(lambda i: fn(*argsets[i % K][1]), 300, 3))
+    for label, us in runs.items():
+        print(f"[ab] host time of one fused_update call, n {n} B {B}, {label}: "
+              f"least {min(us):.2f} us, median {float(np.median(us)):.2f} us "
+              f"of {rounds} rounds ({card})")
 
 
 def device_ms(fn, iters: int = 100) -> float:
@@ -914,24 +1112,34 @@ def _rowwise_times():
 
 
 def _latch_times():
-    """Device time per call at (1081, 1920): C = 0 prefix max (where
-    one library call, torch.cummax, computes the same key scan) and
-    C = 4 suffix min."""
+    """Time per call at (1081, 1920): C = 0 prefix max (where one
+    library call, torch.cummax, computes the same key scan) and C = 4
+    suffix min. Kernel and library: CUDA events around back-to-back
+    calls on fresh inputs (a rotation of input sets larger than the
+    50 MB L2), and the profiler's device time on one warm set beside
+    it; the plain version from the profiler."""
     from glava_tpu_torch.ops import latch
 
     E, W = LATCH_SHAPE
     out = {}
     for C, reverse in ((0, False), (4, True)):
-        key, cands, sent = latch_inputs(C, reverse)
+        nbytes = 2 * (1 + C) * E * W * 4
+        K = max(2, -(-2 * 64 * 2 ** 20 // nbytes))
+        sets = [latch_inputs(C, reverse, seed) for seed in range(K)]
+        key, cands, sent = sets[0]
         out[C] = {
-            "ms": device_ms(lambda: latch.latch_scan(key, cands, reverse, sent)),
+            "ms": event_ms(lambda i: latch.latch_scan(*sets[i % K][:2], reverse,
+                                                      sent), 100),
+            "warm_ms": device_ms(lambda: latch.latch_scan(key, cands, reverse,
+                                                          sent)),
             "plain_ms": device_ms(
                 lambda: latch.latch_scan_plain(key, cands, reverse, sent), 3),
-            "library_ms": (device_ms(lambda: torch.cummax(key, 0))
-                           if C == 0 else None),
-            "bound_ms": bound_ms(2 * (1 + C) * E * W * 4),
+            "library_ms": (event_ms(lambda i: torch.cummax(sets[i % K][0], 0),
+                                    100) if C == 0 else None),
+            "bound_ms": bound_ms(nbytes),
             "what": f"C {C}, {'suffix min' if reverse else 'prefix max'}, "
-                    f"({E}, {W})" + ("; library torch.cummax" if C == 0 else "")}
+                    f"({E}, {W}), CUDA events, back to back, {K} input sets "
+                    "in turn" + ("; library torch.cummax" if C == 0 else "")}
     return out
 
 
@@ -1070,20 +1278,24 @@ def _fleet_times(n: int, screen, frames: int, card: str,
 
 
 def phase_times(card: str, user_dir: str) -> dict:
+    from glava_tpu_torch.ops import latch
+
     times = {}
-    for B in (2, 128):
-        dk, dp, prof, nbytes, K = _update_times(4096, B)
-        times[B] = {"ms": dk, "plain_ms": dp, "library_ms": None,
-                    "bound_ms": bound_ms(nbytes)}
-        print(f"[5 times] fused update n4096 B{B}: kernel {dk * 1e3:.2f} us, "
-              f"plain {dp * 1e3:.2f} us (CUDA events, back to back, {K} input "
-              f"sets in turn), bound {times[B]['bound_ms'] * 1e3:.3f} us "
-              f"(bytes); profiler device time of the kernel {prof * 1e3:.2f} "
-              f"us ({card})")
+    for n in (4096, 16384):
+        for B in (2, 128):
+            dk, dp, prof, nbytes, K = _update_times(n, B)
+            times[n, B] = {"ms": dk, "plain_ms": dp, "library_ms": None,
+                           "bound_ms": bound_ms(nbytes)}
+            print(f"[5 times] fused update n{n} B{B}: kernel {dk * 1e3:.2f} us, "
+                  f"plain {dp * 1e3:.2f} us (CUDA events, back to back, {K} "
+                  f"input sets in turn), bound "
+                  f"{times[n, B]['bound_ms'] * 1e3:.3f} us (bytes); profiler "
+                  f"device time of the kernel on one warm set {prof * 1e3:.2f} "
+                  f"us; library none ({card})")
     raster_t = {(H, W): _raster_times(64, H, W) for H, W in ((600, 800), (1080, 1920))}
     for t in raster_t.values():
         _print_kernel_time("bars_raster", t, card)
-    out = {"fused_update": times[2], "table_lookup": _lookup_times(),
+    out = {"fused_update": times[4096, 2], "table_lookup": _lookup_times(),
            "bars_raster": raster_t[(600, 800)]}
     _print_kernel_time("table_lookup", out["table_lookup"], card)
     for C, t in _rowwise_times().items():
@@ -1092,6 +1304,19 @@ def phase_times(card: str, user_dir: str) -> dict:
     for C, t in _latch_times().items():
         out[f"latch_scan C={C}"] = t
         _print_kernel_time("latch_scan", t, card)
+        print(f"[5 times] latch_scan C {C}: profiler device time on one warm "
+              f"input set {t['warm_ms'] * 1e3:.2f} us ({card})")
+    for C, reverse in ((0, False), (4, True)):
+        # the 800x600 walk's plane: a fixed cost per call against its bytes
+        shape = (601, 800)
+        nbytes = 2 * (1 + C) * shape[0] * shape[1] * 4
+        K = max(2, -(-2 * 64 * 2 ** 20 // nbytes))
+        sets = [latch_inputs(C, reverse, seed, shape=shape) for seed in range(K)]
+        ms = event_ms(lambda i: latch.latch_scan(*sets[i % K][:2], reverse,
+                                                 sets[i % K][2]), 100)
+        print(f"[5 times] latch_scan C {C} at {shape}: {ms * 1e3:.2f} us (CUDA "
+              f"events, back to back, {K} input sets in turn), bound "
+              f"{bound_ms(nbytes) * 1e3:.2f} us (bytes) ({card})")
     frames = {}
     for module in ("bars", "radial", "circle") + tuple(SHADER_MODULES):
         shader = module in SHADER_MODULES
@@ -1157,4 +1382,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--fused-ab"]:
+        raise SystemExit(fused_ab(sys.argv[2:]))
     raise SystemExit(main())

@@ -1,13 +1,12 @@
 // Fused spectrum update for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel glava_tpu/ops/pallas/fused.py:
-// build_fused_update_inc (its pl.pallas_call). One CTA owns one row
-// (one stream x uniform) and, for that row, computes
+// build_fused_update_inc (its pl.pallas_call). For each row (one stream
+// x uniform) it computes
 //
 //   1. x = pcm * pcm_window(n); re = x[0::2], im = x[1::2]  (m = n/2)
-//   2. the forward complex DFT of length m, natural bin order
-//      (iterative radix-2, decimation in time), in float64 over a
-//      float64 twiddle table, rounded to float32 at the end
+//   2. the forward complex DFT of length m, natural bin order, in
+//      float64 over float64 twiddle tables, rounded to float32 at the end
 //   3. log(|.|+1)/3 on re and im separately, times the boost
 //      max(j/n * fft_scale + 1 - fft_cutoff, 1) over the interleaved
 //      float index j, clamped to [0, 1]
@@ -20,21 +19,48 @@
 // Layouts (all float32, contiguous): pcm (B, n); grav, avg (B, 2, m);
 // hist (B, F, 2, m); slot (B,) int32; fft_scale, fft_cutoff, g (B,).
 //
-// What bounds it on the card: at the shipped size (n = 4096, 2 rows
-// per frame, F = 6) the whole launch touches ~0.2 MB of history and a
-// few KB of audio, far below what the card moves in a microsecond, so
-// the kernel is bound by latency, not bytes: the launch, and inside
-// each CTA the FFT's barriers and the epilogue's chain of dependent
-// global accesses (each thread walks 16 floats of its row). On an
-// H100 SXM at 700 W it takes ~30 us of device time at 2 rows and about
-// the same at 128 rows, the rows running side by side on their own
-// SMs. With many more rows (streams) it becomes bound by device
-// memory: each row reads its F-1 untouched history planes (2m floats
-// each) once and writes one, ~100 KB a row at n = 4096, so ~1000 rows
-// take ~30 us at 3.35 TB/s. The design keeps every intermediate (the m
-// complex values, the spectrum) in shared memory and registers, so
-// device memory sees only those history planes, the gravity row, the
-// audio row and the average.
+// What bounds it on this card: latency, until the rows are many. At the
+// shipped size (n 4096, F 6) a row moves ~100 KB (its F-1 untouched
+// history planes read, one written, gravity, average, audio), so 2 rows
+// are 0.11 us of device memory and 128 rows 6.9 us, while one CTA alone
+// on a row took tens of microseconds: a chain of dependent steps (the
+// audio's arrival, 11 radix-2 FFT passes behind barriers, then the
+// epilogue's history reads, issued only after the FFT). The design cuts
+// that chain and spreads it:
+//
+// * A cluster of k CTAs a row (k = m/256, 1 to 8; ops/fused.py
+//   fft_plan), launched with cudaLaunchKernelEx and the cluster
+//   dimension, so a row's work spreads over k SMs. Four-step split,
+//   m = k * m2: CTA j1 loads x[j1 + k*j2] (j2 < m2) straight from the
+//   audio row, runs an m2-point FFT and scales bin f2 by W_m^(j1*f2).
+//   Its last FFT pass stores each bin into the shared memory of the CTA
+//   that owns it (distributed shared memory, no round trip): CTA `rank`
+//   owns f2 = rank*m2/k + u (u < m2/k) and, after one cluster barrier,
+//   forms bins f1*m2 + f2 (f1 < k) as k-point DFTs over j1 in
+//   registers. So a CTA owns k runs of m2/k bins of each plane.
+// * History in flight during the FFT. One thread of each CTA issues
+//   asynchronous copies into shared memory, all completing on mbarriers:
+//   at the start the two twiddle tables (cp.async.bulk), and once the
+//   audio is in (so that it does not queue behind them) its share of the
+//   gravity row and of every history slot but the row's own
+//   (cp.async.bulk.tensor over a 3-D tensor map of the (2, m) planes, one
+//   copy a slot bringing its k runs of both planes), so the epilogue
+//   reads shared memory only. The runs are m2/k >= 32 floats at offsets
+//   that are multiples of m2/k floats, so every row of every box is a
+//   multiple of 16 bytes at a 16-byte boundary (the copies' rule); the
+//   wrapper checks that grav and hist start 16-byte aligned (pcm and
+//   window 8-byte, for the float2 loads below). One tensor copy a slot,
+//   where plain bulk copies would take 2k (one a run), keeps the issuing
+//   thread short. Where F slots do not fit in shared memory (n 16384
+//   with F above 17) the ring streams through G slots in groups, one
+//   barrier phase a group. The audio is read straight from device
+//   memory, each CTA its decimated x[j1 + k*j2], as 8-byte loads.
+// * Few barriers. The m2-point FFT is a Stockham pass sequence of radix
+//   8 (and 4) butterflies in registers, twiddles from the table copied
+//   into shared memory: 3-4 CTA barriers where radix 2 took log2(m),
+//   and no strided global twiddle loads. The cluster waits twice: that
+//   every CTA has started (arrived at the kernel's start, waited for
+//   before the first remote store) and that every bin has arrived.
 //
 // Why float64: a float32 FFT's rounding error is absolute, about
 // eps * log2(m) * rms|X|, and the boost (up to ~20 for fft_scale 20)
@@ -42,126 +68,514 @@
 // differ by more than the 2e-5 spectrum tolerance from n = 4096 up.
 // In float64 both this kernel and the plain version (complex128 FFT)
 // produce the correctly rounded float32 spectrum, so they agree to an
-// ulp at every n. The FFT is a small share of the work (see above), so
-// the float64 rate of the card does not bound the kernel.
+// ulp at every n.
 //
-// Shared memory: m complex doubles, 16m bytes (32 KB at n = 4096,
-// 128 KB at n = 16384, above the 48 KB default, hence the attribute
-// below). Every power-of-two n from 256 to 16384 is taken.
+// Shared memory of one CTA, in this order: two mbarriers, padded to 128
+// bytes (the tensor copies' alignment); the FFT's ping-pong buffers, the
+// receive buffer of the k-point stage and the two twiddle tables, m2
+// complex doubles each; the gravity share, 2*m2 floats; G history
+// shares of 2*m2 floats; the F age weights. The plan owns its size:
+// ops/fused.py FFTPlan.smem_bytes computes it and picks G, and the
+// wrapper passes both (35 KB at n 4096, F 6; 218 KB at n 16384, F 16).
 
+#include <cooperative_groups.h>
+#include <cuda.h>           // CUtensorMap (types only; no libcuda link)
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMaxPer = 8;       // epilogue elements a thread: 2*m2 <= 2048
+constexpr int kMaxCluster = 8;
 
-__global__ void __launch_bounds__(kThreads)
-fused_update_kernel(const float* __restrict__ pcm,
-                    const float* __restrict__ window,
-                    const double2* __restrict__ twiddle,
-                    const float* __restrict__ age_w,
-                    const int* __restrict__ slot,
-                    const float* __restrict__ fft_scale,
-                    const float* __restrict__ fft_cutoff,
-                    const float* __restrict__ gravity_g,
-                    float* __restrict__ grav,
-                    float* __restrict__ hist,
-                    float* __restrict__ avg,
-                    int n, int log2m, int F)
+struct Args {
+    const float* pcm;
+    const float* window;
+    const double2* twiddle;   // W_m2^t (t < m2), then W_m^(j1*f2) (k x m2)
+    const float* age_w;
+    const int* slot;
+    const float* fft_scale;
+    const float* fft_cutoff;
+    const float* gravity_g;
+    float* grav;
+    float* hist;
+    float* avg;
+    int n, F, k, m2, nstages, radix_code, G;
+};
+
+// -- mbarrier and bulk-copy primitives (PTX, sm_90) ---------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p)
 {
-    extern __shared__ double2 buf[];
-    const int m = n >> 1;
-    const int row = blockIdx.x;
-    const float* x = pcm + (size_t)row * n;
+    return (uint32_t)__cvta_generic_to_shared(p);
+}
 
-    // window + packed split, stored in bit-reversed order
-    for (int i = threadIdx.x; i < m; i += blockDim.x) {
-        const float re = x[2 * i] * window[2 * i];
-        const float im = x[2 * i + 1] * window[2 * i + 1];
-        buf[__brev((unsigned)i) >> (32 - log2m)] = make_double2(re, im);
+__device__ __forceinline__ void mbar_init(uint64_t* bar)
+{
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                 :: "r"(smem_u32(bar)) : "memory");
+}
+
+// the one arrival of a phase, announcing the bytes its copies bring
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes)
+{
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity)
+{
+    uint32_t done = 0;
+    do {
+        asm volatile(
+            "{\n\t.reg .pred p;\n\t"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+            "selp.u32 %0, 1, 0, p;\n\t}"
+            : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    } while (!done);
+}
+
+// global -> this CTA's shared memory; dst, src, bytes multiples of 16
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar)
+{
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];"
+        :: "r"(smem_u32(dst)), "l"(__cvta_generic_to_global(src)),
+           "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
+// the box of a 3-D tensor map at (x, y, z) -> shared memory (128-byte
+// aligned), packed innermost first
+__device__ __forceinline__ void tensor_copy(void* dst, const CUtensorMap* map,
+                                            int x, int y, int z,
+                                            uint64_t* bar)
+{
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
+        ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];"
+        :: "r"(smem_u32(dst)), "l"((uint64_t)map), "r"(x), "r"(y), "r"(z),
+           "r"(smem_u32(bar)) : "memory");
+}
+
+// -- complex double arithmetic -----------------------------------------
+
+__device__ __forceinline__ double2 cmul(double2 a, double2 b)
+{
+    return make_double2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+__device__ __forceinline__ double2 cadd(double2 a, double2 b)
+{
+    return make_double2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ double2 csub(double2 a, double2 b)
+{
+    return make_double2(a.x - b.x, a.y - b.y);
+}
+// -i * a
+__device__ __forceinline__ double2 mul_mi(double2 a)
+{
+    return make_double2(a.y, -a.x);
+}
+
+// in-place R-point DFT, natural order: v[s] = sum_r v[r] W_R^(r*s)
+template <int R> __device__ __forceinline__ void dft(double2* v);
+
+template <> __device__ __forceinline__ void dft<2>(double2* v)
+{
+    const double2 a = v[0], b = v[1];
+    v[0] = cadd(a, b);
+    v[1] = csub(a, b);
+}
+
+template <> __device__ __forceinline__ void dft<4>(double2* v)
+{
+    const double2 a = cadd(v[0], v[2]), b = csub(v[0], v[2]);
+    const double2 c = cadd(v[1], v[3]), d = mul_mi(csub(v[1], v[3]));
+    v[0] = cadd(a, c);
+    v[2] = csub(a, c);
+    v[1] = cadd(b, d);
+    v[3] = csub(b, d);
+}
+
+template <> __device__ __forceinline__ void dft<8>(double2* v)
+{
+    constexpr double h = 0.70710678118654752440;   // sqrt(1/2)
+    double2 e[4] = {v[0], v[2], v[4], v[6]};
+    double2 o[4] = {v[1], v[3], v[5], v[7]};
+    dft<4>(e);
+    dft<4>(o);
+    // W_8^s o[s], s < 4
+    o[1] = make_double2(h * (o[1].x + o[1].y), h * (o[1].y - o[1].x));
+    o[2] = mul_mi(o[2]);
+    o[3] = make_double2(h * (o[3].y - o[3].x), -h * (o[3].x + o[3].y));
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+        v[s] = cadd(e[s], o[s]);
+        v[s + 4] = csub(e[s], o[s]);
+    }
+}
+
+// One Stockham pass of radix R over m2 points, Ns = product of the
+// earlier passes' radices: butterfly j reads in[j + r*m2/R], scales by
+// W_m2^(jm*r*m2/(Ns*R)) (jm = j mod Ns), and writes bin (j - jm)*R +
+// jm + r*Ns. The last pass scales bin f2 by post[f2] = W_m^(rank*f2)
+// and stores it into recv[rank*run + u] of the CTA that owns it,
+// f2 = owner*run + u.
+template <int R, bool kLast>
+__device__ __forceinline__ void stockham_pass(const double2* in, double2* out,
+                                              const double2* tw, int m2,
+                                              int Ns, const double2* post,
+                                              double2* recv, int lrun,
+                                              int rank)
+{
+    const int Q = m2 / R;
+    const int step = m2 / (Ns * R);
+    for (int j = threadIdx.x; j < Q; j += kThreads) {
+        double2 v[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) v[r] = in[j + r * Q];
+        const int jm = j & (Ns - 1);
+#pragma unroll
+        for (int r = 1; r < R; ++r) v[r] = cmul(v[r], tw[jm * r * step]);
+        dft<R>(v);
+        const int d = (j - jm) * R + jm;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+            const int at = d + r * Ns;
+            if (kLast) {
+                double2* dst =
+                    cg::this_cluster().map_shared_rank(recv, at >> lrun);
+                dst[(rank << lrun) + (at & ((1 << lrun) - 1))] =
+                    cmul(v[r], post[at]);
+            } else {
+                out[at] = v[r];
+            }
+        }
+    }
+}
+
+// lr = log2 of the pass's radix: 3 or 2 (the plan takes no other)
+template <bool kLast>
+__device__ __forceinline__ void fft_pass(int lr, const double2* in,
+                                         double2* out, const double2* tw,
+                                         int m2, int Ns, const double2* post,
+                                         double2* recv, int lrun, int rank)
+{
+    if (lr == 3)
+        stockham_pass<8, kLast>(in, out, tw, m2, Ns, post, recv, lrun, rank);
+    else
+        stockham_pass<4, kLast>(in, out, tw, m2, Ns, post, recv, lrun, rank);
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed()
+{
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive()   // release
+{
+    asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait()     // acquire
+{
+    asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+// Group `grp` of the history ring (slots grp*G .., not the row's own
+// slot, whose old value nothing reads) and, for group 0, the gravity
+// share into shared memory on `bar`: one tensor copy a slot, its box
+// (2 planes, k runs of m2/k floats at f1*m2 + rank*m2/k) landing as the
+// epilogue's layout [c][f1][u].
+__device__ void issue_history(const Args& a, const CUtensorMap* grav_map,
+                              const CUtensorMap* hist_map, int row, int rank,
+                              int sl, int grp, float* gs, float* hs,
+                              uint64_t* bar)
+{
+    const int m2 = a.m2, x = rank * (m2 / a.k);
+    const int f0 = grp * a.G;
+    const int f1 = min(a.F, f0 + a.G);
+    int boxes = grp == 0;
+    for (int f = f0; f < f1; ++f) boxes += f != sl;
+    mbar_expect(bar, (uint32_t)boxes * 2 * m2 * sizeof(float));
+    if (grp == 0) tensor_copy(gs, grav_map, x, 0, 2 * row, bar);
+    for (int f = f0; f < f1; ++f)
+        if (f != sl)
+            tensor_copy(hs + (size_t)(f - f0) * 2 * m2, hist_map, x, 0,
+                        2 * (row * a.F + f), bar);
+}
+
+// kPer = 2*m2/kThreads epilogue elements a thread (1 to kMaxPer)
+template <int kPer>
+__global__ void __launch_bounds__(kThreads)
+fused_update_kernel(const Args a, const __grid_constant__ CUtensorMap grav_map,
+                    const __grid_constant__ CUtensorMap hist_map)
+{
+    extern __shared__ __align__(128) unsigned char smem[];
+    cluster_arrive_relaxed();   // this CTA has started
+    const int k = a.k, m2 = a.m2, n = a.n, F = a.F;
+    const int rank = (int)cg::this_cluster().block_rank();
+    const int row = blockIdx.x / k;
+    const int run = m2 / k;         // bins of each of this CTA's k runs
+    const int lrun = __ffs(run) - 1;
+    const size_t m = (size_t)k * m2;
+    const size_t plane = 2 * m;
+
+    uint64_t* bars = (uint64_t*)smem;   // [0] tables; [1] history
+    double2* buf0 = (double2*)(smem + 128);
+    double2* buf1 = buf0 + m2;
+    double2* recv = buf1 + m2;          // Y_j1 of the bins this CTA owns
+    double2* tw = recv + m2;            // W_m2^t
+    double2* post = tw + m2;            // W_m^(rank*f2)
+    float* gs = (float*)(post + m2);    // gravity share, 2 x k runs
+    float* hs = gs + 2 * m2;            // G history shares, same layout
+    float* ws = hs + (size_t)a.G * 2 * m2;   // the F age weights
+
+    // the row's parameters, loaded now so the epilogue waits on none
+    int sl = a.slot[row] % F;
+    if (sl < 0) sl += F;
+    const float fs = a.fft_scale[row];
+    const float base = 1.0f - a.fft_cutoff[row];
+    const float g = a.gravity_g[row];
+    for (int f = threadIdx.x; f < F; f += kThreads) ws[f] = a.age_w[f];
+
+    if (threadIdx.x == 0) {
+        mbar_init(&bars[0]);
+        mbar_init(&bars[1]);
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();   // the barriers are initialised
+    if (threadIdx.x == 0) {
+        const uint32_t table = (uint32_t)m2 * sizeof(double2);
+        mbar_expect(&bars[0], 2 * table);
+        bulk_copy(tw, a.twiddle, table, &bars[0]);
+        bulk_copy(post, a.twiddle + m2 + (size_t)rank * m2, table, &bars[0]);
+    }
+
+    // 1. x[rank + k*j2] = pcm * window, straight from the audio row
+    const float2* pcm2 = (const float2*)(a.pcm + (size_t)row * n);
+    const float2* win2 = (const float2*)a.window;
+    for (int j2 = threadIdx.x; j2 < m2; j2 += kThreads) {
+        const int g = rank + k * j2;
+        const float2 x = __ldg(pcm2 + g), w = __ldg(win2 + g);
+        buf0[j2] = make_double2(x.x * w.x, x.y * w.y);
+    }
+    __syncthreads();
+    // the history once the audio is in, so the audio does not queue
+    // behind it in device memory; it lands while the FFT runs
+    if (threadIdx.x == 0)
+        issue_history(a, &grav_map, &hist_map, row, rank, sl, 0, gs, hs,
+                      &bars[1]);
+    mbar_wait(&bars[0], 0);
+
+    // 2. the m2-point FFT; the last pass, scaled by W_m^(rank*f2), goes
+    //    to the owners' receive buffers once every CTA has started
+    double2* in = buf0;
+    double2* out = buf1;
+    int Ns = 1;
+    for (int s = 0; s < a.nstages - 1; ++s) {
+        const int lr = (a.radix_code >> (2 * s)) & 3;
+        fft_pass<false>(lr, in, out, tw, m2, Ns, post, recv, lrun, rank);
+        __syncthreads();
+        double2* t = in;
+        in = out;
+        out = t;
+        Ns <<= lr;
+    }
+    cluster_wait();
+    fft_pass<true>((a.radix_code >> (2 * (a.nstages - 1))) & 3, in, out, tw,
+                   m2, Ns, post, recv, lrun, rank);
+    cluster_arrive();
+    cluster_wait();   // every CTA's bins are in
+
+    // 3. bins f1*m2 + rank*run + u: k-point DFTs over j1, into buf0 at
+    //    f1*run + u (the local order of the epilogue)
+    for (int u = threadIdx.x; u < run; u += kThreads) {
+        double2 v[kMaxCluster];
+#pragma unroll
+        for (int j1 = 0; j1 < kMaxCluster; ++j1)
+            if (j1 < k) v[j1] = recv[j1 * run + u];
+        switch (k) {
+        case 8: dft<8>(v); break;
+        case 4: dft<4>(v); break;
+        case 2: dft<2>(v); break;
+        default: break;
+        }
+#pragma unroll
+        for (int f1 = 0; f1 < kMaxCluster; ++f1)
+            if (f1 < k) buf0[f1 * run + u] = v[f1];
     }
     __syncthreads();
 
-    // radix-2 butterflies; twiddle[j] = exp(-2 pi i j / m), j < m/2
-    for (int s = 0; s < log2m; ++s) {
-        const int half = 1 << s;
-        const int stride = m >> (s + 1);
-        for (int t = threadIdx.x; t < (m >> 1); t += blockDim.x) {
-            const int k = t & (half - 1);
-            const int i = ((t >> s) << (s + 1)) + k;
-            const int j = i + half;
-            const double2 w = twiddle[k * stride];
-            const double2 a = buf[i];
-            const double2 b = buf[j];
-            const double br = b.x * w.x - b.y * w.y;
-            const double bi = b.x * w.y + b.y * w.x;
-            buf[i] = make_double2(a.x + br, a.y + bi);
-            buf[j] = make_double2(a.x - br, a.y - bi);
-        }
-        __syncthreads();
-    }
-
-    const float fs = fft_scale[row];
-    const float base = 1.0f - fft_cutoff[row];
-    const float g = gravity_g[row];
-    int sl = slot[row] % F;
-    if (sl < 0) sl += F;
-    const size_t plane = (size_t)2 * m;
-    float* grow = grav + (size_t)row * plane;
-    float* hrow = hist + (size_t)row * F * plane;
-    float* arow = avg + (size_t)row * plane;
-
-    // e walks the (2, m) planes: e < m is re[e], e >= m is im[e - m]
-    for (int e = threadIdx.x; e < 2 * m; e += blockDim.x) {
-        const int c = e >= m;
-        const int k = e - c * m;
-        const double2 X = buf[k];
+    // 4. epilogue on shared memory: spectrum, gravity, history, average.
+    //    Element i of 2*m2: plane c = i / m2, local bin l = i % m2, global
+    //    bin (l / run)*m2 + rank*run + l % run.
+    float gv[kPer], acc[kPer];
+    int at[kPer];
+    mbar_wait(&bars[1], 0);
+#pragma unroll
+    for (int p = 0; p < kPer; ++p) {
+        const int i = threadIdx.x + p * kThreads;
+        if (i >= 2 * m2) continue;
+        const int c = i >= m2, l = i - c * m2;
+        const int bin = ((l >> lrun) * m2) + rank * run + (l & (run - 1));
+        const double2 X = buf0[l];
         const float v = (float)(c ? X.y : X.x);
-        const float jn = (float)(2 * k + c) / (float)n;
+        // n is a power of two: times 1/n is exactly the division by n
+        const float jn = (float)(2 * bin + c) * (1.0f / (float)n);
         float spec = logf(fabsf(v) + 1.0f) / 3.0f;
         spec = spec * fmaxf(jn * fs + base, 1.0f);
         spec = fminf(fmaxf(spec, 0.0f), 1.0f);
-        float gv = fmaxf(grow[e], spec) - g;
-        gv = fminf(fmaxf(gv, 0.0f), 1.0f);
-        grow[e] = gv;
-        hrow[(size_t)sl * plane + e] = gv;
-        float acc = 0.0f;
-        for (int f = 0; f < F; ++f) {
+        float gval = fmaxf(gs[i], spec) - g;
+        gval = fminf(fmaxf(gval, 0.0f), 1.0f);
+        at[p] = c * (int)m + bin;
+        a.grav[row * plane + at[p]] = gval;
+        a.hist[((size_t)row * F + sl) * plane + at[p]] = gval;
+        gv[p] = gval;
+        acc[p] = 0.0f;
+    }
+    for (int grp = 0, f0 = 0; f0 < F; ++grp, f0 += a.G) {
+        if (grp > 0) mbar_wait(&bars[1], grp & 1);
+        const int f1 = min(F, f0 + a.G);
+        for (int f = f0; f < f1; ++f) {
             int age = sl - f;
             if (age < 0) age += F;
-            const float h = (f == sl) ? gv : hrow[(size_t)f * plane + e];
-            acc += age_w[age] * h;
+            const float w = ws[age];
+            const float* h = hs + (size_t)(f - f0) * 2 * m2;
+#pragma unroll
+            for (int p = 0; p < kPer; ++p) {
+                const int i = threadIdx.x + p * kThreads;
+                if (i < 2 * m2) acc[p] += w * (f == sl ? gv[p] : h[i]);
+            }
         }
-        arow[e] = fminf(fmaxf(acc, 0.0f), 1.0f);
+        if (f1 < F) {   // the streamed route: refill the slots
+            __syncthreads();
+            if (threadIdx.x == 0) {
+                asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+                issue_history(a, &grav_map, &hist_map, row, rank, sl, grp + 1,
+                              gs, hs, &bars[1]);
+            }
+        }
     }
+#pragma unroll
+    for (int p = 0; p < kPer; ++p) {
+        const int i = threadIdx.x + p * kThreads;
+        if (i < 2 * m2)
+            a.avg[row * plane + at[p]] = fminf(fmaxf(acc[p], 0.0f), 1.0f);
+    }
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link
+// against libcuda)
+typedef CUresult (*EncodeTiled)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// `planes` float vectors of m = k*m2 as a 3-D tensor (m2, k, planes),
+// boxes of (m2/k, k, 2): one slot's (or the gravity row's) two planes,
+// the k runs of m2/k floats that one CTA owns
+cudaError_t plane_map(CUtensorMap* map, void* base, unsigned long long planes,
+                      int k, int m2)
+{
+    static EncodeTiled encode = nullptr;
+    if (!encode) {
+        void* fn = nullptr;
+        cudaDriverEntryPointQueryResult found;
+        const cudaError_t err = cudaGetDriverEntryPoint(
+            "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+        if (err != cudaSuccess) return err;
+        if (found != cudaDriverEntryPointSuccess || !fn)
+            return cudaErrorSymbolNotFound;
+        encode = (EncodeTiled)fn;
+    }
+    const cuuint64_t dims[3] = {(cuuint64_t)m2, (cuuint64_t)k, planes};
+    const cuuint64_t strides[2] = {(cuuint64_t)m2 * sizeof(float),
+                                   (cuuint64_t)k * m2 * sizeof(float)};
+    const cuuint32_t box[3] = {(cuuint32_t)(m2 / k), (cuuint32_t)k, 2};
+    const cuuint32_t unit[3] = {1, 1, 1};
+    const CUresult r = encode(
+        map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, base, dims, strides, box, unit,
+        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+        CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success). The
-// caller validates shapes: n a power of two in [256, 16384], B >= 1,
-// F >= 1, every pointer a contiguous device buffer of the layout above.
+// Launch on `stream`; returns a CUDA error code (0 on success): a
+// refused cluster or shared-memory request is returned, never retried
+// with another plan. The caller validates shapes (n a power of two in
+// [256, 16384], B >= 1, F >= 1, every pointer a contiguous device
+// buffer of the layout above, grav and hist 16-byte aligned, pcm and
+// window 8-byte) and passes the plan of
+// ops/fused.py fft_plan(n): k CTAs a row, the m/k-point FFT's passes
+// (nstages, log2 radices in 2-bit fields of radix_code), G resident
+// history slots and the dynamic shared memory in bytes.
 extern "C" int glava_fused_update(
     const void* pcm, const void* window, const void* twiddle,
     const void* age_w, const void* slot, const void* fft_scale,
     const void* fft_cutoff, const void* gravity_g,
     void* grav, void* hist, void* avg,
-    int B, int n, int F, void* stream)
+    int B, int n, int F, int k, int nstages, int radix_code, int G,
+    int smem, void* stream)
 {
     const int m = n >> 1;
-    int log2m = 0;
-    while ((1 << log2m) < m) ++log2m;
-    const size_t smem = (size_t)m * sizeof(double2);
+    if (B < 1 || F < 1 || G < 1 || G > F || k < 1 || k > kMaxCluster
+        || m % k)
+        return (int)cudaErrorInvalidValue;
+    const int m2 = m / k;
+    int points = 1;
+    for (int s = 0; s < nstages; ++s) {
+        const int lr = (radix_code >> (2 * s)) & 3;
+        if (lr < 2) return (int)cudaErrorInvalidValue;   // radix 8 or 4
+        points <<= lr;
+    }
+    // runs of m2/k >= 4 floats keep every copy's rows 16-byte multiples
+    if (points != m2 || 2 * m2 < kThreads || 2 * m2 > kMaxPer * kThreads
+        || (k & (k - 1)) || m2 / k < 4)
+        return (int)cudaErrorInvalidValue;
+    CUtensorMap grav_map, hist_map;
+    cudaError_t err = plane_map(&grav_map, grav, 2ull * B, k, m2);
+    if (err == cudaSuccess)
+        err = plane_map(&hist_map, hist, 2ull * B * F, k, m2);
+    if (err != cudaSuccess) return (int)err;
+
+    void (*kernel)(const Args, const CUtensorMap, const CUtensorMap);
+    switch (2 * m2 / kThreads) {
+    case 1: kernel = fused_update_kernel<1>; break;
+    case 2: kernel = fused_update_kernel<2>; break;
+    case 4: kernel = fused_update_kernel<4>; break;
+    default: kernel = fused_update_kernel<kMaxPer>; break;
+    }
     if (smem > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            fused_update_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
+        err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
         if (err != cudaSuccess) return (int)err;
     }
-    fused_update_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
+    const Args a = {
         (const float*)pcm, (const float*)window, (const double2*)twiddle,
         (const float*)age_w, (const int*)slot, (const float*)fft_scale,
         (const float*)fft_cutoff, (const float*)gravity_g,
-        (float*)grav, (float*)hist, (float*)avg, n, log2m, F);
+        (float*)grav, (float*)hist, (float*)avg,
+        n, F, k, m2, nstages, radix_code, G};
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)B * k);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = (size_t)smem;
+    cfg.stream = (cudaStream_t)stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = k;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kernel, a, grav_map, hist_map);
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }

@@ -19,11 +19,19 @@ tensors on the rows' device.
 kernel (``csrc/fused_update.cu``, replacing the TPU kernel
 ``glava_tpu/ops/pallas/fused.py:build_fused_update_inc``) for CUDA
 tensors; it never falls back from one to the other.
+
+The kernel runs each row on a cluster of ``k`` CTAs that split its
+m-point FFT four-step wise; :func:`fft_plan` picks ``k``, the CTAs'
+FFT radices and (``FFTPlan.slots``) how much history fits in shared
+memory, and :func:`twiddle_table` builds the float64 table the kernel
+copies in. The CPU tests read both to check the split's index mapping.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -34,8 +42,88 @@ from glava_tpu_torch.ops import fft
 launches = 0
 
 MIN_N, MAX_N = 256, 16384
+# shared memory one CTA may use on an H100 (227 KB)
+SMEM_LIMIT = 232448
+MAX_CLUSTER = 8    # the portable cluster size
 
 _TWIDDLES: dict[tuple[int, torch.device], torch.Tensor] = {}
+
+
+@dataclass(frozen=True)
+class FFTPlan:
+    """How the kernel splits one row's m = n/2 point complex FFT.
+
+    A cluster of ``k`` CTAs shares the row, m = k * m2. CTA ``j1``
+    loads ``x[j1 + k*j2]`` (j2 < m2) from the audio row, runs an
+    m2-point Stockham FFT with ``radices`` (one shared-memory pass and
+    barrier each), scales bin f2 by ``W_m^(j1*f2)`` and stores it into
+    the shared memory of the CTA that owns f2. CTA ``rank`` owns
+    f2 = rank*run + u (u < run = m2/k): it forms the bins
+    ``f1*m2 + f2`` (f1 < k) as the k-point DFTs
+    ``sum_j1 W_k^(j1*f1) * Y_j1[f2]`` and runs the epilogue (gravity,
+    history, average) of those k runs of ``run`` bins.
+    """
+    n: int
+    k: int
+    m2: int
+    radices: tuple[int, ...]
+
+    @property
+    def m(self) -> int:
+        return self.n // 2
+
+    @property
+    def radix_code(self) -> int:
+        """The radices as the kernel reads them: log2 of stage s in
+        bits 2s, 2s+1."""
+        return sum((int(r).bit_length() - 1) << (2 * s)
+                   for s, r in enumerate(self.radices))
+
+    def smem_bytes(self, F: int) -> int:
+        """Dynamic shared memory of one CTA for a ring of F slots: two
+        mbarriers (padded to 128 bytes, the tensor copies' alignment);
+        the FFT's two buffers, the receive buffer and the two twiddle
+        tables (m2 complex doubles each); the gravity share (2 m2
+        floats); ``slots(F)`` history shares (2 m2 floats each); the F
+        age weights. csrc/fused_update.cu carves its shared memory in
+        this order and takes this size as given."""
+        return 128 + 88 * self.m2 + 8 * self.m2 * self.slots(F) + 4 * F
+
+    def slots(self, F: int) -> int:
+        """History slots resident at once: F (the whole ring, copied in
+        while the FFT runs), or fewer, and then the kernel streams the
+        ring through them in groups of that many (the streamed route)."""
+        free = SMEM_LIMIT - 128 - 88 * self.m2 - 4 * F
+        return min(F, free // (8 * self.m2))
+
+
+@functools.lru_cache(maxsize=None)
+def fft_plan(n: int) -> FFTPlan:
+    """The kernel's plan for bufsize ``n``: a cluster of k = m/256 CTAs
+    (1 to 8) a row, so each CTA runs a 128- to 1024-point FFT, in radix-8
+    passes with one or two radix-4 passes where log2(m2) is not a
+    multiple of 3, and owns runs of m2/k >= 32 bins."""
+    if n < MIN_N or n > MAX_N or n & (n - 1):
+        raise ValueError(f"fused_update: n must be a power of two in "
+                         f"[{MIN_N}, {MAX_N}], got {n}")
+    m = n // 2
+    k = min(MAX_CLUSTER, max(1, m // 256))
+    m2 = m // k
+    p = m2.bit_length() - 1
+    radices = {0: (8,) * (p // 3), 1: (8,) * ((p - 4) // 3) + (4, 4),
+               2: (8,) * ((p - 2) // 3) + (4,)}[p % 3]
+    return FFTPlan(n, k, m2, radices)
+
+
+def twiddle_table(plan: FFTPlan) -> np.ndarray:
+    """complex128 (m2 + m,): ``W_m2^t`` for t < m2 (the CTAs' FFT
+    passes), then ``W_m^(j1*f2)`` at m2 + j1*m2 + f2 (CTA j1's scaling
+    of its bins)."""
+    m, m2 = plan.m, plan.m2
+    inner = np.exp(-2j * np.pi * np.arange(m2) / m2)
+    j1, f2 = np.meshgrid(np.arange(plan.k), np.arange(m2), indexing="ij")
+    outer = np.exp(-2j * np.pi * (j1 * f2 % m) / m).reshape(-1)
+    return np.concatenate([inner, outer])
 
 
 def age_weights(avg_weights) -> np.ndarray:
@@ -43,7 +131,8 @@ def age_weights(avg_weights) -> np.ndarray:
     (age 0 = newest). The reference binds its averaging FBOs
     newest-first (render.c:2252-2256), so a ring slot's weight follows
     the age of the frame it holds: ``w_age[(slot - f) mod F]``."""
-    return np.ascontiguousarray(np.asarray(avg_weights, np.float32)[::-1])
+    # a copy: ascontiguousarray keeps the negative stride of a 1-slot view
+    return np.asarray(avg_weights, np.float32)[::-1].copy()
 
 
 def fused_update_plain(pcm, grav, hist, slot, fft_scale, fft_cutoff, g,
@@ -96,13 +185,13 @@ def fused_update(pcm, grav, hist, slot, fft_scale, fft_cutoff, g,
                    window, age_weights)
 
 
-def _twiddles(m: int, device: torch.device) -> torch.Tensor:
-    """(m/2, 2) float64 table of exp(-2 pi i j / m)."""
-    key = (m, device)
+def _twiddles(plan: FFTPlan, device: torch.device) -> torch.Tensor:
+    """:func:`twiddle_table` as a (m2 + m, 2) float64 tensor on ``device``."""
+    key = (plan.n, device)
     if key not in _TWIDDLES:
-        ang = -2.0 * np.pi * np.arange(m // 2, dtype=np.float64) / m
-        tw = np.stack([np.cos(ang), np.sin(ang)], axis=-1)
-        _TWIDDLES[key] = torch.as_tensor(tw, device=device)
+        tw = twiddle_table(plan)
+        _TWIDDLES[key] = torch.as_tensor(
+            np.stack([tw.real, tw.imag], axis=-1), device=device)
     return _TWIDDLES[key]
 
 
@@ -120,6 +209,40 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"fused_update: {name} must be contiguous")
 
 
+def _check_aligned(name, t, nbytes):
+    # the kernel's tensor copies (grav, hist) take 16-byte-aligned rows;
+    # it reads pcm and window as float2 pairs
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"fused_update: {name} must start on a "
+                         f"{nbytes}-byte boundary")
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_args(n: int, F: int) -> tuple[int, ...]:
+    """The plan as the C entry takes it: k, the pass count, the radix
+    code, the resident history slots and the shared memory in bytes."""
+    plan = fft_plan(n)
+    return (plan.k, len(plan.radices), plan.radix_code, plan.slots(F),
+            plan.smem_bytes(F))
+
+
+_FN = None
+
+
+def _kernel():
+    """The built kernel's C entry point, resolved once."""
+    global _FN
+    if _FN is None:
+        from glava_tpu_torch.ops import _build
+
+        fn = _build.load("fused_update").lib.glava_fused_update
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
+
+
 def _launch(pcm, grav, hist, slot, fft_scale, fft_cutoff, g, window,
             age_weights):
     global launches
@@ -127,9 +250,7 @@ def _launch(pcm, grav, hist, slot, fft_scale, fft_cutoff, g, window,
         raise ValueError("fused_update: pcm must be (B, n), hist (B, F, 2, m)")
     B, n = pcm.shape
     F = hist.shape[1]
-    if n < MIN_N or n > MAX_N or n & (n - 1):
-        raise ValueError(f"fused_update: n must be a power of two in "
-                         f"[{MIN_N}, {MAX_N}], got {n}")
+    plan = fft_plan(n)
     if B < 1 or F < 1:
         raise ValueError("fused_update: needs at least one row and one frame")
     m = n // 2
@@ -144,20 +265,20 @@ def _launch(pcm, grav, hist, slot, fft_scale, fft_cutoff, g, window,
         _check(name, t, (B,), f32, dev)
     _check("window", window, (n,), f32, dev)
     _check("age_weights", age_weights, (F,), f32, dev)
+    for name, t, nbytes in (("grav", grav, 16), ("hist", hist, 16),
+                            ("pcm", pcm, 8), ("window", window, 8)):
+        _check_aligned(name, t, nbytes)
 
-    from glava_tpu_torch.ops import _build
-
-    fn = _build.load("fused_update").lib.glava_fused_update
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    tw = _twiddles(m, dev)
+    fn = _kernel()
+    tw = _twiddles(plan, dev)
     avg = torch.empty((B, 2, m), dtype=f32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(pcm.data_ptr(), window.data_ptr(), tw.data_ptr(),
                  age_weights.data_ptr(), slot.data_ptr(), fft_scale.data_ptr(),
                  fft_cutoff.data_ptr(), g.data_ptr(), grav.data_ptr(),
-                 hist.data_ptr(), avg.data_ptr(), B, n, F, stream)
+                 hist.data_ptr(), avg.data_ptr(), B, n, F,
+                 *_plan_args(n, F), stream)
     if err != 0:
         raise RuntimeError(f"fused_update kernel launch failed: CUDA error {err}")
     launches += 1

@@ -71,6 +71,23 @@ def latch_scan(key: torch.Tensor, cands, reverse: bool, sent: float):
     return _launch(key, cands, reverse, sent)
 
 
+_FN = None
+
+
+def _kernel():
+    """The built kernel's C entry point, resolved once."""
+    global _FN
+    if _FN is None:
+        from glava_tpu_torch.ops import _build
+
+        fn = _build.load("latch_scan").lib.glava_latch_scan
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+            ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
+
+
 def _launch(key, cands, reverse, sent):
     C = len(cands)
     if C not in CHANNELS:
@@ -94,12 +111,7 @@ def _launch(key, cands, reverse, sent):
     okey = torch.empty_like(key)
     outs = [torch.empty_like(key) for _ in cands]
 
-    from glava_tpu_torch.ops import _build
-
-    fn = _build.load("latch_scan").lib.glava_latch_scan
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _kernel()
     cand_ptrs = (ctypes.c_void_p * max(C, 1))(*[c.data_ptr() for c in cands])
     out_ptrs = (ctypes.c_void_p * max(C, 1))(*[o.data_ptr() for o in outs])
     with torch.cuda.device(key.device):

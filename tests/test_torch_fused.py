@@ -121,7 +121,8 @@ def test_wrapper_on_cpu_is_the_plain_version_in_place():
         assert torch.equal(got, exp)
 
 
-@pytest.mark.parametrize("bad", ["n", "dtype", "shape", "contiguous", "slot"])
+@pytest.mark.parametrize("bad", ["n", "dtype", "shape", "contiguous", "slot",
+                                 "aligned"])
 def test_launch_validates_inputs(bad):
     """The CUDA launcher checks its inputs before it builds or launches
     anything (these checks run on any device)."""
@@ -139,11 +140,124 @@ def test_launch_validates_inputs(bad):
         hist = torch.zeros(B, F, 2, n // 4)
     elif bad == "contiguous":
         grav = torch.zeros(B, n // 2, 2).transpose(1, 2)
-    else:
+    elif bad == "slot":
         slot = slot.long()
+    else:   # the history's tensor copies take 16-byte-aligned rows
+        hist = torch.zeros(B * F * n + 1)[1:].view(B, F, 2, n // 2)
     with pytest.raises((ValueError, TypeError)):
         fused._launch(pcm, grav, hist, slot, torch.ones(B), torch.ones(B),
                       torch.ones(B), window, w_age)
+
+
+def _split_fft_model(x, plan):
+    """csrc/fused_update.cu's FFT of one row in numpy float64, read
+    from ``plan`` with the kernel's index mapping: CTA j1 loads
+    ``x[j1 + k*j2]``, runs the Stockham passes (pass s of radix R reads
+    ``a[j + r*m2/R]``, scales by ``W^(jm*r*m2/(Ns*R))`` from the table,
+    with jm = j mod Ns, and writes ``(j - jm)*R + jm + r*Ns``), scales
+    bin f2 by ``W_m^(j1*f2)`` on the last pass and stores it into the
+    receive buffer of CTA f2 // run at ``j1*run + f2 % run``; CTA
+    ``rank`` takes the k-point DFT over j1 of each receive column u into
+    bins ``f1*m2 + rank*run + u``."""
+    k, m2 = plan.k, plan.m2
+    run = m2 // k
+    tw = fused.twiddle_table(plan)
+    inner, outer = tw[:m2], tw[m2:].reshape(k, m2)
+    recv = np.empty((k, m2), np.complex128)     # [owner, j1*run + u]
+    for j1 in range(k):
+        a = x[j1 + k * np.arange(m2)]
+        Ns = 1
+        for s, R in enumerate(plan.radices):
+            Q = m2 // R
+            j = np.arange(Q)
+            jm = j % Ns
+            r = np.arange(R)[:, None]
+            v = a[j + r * Q] * inner[jm * r * (m2 // (Ns * R))]
+            v = np.fft.fft(v, axis=0)          # the R-point butterfly
+            at = (j - jm) * R + jm + r * Ns
+            if s < len(plan.radices) - 1:
+                a = np.empty_like(a)
+                a[at] = v
+            else:
+                recv[at // run, j1 * run + at % run] = v * outer[j1][at]
+            Ns *= R
+    X = np.empty(plan.m, np.complex128)
+    f1 = np.arange(k)[:, None]
+    for rank in range(k):
+        cols = np.fft.fft(recv[rank].reshape(k, run), axis=0)   # over j1
+        X[(f1 * m2 + rank * run + np.arange(run)).reshape(-1)] = cols.reshape(-1)
+    return X
+
+
+NS = [256 << i for i in range(7)]   # every bufsize the kernel takes
+
+
+@pytest.mark.parametrize("n", NS)
+def test_split_fft_model_matches_numpy(n):
+    """The kernel's cluster split, read from fused.fft_plan(n), is the
+    m-point DFT to 1e-12 of the spectrum's largest magnitude; from
+    n 4096 up it runs on a cluster of k > 1 CTAs."""
+    plan = fused.fft_plan(n)
+    assert plan.k * plan.m2 == plan.m and 1 <= plan.k <= fused.MAX_CLUSTER
+    assert int(np.prod(plan.radices)) == plan.m2
+    assert all(r in (4, 8) for r in plan.radices)   # the kernel's passes
+    assert plan.k > 1 if n >= 4096 else True
+    assert plan.m2 // plan.k >= 32      # runs of 128 bytes or more
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal(plan.m) + 1j * rng.standard_normal(plan.m)
+    want = np.fft.fft(x)
+    got = _split_fft_model(x, plan)
+    assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("F", [1, 6, 16, 64])
+@pytest.mark.parametrize("n", NS)
+def test_plan_shared_memory_fits(n, F):
+    """A CTA's shared memory stays under the H100's 227 KB: the whole
+    history ring resident for F in {1, 6, 16} at every n; where it
+    cannot be (F 64 at n 16384) the plan names the streamed route, with
+    groups of slots that fit."""
+    plan = fused.fft_plan(n)
+    G = plan.slots(F)
+    assert 1 <= G <= F
+    assert plan.smem_bytes(F) <= fused.SMEM_LIMIT
+    # one slot more would not fit: G is the most the streamed route can hold
+    assert G == F or plan.smem_bytes(F) + 8 * plan.m2 > fused.SMEM_LIMIT
+    if F <= 16:
+        assert G == F
+    if n == 16384 and F == 64:
+        assert G < F          # streamed
+
+
+def test_plan_radix_code_and_twiddles():
+    """What the wrapper hands the kernel: log2 radices in 2-bit fields
+    and the table's two parts."""
+    plan = fused.fft_plan(16384)
+    assert plan.radices == (8, 8, 4, 4) and plan.radix_code == 0b10_10_11_11
+    tw = fused.twiddle_table(plan)
+    assert tw.shape == (plan.m2 + plan.m,)
+    np.testing.assert_allclose(tw[1], np.exp(-2j * np.pi / plan.m2), rtol=0, atol=1e-15)
+    np.testing.assert_allclose(tw[plan.m2 + 3 * plan.m2 + 5],
+                               np.exp(-2j * np.pi * 15 / plan.m), rtol=0, atol=1e-15)
+    with pytest.raises(ValueError, match="power of two"):
+        fused.fft_plan(384)
+
+
+@pytest.mark.parametrize("F", [1, 6, 64])
+@pytest.mark.parametrize("n", NS)
+def test_plan_args_as_the_kernel_takes_them(n, F):
+    """The C entry's plan arguments: k, the pass count, 2-bit log2
+    radices of 2 or 3 (radix 4 or 8, the only passes it has), and the
+    plan's slots and shared memory; 2*m2 elements fill 1 to 8 per
+    thread of its 256."""
+    plan = fused.fft_plan(n)
+    k, nstages, code, G, smem = fused._plan_args(n, F)
+    assert (k, G, smem) == (plan.k, plan.slots(F), plan.smem_bytes(F))
+    fields = [(code >> (2 * s)) & 3 for s in range(nstages)]
+    assert fields and all(f in (2, 3) for f in fields)
+    assert code >> (2 * nstages) == 0
+    assert 2 ** sum(fields) == plan.m2
+    assert 256 <= 2 * plan.m2 <= 8 * 256
 
 
 @pytest.fixture
