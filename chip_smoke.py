@@ -11,24 +11,32 @@ code is non-zero and no result line is printed):
                (fused_update, table_lookup, rowwise_lookup, latch_scan,
                bars_raster), the nvcc runs side by side.
 3. kernel    — each kernel vs its plain torch version on the card.
-               fused_update at every n in {256, ..., 16384}, B in {1, 2,
-               128}, F in {1, 6, 16}, and F 24 at n 16384 (the streamed
-               route): 8 updates of fresh audio with staggered per-row
+               fused_update at every n in {256, ..., 65536} (clusters of
+               1 to 16 CTAs), B in {1, 2, 128}, F in {1, 6, 16}, and F 24
+               at n 16384 (the streamed route, which n 32768 and 65536
+               take from F 4): 8 updates of fresh audio with staggered per-row
                slots; gravity, average and the written history slot
                within 2e-5, the other history slots bit-identical.
                table_lookup BIT-IDENTICAL (torch.equal) on: radial's
                162-entry table at its 1920x1080 id plane, an 8192-entry
                table at circle's three 1920x1080 site planes, a
                32768-entry table (the dynamic shared memory path), a
-               random 2M-point plane, a 97-point plane and a (3, T)
-               table; an out-of-range static plane must raise.
+               131072-entry table (read from the L2: circle's at
+               bufsize 65536), a random 2M-point plane, a 97-point plane
+               and a (3, T) table; an out-of-range static plane must
+               raise.
                latch_scan BIT-IDENTICAL, one launch a call, at (1081,
                1920), (601, 800), (97, 131), (1, 7), (7, 1), (4097, 96)
                and a 1080p plane with keys worse than the sentinel, C in
-               {0, 4}, both directions; rowwise_lookup BIT-IDENTICAL at
-               1920x1080 (N 1920, T 1080, P 1080), C in {1, 4}, on
-               contiguous operands and on the ``.T`` views of (H, W)
-               planes the interpreter passes. bars_raster BIT-IDENTICAL
+               {0, 4}, both directions; rowwise_lookup BIT-IDENTICAL,
+               one launch a call on the route ``rowwise_plan`` gives,
+               C in {1, 4}, on every ``ROWWISE_CASES`` entry: uniform,
+               constant, monotone and random index planes on the ``.T``
+               views of 1080p (H, W) planes the interpreter passes,
+               contiguous operands, views off a 16-byte boundary,
+               broadcast (stride 0) tables, 97x131, T 1 and tables too
+               tall for shared memory (the direct route); each
+               (C, route) pair must be seen. bars_raster BIT-IDENTICAL
                at S = 64 streams 800x600 and 1920x1080 and at S = 1
                through a MIRROR_YX view (rows 1920, columns 1080, read
                transposed), both outline branches, per-stream and shared
@@ -52,7 +60,15 @@ code is non-zero and no result line is printed):
                B = 128 rows and one bars_raster launch a frame; a mixed
                fleet (bars, radial, wave; S = 6) adds one table_lookup a
                frame for its radial group. An S = 4 fleet's cuda frames
-               must meet its cpu frames under the golden rule.
+               must meet its cpu frames under the golden rule. Every
+               row-wise launch of the main path must take the staged
+               route. ``Renderer`` at ``BUFSIZE_REQUESTS``: bars and
+               circle (a 65536-entry table, read from the L2) at
+               setbufsize 32768 on the fused kernel (one launch an
+               update), and bars at setbufsize 4096 with setbufscale 32
+               (scaled 128, below the kernel's sizes) on the plain
+               chain, no fused launch; each cuda frame meets the cpu
+               frame under the golden rule.
                ``Engine.run_tests()`` (test_rc.glsl) must pass on cuda.
                Every module's frame after 24 updates of fixed stereo
                tones renders on cuda and cpu at 800x600 and must meet
@@ -64,11 +80,16 @@ code is non-zero and no result line is printed):
                the same function where there is one: fused_update (n
                4096 and 16384, B 2 and B 128), latch_scan and
                torch.cummax at (1081, 1920) (the latch also at (601,
-               800)) and bars_raster (S = 64 at 800x600 and 1920x1080)
-               from CUDA events around back-to-back launches on fresh
-               inputs held behind a spin kernel (``event_ms``),
-               fused_update and latch_scan also from torch.profiler on
-               one warm input set, the others from torch.profiler;
+               800)), bars_raster (S = 64 at 800x600 and 1920x1080) and
+               rowwise_lookup and C x torch.gather (1080p .T views, C in
+               {1, 4}, each index pattern, and C = 4 on the colfetch
+               1080p frame's own inputs, captured as the interpreter
+               hands them over) from CUDA events around
+               back-to-back launches on fresh inputs held behind a spin
+               kernel (``event_ms``), fused_update and latch_scan also
+               from torch.profiler on one warm input set, the others
+               from torch.profiler; fused_update also at n 32768 and
+               65536;
                CUDA-event frame times of
                bars, radial and circle and of the shader modules at
                800x600 and 1920x1080; fleet frame times at S in {1, 8,
@@ -85,6 +106,14 @@ The second-to-last line is the kernels JSON, the last the device JSON.
 times the fused update of other trees beside this checkout's instead
 (``fused_ab``): each DIR holds a tree's ``ops/fused.py`` and
 ``csrc/fused_update.cu``.
+
+    python3 chip_smoke.py --ab PARENT
+
+times another tree unpacked at PARENT (for example the parent commit,
+``git archive``) beside this checkout, in alternating processes, each
+running its own tree's package and kernels (``frames_ab``): the
+row-wise lookup at C = 4 on the colfetch 1080p frame's own inputs and
+on a random plane, and the colfetch 1080p, bars and fleet frames.
 """
 
 from __future__ import annotations
@@ -375,8 +404,9 @@ def _case(n: int, B: int, F: int, rng) -> float:
 # (n, B, F) of the fused update's checks: every bufsize the kernel takes
 # at one stream, one stereo stream and 64; a ring of 1, 6 (the shipped
 # avg frames) and 16 slots; and at n 16384 a ring of 24 slots, more than
-# shared memory holds, which takes the streamed route
-FUSED_CASES = tuple((256 << i, B, F) for i in range(7) for B in (1, 2, 128)
+# shared memory holds, which takes the streamed route (as n 32768 and
+# 65536 do from 4 slots; 65536 runs on clusters of 16 CTAs)
+FUSED_CASES = tuple((256 << i, B, F) for i in range(9) for B in (1, 2, 128)
                     for F in (1, 6, 16)) + ((16384, 2, 24), (16384, 128, 24))
 
 
@@ -425,6 +455,8 @@ def phase_lookup() -> float:
         "circle T8192 3x1920x1080": (circle.table_size, circle.idx),
         "T32768 dyn smem 2x40000": (32768, t(rng.integers(
             0, 32768, (2, 40000)).astype(np.int32))),
+        "T131072 from the L2 2M": (131072, t(rng.integers(
+            0, 131072, 2_000_000).astype(np.int32))),
         "T8192 random 2M": (8192, t(rng.integers(
             0, 8192, 2_000_000).astype(np.int32))),
         "T256 97 points": (256, t(rng.integers(0, 256, 97).astype(np.int32))),
@@ -507,48 +539,94 @@ def phase_latch() -> float:
 
 
 ROWWISE_SHAPE = (1920, 1080, 1080)   # N = W columns, T = P = H rows
+# index planes of the row-wise lookup's checks and times: "uniform" one
+# index at every point, "constant" one index a table row (a fetch at a
+# walk result), "monotone" rising along the points (a fetch at an
+# audio-driven row), "random" uniformly drawn
+ROWWISE_PATTERNS = ("uniform", "constant", "monotone", "random")
+# (label, (N, T, P), layout, pattern) at C in {1, 4}: every pattern on
+# the interpreter's .T views at 1080p; contiguous operands; views that
+# start off a 16-byte boundary; tables that are one column broadcast
+# (stride 0, the interpreter's const x pattern); odd shapes; T = 1;
+# 2160 rows (a strip of 8 rows); and tables too tall for shared memory
+# (the direct route, over several bands of points)
+ROWWISE_CASES = tuple(
+    (f"1080p {p}", ROWWISE_SHAPE, "T views", p) for p in ROWWISE_PATTERNS
+) + (
+    ("1080p contiguous", ROWWISE_SHAPE, "contiguous", "random"),
+    ("1080p offset views", ROWWISE_SHAPE, "offset views", "random"),
+    ("1080p broadcast table", ROWWISE_SHAPE, "broadcast", "monotone"),
+    ("97x131", (97, 131, 131), "T views", "random"),
+    ("97x131 contiguous", (97, 131, 131), "contiguous", "monotone"),
+    ("T 1", (5, 1, 7), "T views", "uniform"),
+    ("T 2160", (256, 2160, 2160), "T views", "random"),
+    ("T 8192", (96, 8192, 1000), "T views", "random"),
+    ("T 9001 contiguous", (97, 9001, 777), "contiguous", "random"),
+)
 
 
-def rowwise_inputs(C: int, transposed: bool, seed: int = 6):
-    """C (N, T) tables and an (N, P) int32 index plane on the card at
-    ``ROWWISE_SHAPE``; ``transposed`` gives ``.T`` views of (H, W)
-    planes, as the interpreter's column fetch passes them."""
+def rowwise_inputs(C: int, layout: str = "T views", pattern: str = "random",
+                   shape=ROWWISE_SHAPE, seed: int = 6):
+    """C (N, T) float32 tables and an (N, P) int32 index plane on the
+    card. ``layout``: "T views" (``.T`` views of (H, W) planes, as the
+    interpreter's column fetch passes them), "contiguous", "offset
+    views" (``.T`` views of planes cut from wider ones, starting 3 and
+    5 elements in) or "broadcast" (``.T`` views whose tables are one
+    plane column expanded, row stride 0, and a .T index plane)."""
     rng = np.random.default_rng(seed)
-    N, T, P = ROWWISE_SHAPE
-    t = lambda a: torch.as_tensor(a, device="cuda")  # noqa: E731
-    if transposed:
-        tabs = tuple(t(rng.standard_normal((T, N)).astype(np.float32)).T
-                     for _ in range(C))
-        idx = t(rng.integers(0, T, (P, N)).astype(np.int32)).T
+    N, T, P = shape
+    if pattern == "uniform":
+        idx = np.full((N, P), rng.integers(T))
+    elif pattern == "constant":
+        idx = np.broadcast_to(rng.integers(0, T, (N, 1)), (N, P))
+    elif pattern == "monotone":
+        idx = np.minimum(np.arange(P)[None, :] * T // P
+                         + rng.integers(0, 3, (N, 1)), T - 1)
     else:
-        tabs = tuple(t(rng.standard_normal((N, T)).astype(np.float32))
-                     for _ in range(C))
-        idx = t(rng.integers(0, T, (N, P)).astype(np.int32))
-    return tabs, idx
+        idx = rng.integers(0, T, (N, P))
+    idx = idx.astype(np.int32)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device="cuda")  # noqa: E731
+    planes = [rng.standard_normal((T, N)).astype(np.float32) for _ in range(C)]
+    if layout == "contiguous":
+        return tuple(t(p.T) for p in planes), t(idx)
+    if layout == "offset views":
+        wide = lambda a, k: t(np.pad(a, ((0, 0), (k, 0))))[:, k:]  # noqa: E731
+        return tuple(wide(p, 3).T for p in planes), wide(idx.T, 5).T
+    if layout == "broadcast":
+        return (tuple(t(p)[:, :1].expand(T, N).T for p in planes), t(idx.T).T)
+    return tuple(t(p).T for p in planes), t(idx.T).T
 
 
 def phase_rowwise() -> float:
-    """rowwise_lookup vs rowwise_lookup_plain, bit for bit."""
+    """rowwise_lookup vs rowwise_lookup_plain, bit for bit, on every
+    ``ROWWISE_CASES`` entry at C in {1, 4}: one launch a call, on the
+    route ``rowwise_plan`` gives; each route and strip width seen."""
     from glava_tpu_torch.ops import lookup
 
-    worst = 0.0
-    cases = []
+    names = []
+    seen = set()
     for C in (1, 4):
-        for transposed in (False, True):
-            tabs, idx = rowwise_inputs(C, transposed)
+        for label, shape, layout, pattern in ROWWISE_CASES:
+            tabs, idx = rowwise_inputs(C, layout, pattern, shape)
+            plan = lookup.rowwise_plan(C, shape[1], shape[2], idx.stride())
+            before = (lookup.rowwise_launches[C], lookup.rowwise_routes[plan.route])
             got = lookup.rowwise_lookup(tabs, idx)
             want = lookup.rowwise_lookup_plain(tabs, idx)
             torch.cuda.synchronize()
-            if not all(g.shape == w.shape and torch.equal(g, w)
-                       for g, w in zip(got, want)):
-                raise AssertionError(f"rowwise_lookup C={C} "
-                                     f"transposed={transposed}: kernel != plain")
-            worst = max(worst, max((g - w).abs().max().item()
-                                   for g, w in zip(got, want)))
-            cases.append(f"C{C}/{'T views' if transposed else 'contiguous'}")
-    print(f"[3 kernel] rowwise_lookup vs plain at (N, T, P) {ROWWISE_SHAPE}, "
-          f"torch.equal: {', '.join(cases)}; max abs err {worst}")
-    return worst
+            after = (lookup.rowwise_launches[C], lookup.rowwise_routes[plan.route])
+            if after != (before[0] + 1, before[1] + 1) or not all(
+                    g.shape == w.shape and torch.equal(g, w)
+                    for g, w in zip(got, want)):
+                raise AssertionError(f"rowwise_lookup C={C} {label}: kernel != "
+                                     f"plain or not one {plan.route} launch")
+            seen.add((C, plan.route, plan.strip))
+            names.append(f"C{C} {label} ({plan.route} {plan.strip})")
+    if seen != {(C, r, s) for C in (1, 4) for r, s in (
+            ("staged", 16), ("staged", 8), ("direct", 16))}:
+        raise AssertionError(f"rowwise_lookup: routes checked {sorted(seen)}")
+    print(f"[3 kernel] rowwise_lookup vs plain, torch.equal, one launch a call "
+          f"(case, route): {'; '.join(names)}; max abs err 0.0")
+    return 0.0
 
 
 # (name, streams, rows, columns): the fleet's frames, and one stream of
@@ -597,9 +675,10 @@ def phase_raster() -> float:
 
 
 def _fixed_frame(device: str, screen=None, reqs=(), module="bars",
-                 user_dir=None) -> np.ndarray:
+                 user_dir=None, with_renderer: bool = False):
     """The final uint8 frame of 24 updates of fixed stereo tones
-    (tests/test_golden.py's input) through the shipped rc.glsl."""
+    (tests/test_golden.py's input) through the shipped rc.glsl (and the
+    renderer that drew it, ``with_renderer``)."""
     from glava_tpu_torch.config import loader
     from glava_tpu_torch.renderer import Renderer
 
@@ -619,7 +698,7 @@ def _fixed_frame(device: str, screen=None, reqs=(), module="bars",
             seg = b[max(end - cfg.bufsize, 0):end]
             snap[ch, cfg.bufsize - len(seg):] = seg
         state, frame = r.step_u8(state, snap, True, 0.25, 1.0, g)
-    return frame.cpu().numpy()
+    return (frame.cpu().numpy(), r) if with_renderer else frame.cpu().numpy()
 
 
 def _counts() -> dict:
@@ -638,12 +717,14 @@ def _zero_counts() -> None:
 
     fused.launches = lookup.launches = raster.launches = 0
     lookup.rowwise_launches = dict.fromkeys(lookup.rowwise_launches, 0)
+    lookup.rowwise_routes = dict.fromkeys(lookup.rowwise_routes, 0)
     latch.launches = dict.fromkeys(latch.launches, 0)
 
 
 def _engine_run(frames: int, screen=None, module=None, user_dir=None):
     """One main-path run: the counts are set to 0 just before the run
     and read just after it."""
+    from glava_tpu_torch.ops import lookup
     from glava_tpu_torch.runtime.engine import Engine, EngineOptions
     from glava_tpu_torch.runtime.sinks import NullSink
 
@@ -657,6 +738,7 @@ def _engine_run(frames: int, screen=None, module=None, user_dir=None):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = _counts()
+    routes = dict(lookup.rowwise_routes)
     name = eng.loaded.module
     w, h = eng.renderer.screen
     if eng.frames_rendered != frames:
@@ -665,11 +747,16 @@ def _engine_run(frames: int, screen=None, module=None, user_dir=None):
     fft = name != "wave"
     want = {k: frames * LAUNCHES[name].get(k, 0) for k in COUNTED}
     want["fused_update"] = eng.updates if fft else 0
-    if counts != want or (fft and eng.updates == 0):
-        raise AssertionError(f"{name} {w}x{h}: launches {counts}, expected "
-                             f"{want} ({eng.updates} updates)")
+    # every row-wise fetch of the smoke's planes (T = h <= 1080) stages
+    staged = counts["rowwise_lookup C=1"] + counts["rowwise_lookup C=4"]
+    if counts != want or (fft and eng.updates == 0) or routes != {
+            "staged": staged, "direct": 0}:
+        raise AssertionError(f"{name} {w}x{h}: launches {counts}, routes "
+                             f"{routes}, expected {want} ({eng.updates} updates)")
     print(f"[4 main path] {name} {w}x{h}: {frames} frames, {eng.updates} "
-          f"updates, launches {counts}, {frames / dt:.1f} fps host clock")
+          f"updates, update route {eng.renderer.pipeline.route}, launches "
+          f"{counts}{f', row-wise routes {routes}' if staged else ''}, "
+          f"{frames / dt:.1f} fps host clock")
     return counts
 
 
@@ -762,6 +849,14 @@ RUNS = (
 )
 
 
+# (module, requests, route) of bufsizes off the shipped 4096 through
+# Renderer: 32768 on the fused kernel (clusters of 8 CTAs of 2048-point
+# FFTs, the history streamed; circle's table of 2 x 32768 entries read
+# from the L2) and scaled 128, below the kernel's sizes, on the chain
+BUFSIZE_REQUESTS = (("bars", ("setbufsize 32768",), "kernel"),
+                    ("circle", ("setbufsize 32768",), "kernel"),
+                    ("bars", ("setbufsize 4096", "setbufscale 32"), "chain"))
+
 # (streams, screen, frames, mixed): the fleet's main-path runs
 FLEET_RUNS = ((64, None, 30, False), (64, (1920, 1080), 8, False),
               (6, None, 30, True))
@@ -784,6 +879,24 @@ def phase_main_path(user_dir: str) -> dict:
             totals[k] += counts[k]
     if not all(totals.values()):
         raise AssertionError(f"a kernel of the path never launched: {totals}")
+    for module, reqs, route in BUFSIZE_REQUESTS:
+        _zero_counts()
+        gpu, r = _fixed_frame("cuda", reqs=reqs, module=module,
+                              with_renderer=True)
+        torch.cuda.synchronize()
+        counts = _counts()
+        want = {k: 24 * LAUNCHES[module].get(k, 0) for k in COUNTED}
+        want["fused_update"] = 24 if route == "kernel" else 0
+        label = (f"{module} 800x600 {', '.join(reqs)} (scaled bufsize "
+                 f"{r.pipeline.sz})")
+        if r.pipeline.route != route or counts != want:
+            raise AssertionError(f"{label}: route {r.pipeline.route}, launches "
+                                 f"{counts}, expected {route} and {want}")
+        frac = golden_rule(gpu, _fixed_frame("cpu", reqs=reqs, module=module))
+        if frac >= 0.002 or not (gpu[..., 3] > 0).any():
+            raise AssertionError(f"{label} cuda vs cpu: {frac:.4%} off")
+        print(f"[4 main path] {label}: update route {route} through Renderer, "
+              f"24 updates, launches {counts}; cuda vs cpu {frac:.4%} px > 2 LSB")
     gpu, cpu = _fleet_fixed_frames("cuda"), _fleet_fixed_frames("cpu")
     fracs = [golden_rule(g, c) for g, c in zip(gpu, cpu)]
     if max(fracs) >= 0.002 or not all((g[..., 3] > 0).any() for g in gpu):
@@ -1045,6 +1158,113 @@ def _host_ab(variants: list, card: str, rounds: int = 8) -> None:
               f"of {rounds} rounds ({card})")
 
 
+def _snapshot(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` with its strides and offset: its whole storage
+    copied, the view taken again (a broadcast view stays broadcast)."""
+    flat = torch.tensor([], dtype=t.dtype, device=t.device).set_(
+        t.untyped_storage())
+    return flat.clone().as_strided(t.shape, t.stride(), t.storage_offset())
+
+
+def colfetch_rowwise_sets(user_dir: str, calls: int = 8) -> list:
+    """The first ``calls`` row-wise lookups of colfetch 1080p frames
+    after two, each ``(tabs, idx)`` copied as the interpreter hands it
+    to ``ops.lookup.rowwise_lookup`` (the main path's own index planes,
+    tables and strides). Two a frame, on fresh audio each frame, so the
+    sets rotate through more than the 50 MB L2 holds."""
+    from glava_tpu_torch.ops import lookup
+
+    _, _, frame = _frame_ms((1920, 1080), "colfetch", user_dir, 2)
+    got = []
+    real = lookup.rowwise_lookup
+
+    def spy(tabs, idx):
+        tabs = tuple(tabs)
+        got.append((tuple(_snapshot(t) for t in tabs), _snapshot(idx)))
+        return real(tabs, idx)
+
+    lookup.rowwise_lookup = spy
+    try:
+        while len(got) < calls:
+            frame()
+    finally:
+        lookup.rowwise_lookup = real
+    torch.cuda.synchronize()
+    return got[:calls]
+
+
+def _sets_shape(sets) -> tuple[int, int, int]:
+    """(N, T, P) of row-wise lookup sets (the same in every set)."""
+    (tabs, idx), *_ = sets
+    return idx.shape[0], tabs[0].shape[1], idx.shape[1]
+
+
+def frames_side() -> None:
+    """One side of ``frames_ab``, in a process whose ``glava_tpu_torch``
+    is that side's tree: builds its kernels, times its row-wise lookup
+    at C = 4 (its own wrapper and kernel, held torch.equal to its plain
+    version first) on the colfetch 1080p frame's own inputs and on a
+    random plane, then prints one JSON line of frame times (ms; the
+    colfetch device time and the row-wise lookup in us)."""
+    from glava_tpu_torch.ops import _build, lookup
+
+    _build.load_all()
+    out = {}
+    with tempfile.TemporaryDirectory() as td:
+        ud = str(write_shader_modules(Path(td)))
+        for plane, sets in (("colfetch planes", colfetch_rowwise_sets(ud)),
+                            ("random plane", _rowwise_sets(4, "random"))):
+            K = len(sets)
+            for tabs, idx in sets[:2]:
+                if not all(torch.equal(g, w) for g, w in zip(
+                        lookup.rowwise_lookup(tabs, idx),
+                        lookup.rowwise_lookup_plain(tabs, idx))):
+                    raise AssertionError(f"rowwise C=4 {plane}: kernel != plain")
+            out[f"rowwise C=4 {plane} us"] = 1e3 * event_ms(
+                lambda i: lookup.rowwise_lookup(*sets[i % K]), 100)
+            del sets
+        out["colfetch 1080p"], _, frame = _frame_ms((1920, 1080), "colfetch",
+                                                    ud, 20)
+        _, out["colfetch 1080p device us"] = _profile(frame, "", "", 10, False)
+    out["bars 800x600"] = _frame_ms(None, "bars")[0]
+    for n in (1, 64):
+        out[f"fleet S {n} 800x600"] = _fleet_times(n, None, 20, "")
+    print(json.dumps(out))
+
+
+def frames_ab(parent: Path, card: str, pairs: int = 8) -> None:
+    """The parent tree beside this one: ``pairs`` pairs of processes,
+    one a side (``frames_side`` run with that tree's package first on
+    the path, so each side times its own wrappers and kernels), the
+    first side alternating. Prints every pair and the medians."""
+    child = ("import importlib.util, sys; sys.path.insert(0, sys.argv[1]); "
+             "spec = importlib.util.spec_from_file_location('smoke_ab', "
+             "sys.argv[2]); m = importlib.util.module_from_spec(spec); "
+             "sys.modules['smoke_ab'] = m; spec.loader.exec_module(m); "
+             "m.frames_side()")
+    runs = {"parent": [], "this": []}
+    for p in range(pairs):
+        order = (("parent", parent), ("this", ROOT))
+        for name, root in order if p % 2 == 0 else order[::-1]:
+            proc = subprocess.run([sys.executable, "-c", child, str(root),
+                                   str(ROOT / "chip_smoke.py")], cwd=root,
+                                  capture_output=True, text=True, timeout=900)
+            if proc.returncode != 0:
+                raise RuntimeError(f"frames_side {name}: rc {proc.returncode}\n"
+                                   f"{proc.stderr[-4000:]}")
+            runs[name].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+            print(f"[ab] pair {p} {name}: "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in runs[name][-1].items()),
+                  flush=True)
+    for key in runs["this"][0]:
+        med = {name: float(np.median([r[key] for r in rs]))
+               for name, rs in runs.items()}
+        better = sum(t[key] < q[key] for t, q in zip(runs["this"], runs["parent"]))
+        print(f"[ab] {key} median of {pairs}: parent {med['parent']:.3f}, this "
+              f"{med['this']:.3f}; this lower in {better} of {pairs} pairs "
+              f"({card})")
+
+
 def device_ms(fn, iters: int = 100) -> float:
     """Mean device milliseconds per call of ``fn``: the kernels' own
     time from torch.profiler, free of the host's launch overhead that
@@ -1090,24 +1310,60 @@ def _lookup_times():
                     "library torch.index_select"}
 
 
-def _rowwise_times():
-    """Device time per call at 1080p on ``.T`` views, C in {1, 4} (the
-    column fetch at a run-time row takes C = 4)."""
+def rowwise_bytes(C: int, shape=ROWWISE_SHAPE) -> int:
+    """Bytes the row-wise lookup must move, for every index pattern: the
+    index plane and the C tables read once, the C outputs written once
+    (the Pallas kernels' CostEstimate)."""
+    N, T, P = shape
+    return 4 * (N * P + C * (N * T + N * P))
+
+
+def _rowwise_sets(C: int, pattern: str) -> list:
+    """Input sets at ``ROWWISE_SHAPE`` on .T views, more of them than the
+    50 MB L2 holds together, so a rotation gives each call fresh inputs."""
+    K = max(2, -(-2 * 64 * 2 ** 20 // rowwise_bytes(C)))
+    return [rowwise_inputs(C, "T views", pattern, seed=seed) for seed in range(K)]
+
+
+def _rowwise_times(user_dir: str):
+    """Time per call at 1080p on ``.T`` views, C in {1, 4} (the column
+    fetch at a run-time row takes C = 4), every index pattern, and C = 4
+    on the colfetch 1080p frame's own inputs (``colfetch_rowwise_sets``;
+    key ``(4, "colfetch")``): kernel, plain version and library call (C
+    gathers, int64 index made once) by CUDA events around back-to-back
+    calls on fresh inputs (the plain version, which syncs to check its
+    indices, by events around a loop of calls on one input set)."""
     from glava_tpu_torch.ops import lookup
 
-    N, T, P = ROWWISE_SHAPE
     out = {}
-    for C in (1, 4):
-        tabs, idx = rowwise_inputs(C, True)
-        idx64 = idx.long()
-        out[C] = {
-            "ms": device_ms(lambda: lookup.rowwise_lookup(tabs, idx)),
-            "plain_ms": device_ms(lambda: lookup.rowwise_lookup_plain(tabs, idx), 20),
-            "library_ms": device_ms(
-                lambda: [torch.gather(t, 1, idx64) for t in tabs]),
-            "bound_ms": bound_ms(N * P * 4 + C * (N * T + N * P) * 4),
-            "what": f"C {C}, (N, T, P) {ROWWISE_SHAPE}, .T views; "
-                    f"library torch.gather x{C} (int64 index made once)"}
+    cases = [(C, p, lambda C=C, p=p: _rowwise_sets(C, p))
+             for C in (1, 4) for p in ROWWISE_PATTERNS]
+    cases.append((4, "colfetch", lambda: colfetch_rowwise_sets(user_dir)))
+    for C, pattern, make in cases:
+        sets = make()
+        for tabs, idx in sets:
+            if not all(torch.equal(g, w) for g, w in zip(
+                    lookup.rowwise_lookup(tabs, idx),
+                    lookup.rowwise_lookup_plain(tabs, idx))):
+                raise AssertionError(f"rowwise C={C} {pattern}: kernel != plain")
+        K = len(sets)
+        shape = _sets_shape(sets)
+        longs = [idx.long() for _, idx in sets]
+        plan = lookup.rowwise_plan(C, shape[1], shape[2], sets[0][1].stride())
+        out[C, pattern] = {
+            "ms": event_ms(lambda i: lookup.rowwise_lookup(*sets[i % K]), 100),
+            # the plain version checks its indices on the host, a sync
+            # each call: events around a loop of calls
+            "plain_ms": cuda_ms(lambda: lookup.rowwise_lookup_plain(*sets[0]), 10),
+            "library_ms": event_ms(lambda i: [
+                torch.gather(t, 1, longs[i % K]) for t in sets[i % K][0]], 20),
+            "bound_ms": bound_ms(rowwise_bytes(C, shape)),
+            "what": f"C {C}, (N, T, P) {shape}, "
+                    + ("the colfetch 1080p frame's own inputs" if
+                       pattern == "colfetch" else f"{pattern} index plane, .T views")
+                    + f", route {plan.route} {plan.strip}, CUDA events, back to "
+                    f"back, {K} input sets in turn; library torch.gather x{C} "
+                    "(int64 index made once)"}
     return out
 
 
@@ -1164,10 +1420,11 @@ def _frame_ms(screen, module="bars", user_dir=None, iters=200):
 
 
 def _profile(frame, label: str, card: str, frames: int = 50,
-             show: bool = True) -> float:
+             show: bool = True) -> tuple[float, float]:
     """Device busy share of ``frames`` calls of ``frame`` under
-    torch.profiler (device rows only), with the top kernels printed when
-    ``show``; 0.0 when the profiler recorded no device time."""
+    torch.profiler (device rows only) and the device microseconds a
+    call, with the top kernels printed when ``show``; (0.0, 0.0) when
+    the profiler recorded no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1186,7 +1443,7 @@ def _profile(frame, label: str, card: str, frames: int = 50,
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
     if busy <= 0:
         print(f"[5 times] profile {label}: no device time recorded (not measured)")
-        return 0.0
+        return 0.0, 0.0
     if show:
         share = ", ".join(f"{e.key[:48]} {e.self_device_time_total / busy:.0%}"
                           for e in top)
@@ -1194,7 +1451,7 @@ def _profile(frame, label: str, card: str, frames: int = 50,
               f"{busy / wall_us:.1%} of {wall_us / frames:.0f} us/frame wall, "
               f"{busy / frames:.0f} us/frame device; kernel share: {share} "
               f"({card})")
-    return busy / wall_us
+    return busy / wall_us, busy / frames
 
 
 def _print_kernel_time(name: str, t: dict, card: str) -> None:
@@ -1267,8 +1524,8 @@ def _fleet_times(n: int, screen, frames: int, card: str,
     copy = sum(e[1].elapsed_time(e[2]) for e in ev) / frames
     w, h = eng.br.screen
     label = f"bars fleet S {n} {w}x{h}"
-    busy = _profile(frame, label, card, frames=3 if n > 8 else 10,
-                    show=breakdown)
+    busy, _ = _profile(frame, label, card, frames=3 if n > 8 else 10,
+                       show=breakdown)
     mb = n * w * h * 4 / 1e6
     print(f"[5 times] {label} frame: {wall:.3f} ms host clock = "
           f"{1e3 / wall:.1f} fps x {n} streams; step {step:.3f} ms, frame copy "
@@ -1281,7 +1538,7 @@ def phase_times(card: str, user_dir: str) -> dict:
     from glava_tpu_torch.ops import latch
 
     times = {}
-    for n in (4096, 16384):
+    for n in (4096, 16384, 32768, 65536):
         for B in (2, 128):
             dk, dp, prof, nbytes, K = _update_times(n, B)
             times[n, B] = {"ms": dk, "plain_ms": dp, "library_ms": None,
@@ -1298,8 +1555,10 @@ def phase_times(card: str, user_dir: str) -> dict:
     out = {"fused_update": times[4096, 2], "table_lookup": _lookup_times(),
            "bars_raster": raster_t[(600, 800)]}
     _print_kernel_time("table_lookup", out["table_lookup"], card)
-    for C, t in _rowwise_times().items():
-        out[f"rowwise_lookup C={C}"] = t
+    for (C, pattern), t in _rowwise_times(user_dir).items():
+        # the main path's own inputs where it has them (C = 4)
+        if pattern == ("colfetch" if C == 4 else "random"):
+            out[f"rowwise_lookup C={C}"] = t
         _print_kernel_time("rowwise_lookup", t, card)
     for C, t in _latch_times().items():
         out[f"latch_scan C={C}"] = t
@@ -1381,7 +1640,17 @@ def main() -> int:
     return 0
 
 
+def ab(parent: str) -> int:
+    """``--ab PARENT``: the tree unpacked at PARENT (for example the
+    parent commit) beside this checkout, on one card (``frames_ab``)."""
+    card = phase_device()
+    frames_ab(Path(parent).resolve(), card)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--fused-ab"]:
         raise SystemExit(fused_ab(sys.argv[2:]))
+    if sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
+        raise SystemExit(ab(sys.argv[2]))
     raise SystemExit(main())

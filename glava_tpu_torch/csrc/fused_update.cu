@@ -28,9 +28,11 @@
 // epilogue's history reads, issued only after the FFT). The design cuts
 // that chain and spreads it:
 //
-// * A cluster of k CTAs a row (k = m/256, 1 to 8; ops/fused.py
-//   fft_plan), launched with cudaLaunchKernelEx and the cluster
-//   dimension, so a row's work spreads over k SMs. Four-step split,
+// * A cluster of k CTAs a row (k = m/256, 1 to 8, and 16 at n 65536,
+//   where 8 CTAs would each need a 4096-point FFT, more than shared
+//   memory holds; ops/fused.py fft_plan), launched with
+//   cudaLaunchKernelEx and the cluster dimension (16 through the
+//   non-portable cluster opt-in), so a row's work spreads over k SMs. Four-step split,
 //   m = k * m2: CTA j1 loads x[j1 + k*j2] (j2 < m2) straight from the
 //   audio row, runs an m2-point FFT and scales bin f2 by W_m^(j1*f2).
 //   Its last FFT pass stores each bin into the shared memory of the CTA
@@ -52,8 +54,8 @@
 //   window 8-byte, for the float2 loads below). One tensor copy a slot,
 //   where plain bulk copies would take 2k (one a run), keeps the issuing
 //   thread short. Where F slots do not fit in shared memory (n 16384
-//   with F above 17) the ring streams through G slots in groups, one
-//   barrier phase a group. The audio is read straight from device
+//   with F above 17, n 32768 and 65536 with F above 3) the ring
+//   streams through G slots in groups, one barrier phase a group. The audio is read straight from device
 //   memory, each CTA its decimated x[j1 + k*j2], as 8-byte loads.
 // * Few barriers. The m2-point FFT is a Stockham pass sequence of radix
 //   8 (and 4) butterflies in registers, twiddles from the table copied
@@ -76,7 +78,8 @@
 // complex doubles each; the gravity share, 2*m2 floats; G history
 // shares of 2*m2 floats; the F age weights. The plan owns its size:
 // ops/fused.py FFTPlan.smem_bytes computes it and picks G, and the
-// wrapper passes both (35 KB at n 4096, F 6; 218 KB at n 16384, F 16).
+// wrapper passes both (35 KB at n 4096, F 6; 218 KB at n 16384, F 16;
+// 224 KB at n 32768 and 65536, F 6, three slots resident).
 
 #include <cooperative_groups.h>
 #include <cuda.h>           // CUtensorMap (types only; no libcuda link)
@@ -88,8 +91,8 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxPer = 8;       // epilogue elements a thread: 2*m2 <= 2048
-constexpr int kMaxCluster = 8;
+constexpr int kMaxPer = 16;      // epilogue elements a thread: 2*m2 <= 4096
+constexpr int kMaxCluster = 16;  // 8 portable, 16 with the opt-in
 
 struct Args {
     const float* pcm;
@@ -220,6 +223,30 @@ template <> __device__ __forceinline__ void dft<8>(double2* v)
     }
 }
 
+template <> __device__ __forceinline__ void dft<16>(double2* v)
+{
+    // W_16^s = cos(pi s/8) - i sin(pi s/8), s < 8
+    constexpr double c1 = 0.92387953251128675613;   // cos(pi/8)
+    constexpr double s1 = 0.38268343236508977173;   // sin(pi/8)
+    constexpr double h = 0.70710678118654752440;    // sqrt(1/2)
+    const double2 w[8] = {{1.0, 0.0}, {c1, -s1}, {h, -h}, {s1, -c1},
+                          {0.0, -1.0}, {-s1, -c1}, {-h, -h}, {-c1, -s1}};
+    double2 e[8], o[8];
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+        e[s] = v[2 * s];
+        o[s] = v[2 * s + 1];
+    }
+    dft<8>(e);
+    dft<8>(o);
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+        const double2 t = cmul(o[s], w[s]);
+        v[s] = cadd(e[s], t);
+        v[s + 8] = csub(e[s], t);
+    }
+}
+
 // One Stockham pass of radix R over m2 points, Ns = product of the
 // earlier passes' radices: butterfly j reads in[j + r*m2/R], scales by
 // W_m2^(jm*r*m2/(Ns*R)) (jm = j mod Ns), and writes bin (j - jm)*R +
@@ -308,8 +335,11 @@ __device__ void issue_history(const Args& a, const CUtensorMap* grav_map,
                         2 * (row * a.F + f), bar);
 }
 
-// kPer = 2*m2/kThreads epilogue elements a thread (1 to kMaxPer)
-template <int kPer>
+// kPer = 2*m2/kThreads epilogue elements a thread (1 to kMaxPer); kK
+// the cluster sizes the instance takes: up to 8, or exactly 16 (only
+// n 65536), so that the 16-point stage's registers do not cost the
+// smaller clusters occupancy
+template <int kPer, int kK>
 __global__ void __launch_bounds__(kThreads)
 fused_update_kernel(const Args a, const __grid_constant__ CUtensorMap grav_map,
                     const __grid_constant__ CUtensorMap hist_map)
@@ -394,18 +424,22 @@ fused_update_kernel(const Args a, const __grid_constant__ CUtensorMap grav_map,
     // 3. bins f1*m2 + rank*run + u: k-point DFTs over j1, into buf0 at
     //    f1*run + u (the local order of the epilogue)
     for (int u = threadIdx.x; u < run; u += kThreads) {
-        double2 v[kMaxCluster];
+        double2 v[kK];
 #pragma unroll
-        for (int j1 = 0; j1 < kMaxCluster; ++j1)
+        for (int j1 = 0; j1 < kK; ++j1)
             if (j1 < k) v[j1] = recv[j1 * run + u];
-        switch (k) {
-        case 8: dft<8>(v); break;
-        case 4: dft<4>(v); break;
-        case 2: dft<2>(v); break;
-        default: break;
+        if constexpr (kK == 16) {
+            dft<16>(v);
+        } else {
+            switch (k) {
+            case 8: dft<8>(v); break;
+            case 4: dft<4>(v); break;
+            case 2: dft<2>(v); break;
+            default: break;
+            }
         }
 #pragma unroll
-        for (int f1 = 0; f1 < kMaxCluster; ++f1)
+        for (int f1 = 0; f1 < kK; ++f1)
             if (f1 < k) buf0[f1 * run + u] = v[f1];
     }
     __syncthreads();
@@ -510,7 +544,7 @@ cudaError_t plane_map(CUtensorMap* map, void* base, unsigned long long planes,
 // Launch on `stream`; returns a CUDA error code (0 on success): a
 // refused cluster or shared-memory request is returned, never retried
 // with another plan. The caller validates shapes (n a power of two in
-// [256, 16384], B >= 1, F >= 1, every pointer a contiguous device
+// [256, 65536], B >= 1, F >= 1, every pointer a contiguous device
 // buffer of the layout above, grav and hist 16-byte aligned, pcm and
 // window 8-byte) and passes the plan of
 // ops/fused.py fft_plan(n): k CTAs a row, the m/k-point FFT's passes
@@ -539,6 +573,9 @@ extern "C" int glava_fused_update(
     if (points != m2 || 2 * m2 < kThreads || 2 * m2 > kMaxPer * kThreads
         || (k & (k - 1)) || m2 / k < 4)
         return (int)cudaErrorInvalidValue;
+    // a cluster of 16 has one instance: 2048-point CTA FFTs (n 65536)
+    if (k > 8 && 2 * m2 != kMaxPer * kThreads)
+        return (int)cudaErrorInvalidValue;
     CUtensorMap grav_map, hist_map;
     cudaError_t err = plane_map(&grav_map, grav, 2ull * B, k, m2);
     if (err == cudaSuccess)
@@ -547,14 +584,21 @@ extern "C" int glava_fused_update(
 
     void (*kernel)(const Args, const CUtensorMap, const CUtensorMap);
     switch (2 * m2 / kThreads) {
-    case 1: kernel = fused_update_kernel<1>; break;
-    case 2: kernel = fused_update_kernel<2>; break;
-    case 4: kernel = fused_update_kernel<4>; break;
-    default: kernel = fused_update_kernel<kMaxPer>; break;
+    case 1: kernel = fused_update_kernel<1, 8>; break;
+    case 2: kernel = fused_update_kernel<2, 8>; break;
+    case 4: kernel = fused_update_kernel<4, 8>; break;
+    case 8: kernel = fused_update_kernel<8, 8>; break;
+    default: kernel = fused_update_kernel<kMaxPer, 8>; break;
     }
+    if (k == kMaxCluster) kernel = fused_update_kernel<kMaxPer, kMaxCluster>;
     if (smem > 48 * 1024) {
         err = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    if (k > 8) {   // above the portable cluster size
+        err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
         if (err != cudaSuccess) return (int)err;
     }
     const Args a = {

@@ -28,6 +28,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 KERNELS = ("fused_update", "table_lookup", "rowwise_lookup", "latch_scan",
            "bars_raster")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "glava_tpu_torch"
+# dynamic shared memory one CTA may use on the target (sm_90a: 227 KB);
+# the kernels' plans (ops/fused.py, ops/lookup.py) size their layouts to it
+SMEM_LIMIT = 232448
 # no --use_fast_math: logf accuracy is part of the 2e-5 spectrum contract
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

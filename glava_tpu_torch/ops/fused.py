@@ -18,7 +18,9 @@ tensors on the rows' device.
 :func:`fused_update` runs it for CPU tensors and launches the CUDA
 kernel (``csrc/fused_update.cu``, replacing the TPU kernel
 ``glava_tpu/ops/pallas/fused.py:build_fused_update_inc``) for CUDA
-tensors; it never falls back from one to the other.
+tensors; it never falls back from one to the other. Bufsizes below
+the kernel's run :func:`chain_update` on any device, chosen from the
+shape alone (:func:`update_route`).
 
 The kernel runs each row on a cluster of ``k`` CTAs that split its
 m-point FFT four-step wise; :func:`fft_plan` picks ``k``, the CTAs'
@@ -37,14 +39,15 @@ import numpy as np
 import torch
 
 from glava_tpu_torch.ops import fft
+from glava_tpu_torch.ops._build import SMEM_LIMIT
 
 # kernel launches made by fused_update (CUDA tensors only)
 launches = 0
 
-MIN_N, MAX_N = 256, 16384
-# shared memory one CTA may use on an H100 (227 KB)
-SMEM_LIMIT = 232448
-MAX_CLUSTER = 8    # the portable cluster size
+PORTABLE_CLUSTER = 8     # CTAs a cluster may hold on any card
+MAX_CLUSTER = 16         # ... on an H100, with the non-portable opt-in
+MAX_CTA_POINTS = 2048    # one CTA's FFT: 88 bytes of shared memory a point
+MIN_N, MAX_N = 256, 2 * MAX_CLUSTER * MAX_CTA_POINTS
 
 _TWIDDLES: dict[tuple[int, torch.device], torch.Tensor] = {}
 
@@ -100,14 +103,18 @@ class FFTPlan:
 @functools.lru_cache(maxsize=None)
 def fft_plan(n: int) -> FFTPlan:
     """The kernel's plan for bufsize ``n``: a cluster of k = m/256 CTAs
-    (1 to 8) a row, so each CTA runs a 128- to 1024-point FFT, in radix-8
-    passes with one or two radix-4 passes where log2(m2) is not a
-    multiple of 3, and owns runs of m2/k >= 32 bins."""
+    (1 to 8, the portable cluster sizes) a row, so each CTA runs a 128-
+    to 2048-point FFT; at n 65536, where 8 CTAs would each need 4096
+    points, 16 CTAs of 2048. The FFT runs in radix-8 passes with one or
+    two radix-4 passes where log2(m2) is not a multiple of 3; each CTA
+    owns runs of m2/k >= 32 bins."""
     if n < MIN_N or n > MAX_N or n & (n - 1):
         raise ValueError(f"fused_update: n must be a power of two in "
                          f"[{MIN_N}, {MAX_N}], got {n}")
     m = n // 2
-    k = min(MAX_CLUSTER, max(1, m // 256))
+    k = min(PORTABLE_CLUSTER, max(1, m // 256))
+    if m // k > MAX_CTA_POINTS:
+        k = m // MAX_CTA_POINTS
     m2 = m // k
     p = m2.bit_length() - 1
     radices = {0: (8,) * (p // 3), 1: (8,) * ((p - 4) // 3) + (4, 4),
@@ -166,19 +173,48 @@ def ring_average(hist, newest, age_weights):
     return torch.clamp(acc, 0.0, 1.0)
 
 
+def update_route(n: int) -> str:
+    """How an update at bufsize ``n`` runs: ``"kernel"`` where the
+    kernel takes n (a power of two in [MIN_N, MAX_N]); ``"chain"``
+    (:func:`chain_update`) below MIN_N, sizes under any TPU kernel's too
+    (the JAX package's ``_fused_supported`` wants n >= 512 and takes
+    its XLA chain below). Raises ``ValueError`` unless n is a power of
+    two >= 4, the packed FFT's lengths (glava_tpu/ops/fft.py
+    ``plan_packed_fft``), and ``NotImplementedError`` above MAX_N, where
+    the kernel's one-cluster split runs out of shared memory."""
+    if n < 4 or n & (n - 1):
+        raise ValueError(f"packed fft length must be a power of two >= 4, "
+                         f"got {n}")
+    if n > MAX_N:
+        raise NotImplementedError(
+            f"bufsize {n}: the fused kernel takes at most {MAX_N} "
+            "(ROADMAP queue 2)")
+    return "kernel" if n >= MIN_N else "chain"
+
+
+def chain_update(pcm, grav, hist, slot, fft_scale, fft_cutoff, g, window,
+                 age_weights):
+    """:func:`fused_update_plain` on the tensors' own device, IN PLACE on
+    ``grav`` and ``hist`` like the kernel; returns ``(grav, hist, avg)``.
+    No kernel: the bufsizes below MIN_N on any device, and every bufsize
+    on the CPU."""
+    g2, h2, avg = fused_update_plain(pcm, grav, hist, slot, fft_scale,
+                                     fft_cutoff, g, window, age_weights)
+    grav.copy_(g2)
+    hist.copy_(h2)
+    return grav, hist, avg
+
+
 def fused_update(pcm, grav, hist, slot, fft_scale, fft_cutoff, g,
                  window, age_weights):
     """The fused update, IN PLACE on ``grav`` and ``hist``; returns
     ``(grav, hist, avg)`` with ``avg`` newly allocated.
 
-    CPU tensors take :func:`fused_update_plain`. CUDA tensors launch
-    the kernel, or raise when the inputs are not what it takes."""
+    CPU tensors take :func:`chain_update`. CUDA tensors launch the
+    kernel, or raise when the inputs are not what it takes."""
     if pcm.device.type == "cpu":
-        g2, h2, avg = fused_update_plain(pcm, grav, hist, slot, fft_scale,
-                                         fft_cutoff, g, window, age_weights)
-        grav.copy_(g2)
-        hist.copy_(h2)
-        return grav, hist, avg
+        return chain_update(pcm, grav, hist, slot, fft_scale, fft_cutoff, g,
+                            window, age_weights)
     if pcm.device.type != "cuda":
         raise ValueError(f"fused_update: unsupported device {pcm.device}")
     return _launch(pcm, grav, hist, slot, fft_scale, fft_cutoff, g,

@@ -13,7 +13,8 @@ fetch ``_fetch_1d`` (``glava_tpu/config/glsl_shader.py``).
 * :func:`fetch_1d` clips texel indices into a texture, then gathers.
 * :func:`rowwise_lookup` gathers every row from its own table row, the
   counterpart of ``build_rowwise_lookup`` and
-  ``build_rowwise_lookup_mc`` (kernel: ``csrc/rowwise_lookup.cu``):
+  ``build_rowwise_lookup_mc`` (kernel: ``csrc/rowwise_lookup.cu``, on
+  the route :func:`rowwise_plan` picks from the shapes and strides):
   the interpreter's column-aligned texel fetch at a runtime row.
 
 Every result is pure data movement, so each kernel and its plain
@@ -23,15 +24,42 @@ version agree bit for bit.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from glava_tpu_torch.ops._build import SMEM_LIMIT
+
 # kernel launches made by table_lookup (CUDA tensors only)
 launches = 0
 
+# each kernel's C entry point and its argument types
+_ENTRIES = {
+    "table_lookup": ("glava_table_lookup", [ctypes.c_void_p] * 3
+                     + [ctypes.c_int] * 2 + [ctypes.c_longlong, ctypes.c_void_p]),
+    "rowwise_lookup": ("glava_rowwise_lookup", [ctypes.c_void_p] * 3
+                       + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 6
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
+}
+_FNS: dict = {}
+
+
+def _kernel(name: str):
+    """The built kernel's C entry point, resolved once."""
+    if name not in _FNS:
+        from glava_tpu_torch.ops import _build
+
+        symbol, argtypes = _ENTRIES[name]
+        fn = getattr(_build.load(name).lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FNS[name] = fn
+    return _FNS[name]
+
 MAX_TABLES = 65535        # the kernel's grid rows
-MAX_TABLE = 48 * 1024     # entries a table row stages in shared memory
+MAX_TABLE = 48 * 1024     # entries a table row stages in shared memory;
+                          # a longer one is read from the L2
 
 
 def table_lookup_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -43,8 +71,9 @@ def table_lookup_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def table_lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """:func:`table_lookup_plain` on CPU tensors; the CUDA kernel on
     CUDA tensors, which raises when the inputs are not what it takes
-    (an int32 index tensor, a (T,) or (S, T) float32 table of at most
-    ``MAX_TABLE`` entries on the same card). Indices must lie in
+    (an int32 index tensor, a (T,) or (S, T) float32 table on the same
+    card; staged in shared memory up to ``MAX_TABLE`` entries, read
+    from the L2 above). Indices must lie in
     [0, T): the kernel does not check them (an index outside reads as
     NaN), the plain version raises."""
     if table.device.type == "cpu":
@@ -58,9 +87,9 @@ def _launch(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     global launches
     if table.dtype != torch.float32:
         raise TypeError(f"table_lookup: table must be float32, got {table.dtype}")
-    if table.ndim not in (1, 2) or not 1 <= table.shape[-1] <= MAX_TABLE:
+    if table.ndim not in (1, 2) or not 1 <= table.shape[-1] < 2 ** 31:
         raise ValueError(f"table_lookup: table must be (T,) or (S, T) with "
-                         f"1 <= T <= {MAX_TABLE}, got {tuple(table.shape)}")
+                         f"1 <= T < 2**31, got {tuple(table.shape)}")
     if idx.dtype != torch.int32:
         raise TypeError(f"table_lookup: indices must be int32, got {idx.dtype}")
     if idx.device != table.device:
@@ -78,12 +107,7 @@ def _launch(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     table = table.contiguous()
     idx = idx.contiguous()
 
-    from glava_tpu_torch.ops import _build
-
-    fn = _build.load("table_lookup").lib.glava_table_lookup
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
-        ctypes.c_longlong, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _kernel("table_lookup")
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         err = fn(table.data_ptr(), idx.data_ptr(), out.data_ptr(), S, T, P,
@@ -133,9 +157,46 @@ def fetch_1d(tex: torch.Tensor, i: torch.Tensor, sz: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 ROWWISE_CHANNELS = (1, 4)
+ROWWISE_ROUTES = ("staged", "direct")
+ROWWISE_STRIPS = (16, 8)  # table rows a CTA may own, the widest first
+ROWWISE_BAND = 256        # points a CTA covers on the direct route, at least
+MAX_BANDS = 65535         # the kernel's grid rows
 
-# kernel launches made by rowwise_lookup (CUDA tensors only), by C
+# kernel launches made by rowwise_lookup (CUDA tensors only), by C and
+# by route
 rowwise_launches = dict.fromkeys(ROWWISE_CHANNELS, 0)
+rowwise_routes = dict.fromkeys(ROWWISE_ROUTES, 0)
+
+
+@dataclass(frozen=True)
+class RowwisePlan:
+    """How ``csrc/rowwise_lookup.cu`` runs one call, from the shapes and
+    strides alone: a CTA owns ``strip`` adjacent table rows; ``route``
+    "staged" (a CTA stages its strip's index plane and, two at a time,
+    its C tables in ``smem`` bytes of shared memory, and covers all P
+    points) or "direct" (tables read from the L2, CTAs over bands of
+    ``band`` points); ``i_fast``: neighbouring threads take neighbouring
+    table rows i, as the index plane is laid out."""
+    route: str
+    i_fast: bool
+    strip: int
+    band: int
+    smem: int
+
+
+def rowwise_plan(C: int, T: int, P: int, idx_strides) -> RowwisePlan:
+    """The kernel's plan for C tables of T entries and P points a row:
+    staged on the widest strip whose index plane and min(C, 2) table
+    buffers fit in shared memory, else direct. The one owner of the
+    staged route's layout (``[strip x P]`` index, then the table
+    buffers, float32): the kernel takes ``smem`` as given."""
+    i_fast = idx_strides[0] < idx_strides[1]
+    for strip in ROWWISE_STRIPS:
+        smem = 4 * strip * (P + min(C, 2) * T)
+        if smem <= SMEM_LIMIT:
+            return RowwisePlan("staged", i_fast, strip, P, smem)
+    return RowwisePlan("direct", i_fast, ROWWISE_STRIPS[0],
+                       max(ROWWISE_BAND, -(-P // MAX_BANDS)), 0)
 
 
 def rowwise_lookup_plain(tabs, idx: torch.Tensor) -> tuple:
@@ -194,31 +255,28 @@ def _launch_rowwise(tabs, idx):
     T = shape[1]
     if min(N, P, T) < 1:
         raise ValueError(f"rowwise_lookup: empty operand (N {N}, T {T}, P {P})")
+    plan = rowwise_plan(C, T, P, idx.stride())
     # outputs take idx's layout: a transposed view stays transposed, so
     # the points that are neighbours in memory stay neighbours
-    i_fast = idx.stride(0) < idx.stride(1)
-    if i_fast:
+    if plan.i_fast:
         outs = [torch.empty((P, N), dtype=torch.float32, device=idx.device).T
                 for _ in tabs]
     else:
         outs = [torch.empty((N, P), dtype=torch.float32, device=idx.device)
                 for _ in tabs]
 
-    from glava_tpu_torch.ops import _build
-
-    fn = _build.load("rowwise_lookup").lib.glava_rowwise_lookup
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
-        ctypes.c_longlong] * 6 + [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _kernel("rowwise_lookup")
     tab_ptrs = (ctypes.c_void_p * C)(*[t.data_ptr() for t in tabs])
     out_ptrs = (ctypes.c_void_p * C)(*[o.data_ptr() for o in outs])
     ts, xs, os_ = tabs[0].stride(), idx.stride(), outs[0].stride()
     with torch.cuda.device(idx.device):
         stream = torch.cuda.current_stream(idx.device).cuda_stream
         err = fn(tab_ptrs, idx.data_ptr(), out_ptrs, C, N, T, P,
-                 ts[0], ts[1], xs[0], xs[1], os_[0], os_[1], int(i_fast),
+                 ts[0], ts[1], xs[0], xs[1], os_[0], os_[1], int(plan.i_fast),
+                 plan.strip, int(plan.route == "staged"), plan.band, plan.smem,
                  stream)
     if err != 0:
         raise RuntimeError(f"rowwise_lookup kernel launch failed: CUDA error {err}")
     rowwise_launches[C] += 1
+    rowwise_routes[plan.route] += 1
     return tuple(outs)

@@ -80,6 +80,24 @@ def _check(name, t, dtype, device, ndim):
         raise ValueError(f"bars_raster: {name} must be contiguous")
 
 
+_FN = None
+
+
+def _kernel():
+    """The built kernel's C entry point, resolved once."""
+    global _FN
+    if _FN is None:
+        from glava_tpu_torch.ops import _build
+
+        fn = _build.load("bars_raster").lib.glava_bars_raster
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+            ctypes.c_longlong] * 2 + [ctypes.c_float, ctypes.c_int,
+                                      ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
+
+
 def _launch(v, inner, d, color, outline, bow, outlined):
     global launches
     dev = v.device
@@ -105,12 +123,7 @@ def _launch(v, inner, d, color, outline, bow, outlined):
         strides.append(0 if t.shape[0] == 1 else H * 4)
     out = torch.empty((S, 4, H, W), dtype=f32, device=dev)
 
-    from glava_tpu_torch.ops import _build
-
-    fn = _build.load("bars_raster").lib.glava_bars_raster
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
-        ctypes.c_longlong] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(v.data_ptr(), inner.data_ptr(), d.data_ptr(), color.data_ptr(),

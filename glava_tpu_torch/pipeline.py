@@ -11,21 +11,30 @@ uniforms come in two kinds:
   average after the default smooth pass (render.c:2276-2303), a baked
   resample.
   The whole update of all fft uniforms is ONE call of
-  ``ops.fused.fused_update`` over the flat row batch ``(B, ...)`` with
-  row order ``s * U + u`` (streams x fft uniforms): on CUDA tensors
-  that is the hand-written kernel, on CPU tensors its plain torch
-  version. The state layout is the JAX package's ``FusedChainState``
-  (glava_tpu/pipeline.py:72-91).
+  ``ops.fused.fused_update`` (or ``chain_update``, see below) over the
+  flat row batch ``(B, ...)`` with row order ``s * U + u`` (streams x
+  fft uniforms): on CUDA tensors that is the hand-written kernel, on
+  CPU tensors its plain torch version. The state layout is the JAX
+  package's ``FusedChainState`` (glava_tpu/pipeline.py:72-91).
 * **stateless uniforms** (no ``fft``, e.g. wave's ``window, wrange``)
   carry no state: their texture is ``wrange`` of the frame's feed
   audio, ``window`` being a no-op without ``fft``
   (glava_tpu/pipeline.py:440-449). A module with no fft uniform keeps a
   state of B = 0 rows and launches no kernel.
 
+The update's route follows from the scaled bufsize alone
+(``AudioPipeline.route``): ``"kernel"`` for a power of two in
+256..65536, the sizes of the kernel; ``"chain"`` for 4..128, the same
+function in plain torch on the rows' own device
+(``ops.fused.chain_update``). The JAX package takes its Pallas kernel
+from 512 up and its XLA chain below (``_fused_supported``,
+glava_tpu/pipeline.py:126-137), so no TPU kernel has a counterpart to
+port at 4..128. Other bufsizes raise ``ValueError``.
+
 Configurations not ported yet raise ``NotImplementedError`` at
 construction: ``setaccelfft false`` and the ``smooth`` transform
-(ROADMAP queue 3, the CPU-path chain) and fft bufsizes outside
-256..16384.
+(ROADMAP queue 1, the CPU-path chain) and bufsizes above 65536, which
+the kernel's one-cluster split does not hold (ROADMAP queue 2).
 """
 
 from __future__ import annotations
@@ -90,19 +99,17 @@ class AudioPipeline:
         if not cfg.accel_fft:
             raise NotImplementedError(
                 "setaccelfft false (the CPU-path chain) is not yet ported "
-                "(ROADMAP queue 3)")
+                "(ROADMAP queue 1)")
         self.fft_uniforms = [u for u in self.uniforms if has_fft(u.transforms)]
         for u in self.uniforms:
             if "smooth" in u.transforms:
                 raise NotImplementedError(
                     f"uniform '{u.name}': the smooth transform is not yet "
-                    "ported (ROADMAP queue 3)")
-        if self.fft_uniforms and (
-                self.sz < fused.MIN_N or self.sz > fused.MAX_N
-                or self.sz & (self.sz - 1)):
-            raise NotImplementedError(
-                f"bufsize {self.sz}: the fused update takes powers of two "
-                f"in [{fused.MIN_N}, {fused.MAX_N}]")
+                    "ported (ROADMAP queue 1)")
+        # "kernel" or "chain", from the shape alone (None: no fft
+        # uniform, no update)
+        self.route = (fused.update_route(self.sz) if self.fft_uniforms
+                      else None)
         dev = self.device
         self.avg_weights = windows.avg_weights(
             cfg.avg_frames, cfg.avg_window, cfg.accel_fft)
@@ -173,7 +180,9 @@ class AudioPipeline:
         pcm = pcm.reshape(-1, self.sz).to(torch.float32).contiguous()
         B = pcm.shape[0]
         scale, cutoff, g = self._row_params(B, fft_scale, fft_cutoff, gravity_g)
-        grav, hist, avg = fused.fused_update(
+        update = (fused.fused_update if self.route == "kernel"
+                  else fused.chain_update)
+        grav, hist, avg = update(
             pcm, state.gravity, state.history, state.count,
             scale, cutoff, g, self.window, self.age_weights,
         )

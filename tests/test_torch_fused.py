@@ -189,7 +189,7 @@ def _split_fft_model(x, plan):
     return X
 
 
-NS = [256 << i for i in range(7)]   # every bufsize the kernel takes
+NS = [256 << i for i in range(9)]   # every bufsize the kernel takes
 
 
 @pytest.mark.parametrize("n", NS)
@@ -214,18 +214,20 @@ def test_split_fft_model_matches_numpy(n):
 @pytest.mark.parametrize("n", NS)
 def test_plan_shared_memory_fits(n, F):
     """A CTA's shared memory stays under the H100's 227 KB: the whole
-    history ring resident for F in {1, 6, 16} at every n; where it
-    cannot be (F 64 at n 16384) the plan names the streamed route, with
-    groups of slots that fit."""
+    history ring resident for F in {1, 6, 16} wherever a CTA's FFT is
+    at most 1024 points (n up to 16384); where it cannot be (F 64 at n
+    16384, F above 3 at n 32768 and 65536, whose CTAs run 2048-point
+    FFTs) the plan names the streamed route, with groups of slots that
+    fit."""
     plan = fused.fft_plan(n)
     G = plan.slots(F)
     assert 1 <= G <= F
     assert plan.smem_bytes(F) <= fused.SMEM_LIMIT
     # one slot more would not fit: G is the most the streamed route can hold
     assert G == F or plan.smem_bytes(F) + 8 * plan.m2 > fused.SMEM_LIMIT
-    if F <= 16:
+    if F <= 16 and plan.m2 <= 1024:
         assert G == F
-    if n == 16384 and F == 64:
+    if (n == 16384 and F == 64) or (n >= 32768 and F > 3):
         assert G < F          # streamed
 
 
@@ -248,8 +250,9 @@ def test_plan_radix_code_and_twiddles():
 def test_plan_args_as_the_kernel_takes_them(n, F):
     """The C entry's plan arguments: k, the pass count, 2-bit log2
     radices of 2 or 3 (radix 4 or 8, the only passes it has), and the
-    plan's slots and shared memory; 2*m2 elements fill 1 to 8 per
-    thread of its 256."""
+    plan's slots and shared memory; 2*m2 elements fill 1 to 16 per
+    thread of its 256; a cluster of 16 CTAs only where 8 would need
+    FFTs of more than 2048 points."""
     plan = fused.fft_plan(n)
     k, nstages, code, G, smem = fused._plan_args(n, F)
     assert (k, G, smem) == (plan.k, plan.slots(F), plan.smem_bytes(F))
@@ -257,7 +260,8 @@ def test_plan_args_as_the_kernel_takes_them(n, F):
     assert fields and all(f in (2, 3) for f in fields)
     assert code >> (2 * nstages) == 0
     assert 2 ** sum(fields) == plan.m2
-    assert 256 <= 2 * plan.m2 <= 8 * 256
+    assert 256 <= 2 * plan.m2 <= 16 * 256
+    assert plan.k <= fused.PORTABLE_CLUSTER or n == fused.MAX_N == 65536
 
 
 @pytest.fixture
@@ -268,7 +272,7 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [256, 1024, 4096, 16384])
+@pytest.mark.parametrize("n", [256, 1024, 4096, 16384, 32768, 65536])
 @pytest.mark.parametrize("B", [2, 64])
 def test_kernel_matches_plain_on_card(cuda, n, B):
     F = 6

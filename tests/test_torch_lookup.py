@@ -12,9 +12,12 @@ data movement, so the tolerance is zero.
 (C = 4) in interpret mode, with contiguous operands and with the
 transposed views of (H, W) planes the interpreter hands over.
 
+``rowwise_plan`` (which route and layout csrc/rowwise_lookup.cu takes)
+is pinned as a function of the shapes and strides.
+
 Cases marked ``cuda`` hold the CUDA kernels (csrc/table_lookup.cu,
-csrc/rowwise_lookup.cu) against the plain versions on the card, also
-bit for bit.
+csrc/rowwise_lookup.cu, each route) against the plain versions on the
+card, also bit for bit.
 """
 
 from __future__ import annotations
@@ -205,6 +208,43 @@ def test_rowwise_out_of_range_raises(bad):
         lookup.rowwise_lookup(tabs, idx)
 
 
+# (C, T, P, index strides, plan): the smoke's shapes (the colfetch fetch
+# at 800x600 and 1920x1080 on .T views, contiguous operands, its odd and
+# tall cases) and the edges of shared memory
+ROWWISE_PLANS = [
+    (4, 600, 600, (1, 800), lookup.RowwisePlan("staged", True, 16, 600, 115200)),
+    (4, 1080, 1080, (1, 1920), lookup.RowwisePlan("staged", True, 16, 1080, 207360)),
+    (1, 1080, 1080, (1, 1920), lookup.RowwisePlan("staged", True, 16, 1080, 138240)),
+    (4, 1080, 1080, (1080, 1), lookup.RowwisePlan("staged", False, 16, 1080, 207360)),
+    (1, 131, 131, (1, 97), lookup.RowwisePlan("staged", True, 16, 131, 16768)),
+    (4, 1, 7, (1, 5), lookup.RowwisePlan("staged", True, 16, 7, 576)),
+    (4, 1080, 1472, (1, 1920), lookup.RowwisePlan("staged", True, 16, 1472, 232448)),
+    (4, 1080, 1473, (1, 1920), lookup.RowwisePlan("staged", True, 8, 1473, 116256)),
+    (4, 2160, 2160, (1, 3840), lookup.RowwisePlan("staged", True, 8, 2160, 207360)),
+    (4, 2160, 2944, (1, 3840), lookup.RowwisePlan("staged", True, 8, 2944, 232448)),
+    (4, 2160, 2945, (1, 3840), lookup.RowwisePlan("direct", True, 16, 256, 0)),
+    (1, 3632, 3632, (1, 96), lookup.RowwisePlan("staged", True, 8, 3632, 232448)),
+    (1, 8192, 1000, (1, 96), lookup.RowwisePlan("direct", True, 16, 256, 0)),
+    (4, 9001, 777, (777, 1), lookup.RowwisePlan("direct", False, 16, 256, 0)),
+    (1, 8192, 20_000_000, (1, 96), lookup.RowwisePlan("direct", True, 16, 306, 0)),
+]
+
+
+@pytest.mark.parametrize("C,T,P,strides,plan", ROWWISE_PLANS,
+                         ids=[f"C{c}-T{t}-P{p}-{'i' if s[0] < s[1] else 'j'}fast"
+                              for c, t, p, s, _ in ROWWISE_PLANS])
+def test_rowwise_plan_follows_the_shapes(C, T, P, strides, plan):
+    """The kernel's route, lane order, band and shared memory, a pure
+    function of (C, T, P, the index plane's strides): staged on a strip
+    of 16 rows, else 8, while a strip's index plane and two table
+    buffers (one at C = 1) fit in 227 KB, the direct route past it,
+    bands that keep the grid within 65535 rows."""
+    assert lookup.rowwise_plan(C, T, P, strides) == plan
+    assert plan.smem == (4 * plan.strip * (P + min(C, 2) * T)
+                         if plan.route == "staged" else 0)
+    assert -(-P // plan.band) <= lookup.MAX_BANDS
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -213,6 +253,7 @@ CARD_CASES = {
     "radial_162": ((600, 800), 162),
     "circle_8192": ((3, 1080, 1920), 8192),
     "dyn_smem_32768": ((2, 40000), 32768),
+    "l2_131072": ((3, 50000), 131072),     # above MAX_TABLE: from the L2
     "small_97": ((97,), 256),
     "ragged_1001": ((7, 143), 520),
 }
@@ -242,26 +283,57 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(TypeError, match="float32"):
         lookup.table_lookup(tab.double(),
                             torch.zeros(4, dtype=torch.int32, device=cuda))
-    with pytest.raises(ValueError, match="T <="):
-        lookup.table_lookup(torch.zeros(lookup.MAX_TABLE + 1, device=cuda),
+    with pytest.raises(ValueError, match="T < 2"):
+        lookup.table_lookup(torch.zeros(2, 3, 4, device=cuda),
                             torch.zeros(4, dtype=torch.int32, device=cuda))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("transposed", [False, True], ids=["contiguous", "T_views"])
 @pytest.mark.parametrize("C", [1, 4])
-@pytest.mark.parametrize("shape", [(1920, 1080, 1080), (21, 300, 260)],
-                         ids=["1080p", "ragged"])
+@pytest.mark.parametrize("shape", [(1920, 1080, 1080), (21, 300, 260),
+                                   (97, 131, 131), (256, 2160, 2160),
+                                   (96, 8192, 1000)],
+                         ids=["1080p", "ragged", "97x131", "strip8", "direct"])
 def test_rowwise_kernel_matches_plain_on_card(cuda, shape, C, transposed):
+    """Both routes (the tall tables take the direct one) and both strip
+    widths (2160 rows stage 8 at a time), both layouts, one launch on
+    the planned route."""
     N, T, P = shape
     tabs, idx = _rowwise_inputs(N, T, P, C, transposed)
     tabs = tuple(t.to(cuda) for t in tabs)
     idx = idx.to(cuda)
-    before = lookup.rowwise_launches[C]
+    route = lookup.rowwise_plan(C, T, P, idx.stride()).route
+    assert route == ("direct" if T == 8192 else "staged")
+    before = lookup.rowwise_launches[C], lookup.rowwise_routes[route]
     got = lookup.rowwise_lookup(tabs, idx)
     torch.cuda.synchronize()
-    assert lookup.rowwise_launches[C] == before + 1
+    assert (lookup.rowwise_launches[C], lookup.rowwise_routes[route]) == (
+        before[0] + 1, before[1] + 1)
     for g, w in zip(got, lookup.rowwise_lookup_plain(tabs, idx)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["offset_views", "broadcast"])
+@pytest.mark.parametrize("C", [1, 4])
+def test_rowwise_kernel_strided_operands_on_card(cuda, C, layout):
+    """.T views that start off a 16-byte boundary, and tables that are
+    one plane column broadcast (row stride 0, the interpreter's const x
+    pattern), at 1080p."""
+    N, T, P = 1920, 1080, 1080
+    rng = np.random.default_rng(29)
+    planes = [torch.as_tensor(rng.standard_normal((T, N + 3)).astype(np.float32),
+                              device=cuda) for _ in range(C)]
+    yi = torch.as_tensor(rng.integers(0, T, (P, N + 5)).astype(np.int32),
+                         device=cuda)[:, 5:]
+    if layout == "offset_views":
+        tabs = tuple(p[:, 3:].T for p in planes)
+    else:
+        tabs = tuple(p[:, 3:4].expand(T, N).T for p in planes)
+    got = lookup.rowwise_lookup(tabs, yi.T)
+    torch.cuda.synchronize()
+    for g, w in zip(got, lookup.rowwise_lookup_plain(tabs, yi.T)):
         assert torch.equal(g, w)
 
 

@@ -281,7 +281,7 @@ def test_stateless_chain_textures_match_jax(uniforms):
         (torch.as_tensor(al) + 1.0) / 2.0, 0.0, 1.0))
 
 
-@pytest.mark.parametrize("case", ["cpu_path", "chain", "smooth", "small", "large"])
+@pytest.mark.parametrize("case", ["cpu_path", "chain", "smooth", "bufsize131072"])
 def test_unported_configurations_raise(case):
     cfg = RenderConfig(bufsize=1024)
     uniforms = [UniformSpec(*u) for u in BARS]
@@ -293,9 +293,143 @@ def test_unported_configurations_raise(case):
         uniforms = [UniformSpec("audio_l", "audio_l", ("window", "fft", "smooth"))]
     elif case == "smooth":
         uniforms = [UniformSpec("audio_l", "audio_l", ("wrange", "smooth"))]
-    elif case == "small":
-        cfg = dataclasses.replace(cfg, bufsize=128)
     else:
-        cfg = dataclasses.replace(cfg, bufsize=32768)
+        # above the fused kernel's one-cluster split (fused.MAX_N)
+        cfg = dataclasses.replace(cfg, bufsize=131072)
     with pytest.raises(NotImplementedError):
         AudioPipeline(cfg, uniforms, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# bufsizes off the shipped 4096: the plain chain below 256, the kernel's
+# largest sizes above 16384
+# ---------------------------------------------------------------------------
+
+# (requests, smooth pass, updates, route): scaled bufsizes outside
+# 256..16384. At 4 and 16 the smooth pass maps every texel to 0 (its
+# log-curve spans hold no texel), so those cases compare the averaged
+# spectrum itself; at 32768 and 65536 its dense resample matrix would
+# take 4 and 17 GB a package, so they compare the average too (the
+# smooth pass is held at 64, 128 and 4096 / bufscale 32 here, and at
+# 32768 through Renderer by chip_smoke.py on the card).
+CHAIN_CASES = {
+    "bufsize4": (("setbufsize 4", "setsamplesize 4"), False, 8, "chain"),
+    "bufsize16": (("setbufsize 16", "setsamplesize 16"), False, 8, "chain"),
+    "bufsize64": (("setbufsize 64", "setsamplesize 64"), True, 8, "chain"),
+    "bufsize128": (("setbufsize 128", "setsamplesize 128"), True, 8, "chain"),
+    "bufsize4096_bufscale32": (("setbufsize 4096", "setbufscale 32"), True, 8,
+                               "chain"),
+    "bufsize32768": (("setbufsize 32768",), False, 4, "kernel"),
+    "bufsize65536": (("setbufsize 65536",), False, 3, "kernel"),
+}
+
+
+def _presmooth64(op, tex):
+    """The baked smooth-pass operator applied in float64, dense or
+    block-banded (the same float32 weights as both packages')."""
+    if op.banded is None:
+        return tex[..., : op.matrix.shape[1]] @ op.matrix.T.astype(np.float64)
+    b = op.banded
+    kb = b.blocks.shape[2]
+    pad = np.pad(tex, [(0, 0)] * (tex.ndim - 1) + [(0, kb)])
+    out = np.concatenate([pad[..., s:s + kb] @ blk.T.astype(np.float64)
+                          for s, blk in zip(b.starts, b.blocks)], axis=-1)
+    return out[..., : b.n_out]
+
+
+def _chain_model64(cfg, audio, presmooth):
+    """The accel chain in float64 numpy: decimate, window, packed FFT,
+    log-magnitude and boost, clamp, gravity, ring write, age-weighted
+    average, clamp, then the smooth pass (``presmooth``, or None) and a
+    clamp. ``audio`` (updates, 2, bufsize) -> (updates, 2, sz)."""
+    from glava_tpu_torch.ops import fused, windows
+
+    n, F = cfg.scaled_bufsize, cfg.avg_frames
+    window = windows.pcm_window(n).astype(np.float64)
+    w_age = fused.age_weights(windows.avg_weights(F, cfg.avg_window, True))
+    boost = np.maximum(np.arange(n) / n * np.float32(cfg.fft_scale)
+                       + (1.0 - np.float32(cfg.fft_cutoff)), 1.0)
+    g = np.float32(cfg.gravity_step / cfg.nominal_ups)
+    grav, hist, out = np.zeros((2, n)), np.zeros((2, F, n)), []
+    for k, x in enumerate(audio):
+        if cfg.bufscale > 1:
+            x = x.reshape(2, n, cfg.bufscale).mean(axis=-1, dtype=np.float32)
+        x = x.astype(np.float64) * window
+        spec = np.fft.fft(x[:, 0::2] + 1j * x[:, 1::2])
+        inter = np.stack([spec.real, spec.imag], axis=-1).reshape(2, n)
+        spec = np.clip(np.log(np.abs(inter) + 1.0) / 3.0 * boost, 0.0, 1.0)
+        grav = np.clip(np.maximum(grav, spec) - g, 0.0, 1.0)
+        slot = k % F
+        hist[:, slot] = grav
+        tex = np.clip(np.einsum("f,cfn->cn", w_age[(slot - np.arange(F)) % F]
+                                .astype(np.float64), hist), 0.0, 1.0)
+        if presmooth is not None:
+            tex = np.clip(_presmooth64(presmooth, tex), 0.0, 1.0)
+        out.append(tex)
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(CHAIN_CASES))
+def test_chain_route_textures_match_jax(case):
+    """Every power-of-two bufsize below the kernel's runs the plain
+    chain (``route == "chain"``), the kernel's two largest its route (on
+    the CPU, the kernel's plain version); each gives the JAX pipeline's
+    textures within 2e-5 after every update. Where the JAX float32 chain
+    itself lies farther than 2e-5 from a float64 numpy model of the
+    chain, the tolerance is that measured distance instead (at these
+    sizes it stays under 1e-6, so 2e-5 holds)."""
+    from glava_tpu_torch.ops import fused
+
+    reqs, smooth, updates, route = CHAIN_CASES[case]
+    lc, jlc = (ld.load(cli_requests=reqs + ("setprintframes false",),
+                       force_module="bars") for ld in (loader, jloader))
+    cfg = dataclasses.replace(lc.cfg, smooth_pass=smooth)
+    jcfg = dataclasses.replace(jlc.cfg, smooth_pass=smooth)
+    port = AudioPipeline(cfg, [UniformSpec(*u) for u in BARS], device="cpu")
+    ref = JaxPipeline(jcfg, [JaxUniform(*u) for u in BARS], use_fused=False)
+    assert port.route == route
+    assert fused.update_route(cfg.scaled_bufsize) == route
+    rng = np.random.default_rng(cfg.scaled_bufsize)
+    audio = (rng.standard_normal((updates, 2, cfg.bufsize)) * 0.3
+             ).astype(np.float32)
+    model = _chain_model64(cfg, audio, smoothing.presmooth_op(
+        cfg.scaled_bufsize, smoothing.SmoothParams(factor=cfg.smooth_factor))
+        if smooth else None)
+    sp, sj = port.init_state(), ref.init_state()
+    got, want = [], []
+    for al, ar in audio:
+        sp, tp = port.update(sp, torch.as_tensor(al), torch.as_tensor(ar))
+        sj, tj = ref.update(sj, jnp.asarray(al), jnp.asarray(ar))
+        got.append(np.stack([tp["audio_l"].numpy(), tp["audio_r"].numpy()]))
+        want.append(np.stack([np.asarray(tj["audio_l"]),
+                              np.asarray(tj["audio_r"])]))
+    got, want, model = map(np.asarray, (got, want, model))
+    assert got.shape == (updates, 2, cfg.scaled_bufsize)
+    assert (got[-1] > 0).any()
+    jax_to_model = float(np.abs(want - model).max())
+    tol = max(2e-5, jax_to_model)
+    np.testing.assert_allclose(got, want, atol=tol)
+
+
+def test_update_route_follows_the_shape():
+    """The chain below the kernel's bufsizes, the kernel from 256 to
+    65536, nothing else: above, NotImplementedError."""
+    from glava_tpu_torch.ops import fused
+
+    assert [fused.update_route(1 << k) for k in range(2, 17)] == (
+        ["chain"] * 6 + ["kernel"] * 9)
+    with pytest.raises(NotImplementedError, match="at most 65536"):
+        fused.update_route(1 << 17)
+    for n in (0, 1, 2, 3, 96, 1000, 4097):
+        with pytest.raises(ValueError, match="power of two"):
+            fused.update_route(n)
+
+
+@pytest.mark.parametrize("bufsize", [3, 96])
+def test_bufsize_not_a_power_of_two_raises(bufsize):
+    """As the JAX package's ``plan_packed_fft`` refuses them."""
+    cfg = RenderConfig(bufsize=bufsize)
+    with pytest.raises(ValueError, match="power of two"):
+        AudioPipeline(cfg, [UniformSpec(*u) for u in BARS], device="cpu")
+    with pytest.raises(ValueError, match="power of two"):
+        jfft.plan_packed_fft(bufsize)
