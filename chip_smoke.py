@@ -75,6 +75,29 @@ code is non-zero and no result line is printed):
                the golden rule (under 0.2% of pixels more than 2 LSB
                apart), and the built-in ones at tests/golden/frames.npz's
                size against the archive.
+               The host runtime (``phase_host``): one stream of device
+               frames through the Engine's own fetch path
+               (``FrameFetch``) at 1920x1080, bars and circle, at
+               inflight 0, 1 and 2, with a y4m sink (the yuv420 wire,
+               packed on the device) and a null sink (rgba8): every
+               buffer handed to the sink pinned and byte-equal to a
+               synchronous ``.cpu()`` of its device frame, with fresh
+               device allocations written between steps; YUV planes
+               within 1 LSB of ``yuv420_pack_host`` of the RGBA frame;
+               ``FleetEngine.fetch`` of 8 streams at 1920x1080 pinned
+               and byte-equal to ``.cpu()``. ``--pipe`` values (``fg = #00ff00`` on the pipe stream)
+               through Engine for bars, graph and a shader module with
+               an ``@fg`` knob, and the ``--stdin`` bind (a bare
+               ``#00ff00`` into ``STDIN``) for a shader module with an
+               ``@STDIN`` knob, cuda frames against cpu frames under the
+               golden rule (fixed tones as audio); a ``setbgimg``
+               wallpaper under ``setopacity "xroot"``, cuda against cpu,
+               and a wallpaper swapped mid-run reaching the composite;
+               ``api.entry(["--device", "cuda", ...])`` with ``wait``,
+               ``tex``, ``sizereq`` and ``terminate``; an Engine on the
+               ``fifo`` backend fed through an ``os.mkfifo``, and one on
+               the ``pulseaudio`` backend's pa_simple path over a
+               stand-in libpulse.
 5. times     — device times of each kernel and its plain version at
                the main path's shapes, and of one PyTorch call computing
                the same function where there is one: fused_update (n
@@ -92,12 +115,22 @@ code is non-zero and no result line is printed):
                65536;
                CUDA-event frame times of
                bars, radial and circle and of the shader modules at
-               800x600 and 1920x1080; fleet frame times at S in {1, 8,
+               800x600 and 1920x1080 (each frame brought to the host
+               through ``FrameFetch``, pinned); fleet frame times at S in {1, 8,
                64} at both sizes, split into the device step and the
                frame copy, with the device busy share; a profiler
                breakdown of bars at 800x600, circle at 1920x1080, the
                anti-alias walk module at 1920x1080 and the 64-stream
-               fleet at 800x600.
+               fleet at 800x600 (the fleet's frame copy through
+               ``FleetEngine.fetch``, pinned). The host runtime
+               (``host_times``): device-to-host copy rates, pageable
+               ``.cpu()`` against pinned, for a 1920x1080 RGBA8 frame,
+               its YUV420 packing and the S 64 1920x1080 fleet frame
+               (CUDA events); Engine fps at 1920x1080, bars and circle,
+               inflight 0, 1, 2, rgba8 and yuv420 wires, five alternating
+               rounds; ``FleetEngine.run`` of 64 bars streams at 800x600
+               on the native seqlock ring and on the Python ring,
+               alternating (host clock).
 
 The second-to-last line is the kernels JSON, the last the device JSON.
 
@@ -113,7 +146,9 @@ times another tree unpacked at PARENT (for example the parent commit,
 ``git archive``) beside this checkout, in alternating processes, each
 running its own tree's package and kernels (``frames_ab``): the
 row-wise lookup at C = 4 on the colfetch 1080p frame's own inputs and
-on a random plane, and the colfetch 1080p, bars and fleet frames.
+on a random plane, the colfetch 1080p, bars and fleet frames (S 1 and
+64 at 800x600, S 64 at 1920x1080, each tree's own frame copy), and the
+circle 1920x1080 Engine frame.
 """
 
 from __future__ import annotations
@@ -685,20 +720,25 @@ def _fixed_frame(device: str, screen=None, reqs=(), module="bars",
     lc = loader.load(cli_requests=reqs, force_module=module, user_dir=user_dir)
     r = Renderer(lc, screen=screen, device=device)
     cfg = lc.cfg
-    tt = np.arange(cfg.sample_rate) / cfg.sample_rate
-    le = (0.4 * np.sin(2 * np.pi * 440.0 * tt)).astype(np.float32)
-    ri = (0.4 * np.sin(2 * np.pi * 3000.0 * tt)).astype(np.float32)
     state = r.init_state()
     g = float(np.float32(cfg.gravity_step / cfg.nominal_ups))
     frame = None
     for k in range(24):
-        end = (k + 1) * cfg.hop
-        snap = np.zeros((2, cfg.bufsize), np.float32)
-        for ch, b in enumerate((le, ri)):
-            seg = b[max(end - cfg.bufsize, 0):end]
-            snap[ch, cfg.bufsize - len(seg):] = seg
-        state, frame = r.step_u8(state, snap, True, 0.25, 1.0, g)
+        state, frame = r.step_u8(state, tone_snapshot(cfg, k), True, 0.25,
+                                 1.0, g)
     return (frame.cpu().numpy(), r) if with_renderer else frame.cpu().numpy()
+
+
+def tone_snapshot(cfg, k: int) -> np.ndarray:
+    """The (2, bufsize) ring after k + 1 hops of fixed stereo tones (440
+    and 3000 Hz at 0.4), tests/test_golden.py's input."""
+    tt = np.arange(cfg.sample_rate) / cfg.sample_rate
+    end = (k % (cfg.sample_rate // cfg.hop) + 1) * cfg.hop
+    snap = np.zeros((2, cfg.bufsize), np.float32)
+    for ch, f in enumerate((440.0, 3000.0)):
+        seg = (0.4 * np.sin(2 * np.pi * f * tt[max(end - cfg.bufsize, 0):end]))
+        snap[ch, cfg.bufsize - len(seg):] = seg.astype(np.float32)
+    return snap
 
 
 def _counts() -> dict:
@@ -931,6 +971,363 @@ def phase_main_path(user_dir: str) -> dict:
             line += f", {w}x{h} vs golden {gfrac:.4%}"
         print(f"[4 main path] {line}")
     return totals
+
+
+# -- the host runtime: the frame's way to the host, pipe values, the
+# -- wallpaper, the embedding API, the FIFO backend ----------------------
+
+# shader modules whose colour is a pipe knob, read inside the pass:
+# `@fg` (--pipe fg) and `@STDIN` (--stdin, bare values)
+PIPE_FRAG = BASE_FRAG.replace("vec3(0.13, 0.67, 0.4)", "BASE.rgb").replace(
+    "out vec4 fragment;\n", "out vec4 fragment;\n#define BASE @fg:#22aa66\n")
+STDIN_FRAG = PIPE_FRAG.replace("@fg:", "@STDIN:")
+# (module, pipe binds, the pipe stream's line): each turns the drawn
+# colour green
+PIPE_RUNS = (("bars", ("fg", "bg"), "fg = #00ff00"),
+             ("graph", ("fg", "bg"), "fg = #00ff00"),
+             ("pipebar", ("fg", "bg"), "fg = #00ff00"),
+             ("stdinbar", ("STDIN",), "#00ff00"))
+HOST_SCREEN = (1920, 1080)
+FETCH_FRAMES = 8
+SMALL = ("setgeometry 0 0 320 240", "setprintframes false")
+
+
+def _host_planes(frame) -> tuple:
+    return frame if isinstance(frame, tuple) else (frame,)
+
+
+def _stress(nbytes: int, n: int) -> None:
+    """A large write to freshly allocated device memory: ``n`` buffers
+    of a frame's size, each filled on the compute stream. A frame still
+    being copied whose memory the allocator handed out again would be
+    overwritten here."""
+    bufs = [torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+            for _ in range(n)]
+    for i, b in enumerate(bufs):
+        b.fill_(0x5A + i)
+
+
+def _fetch_check(module: str, sink_kind: str, depth: int) -> str:
+    """One stream of device frames through the Engine's own fetch path
+    (``FrameFetch``) at 1920x1080: the engine's step is wrapped to keep
+    a device copy of each frame (and of the RGBA frame of the same
+    planes) and to write fresh allocations between steps. Every buffer
+    the sink gets must be pinned and byte-equal to a synchronous
+    ``.cpu()`` of its device frame; on the yuv420 wire the planes must
+    be within 1 LSB of ``yuv420_pack_host`` of the RGBA frame."""
+    import io
+
+    from glava_tpu_torch.render.base import interleave_u8
+    from glava_tpu_torch.renderer import yuv420_buffer, yuv420_pack_host
+    from glava_tpu_torch.runtime import sinks
+    from glava_tpu_torch.runtime.engine import Engine, EngineOptions
+
+    inner = (sinks.Y4MSink(io.BytesIO()) if sink_kind == "y4m"
+             else sinks.NullSink())
+    got = []
+
+    class Tee(sinks.FrameSink):
+        wire_format = getattr(inner, "wire_format", "rgba8")
+
+        def submit(self, frame, t):
+            got.append((frame, all(torch.from_numpy(p).is_pinned()
+                                   for p in _host_planes(frame))))
+            inner.submit(frame, t)
+
+    eng = Engine(EngineOptions(audio_backend="synth", screen=HOST_SCREEN,
+                               force_module=module, inflight=depth,
+                               requests=("setprintframes false",),
+                               device="cuda"), sink=Tee())
+    r, wire = eng.renderer, eng._wire
+    w, h = r.screen
+    want_wire = ("yuv420", w, h) if sink_kind == "y4m" else ("rgba8",)
+    if wire != want_wire:
+        raise AssertionError(f"{module} {sink_kind}: wire {wire}, expected "
+                             f"{want_wire}")
+    want = []
+    nbytes = w * h * 3 // 2 if wire[0] == "yuv420" else w * h * 4
+
+    def step(state, audio, modified, t, interp, g, pipe):
+        _stress(nbytes, depth + 2)
+        st, planes = r.step_planes(state, audio, modified, t, interp, g, pipe)
+        rgba = interleave_u8(planes, h, w, r.device)
+        frame = (yuv420_buffer(planes, h, w, r.device)
+                 if wire[0] == "yuv420" else rgba)
+        want.append((frame.clone(), rgba.clone()))
+        return st, frame
+
+    eng._step = step
+    _zero_counts()
+    eng.run(max_frames=FETCH_FRAMES)
+    torch.cuda.synchronize()
+    counts = _counts()
+    if eng.updates == 0 or counts["fused_update"] != eng.updates or any(
+            counts[k] != FETCH_FRAMES * n for k, n in LAUNCHES[module].items()):
+        raise AssertionError(f"{module} fetch path: launches {counts}, "
+                             f"{eng.updates} updates")
+    if len(got) != FETCH_FRAMES or not all(pinned for _, pinned in got):
+        raise AssertionError(f"{module} {sink_kind} inflight {depth}: "
+                             f"{len(got)} frames, pinned "
+                             f"{[pinned for _, pinned in got]}")
+    lsb = 0
+    for (host, _), (dev, rgba) in zip(got, want):
+        ref = dev.cpu().numpy()
+        if b"".join(p.tobytes() for p in _host_planes(host)) != ref.tobytes():
+            raise AssertionError(f"{module} {sink_kind} inflight {depth}: a "
+                                 "host frame differs from .cpu() of its "
+                                 "device frame")
+        if wire[0] == "yuv420":
+            for a, b in zip(host, yuv420_pack_host(rgba.cpu().numpy())):
+                lsb = max(lsb, int(np.abs(a.astype(np.int16) - b).max()))
+    if lsb > 1:
+        raise AssertionError(f"{module} yuv420 planes {lsb} LSB off the host "
+                             "pack")
+    return (f"{module} {w}x{h} {sink_kind} ({wire[0]}) inflight {depth}: "
+            f"{FETCH_FRAMES} pinned "
+            f"frames byte-equal to .cpu()"
+            + (f", YUV within {lsb} LSB of yuv420_pack_host" if lsb or
+               wire[0] == "yuv420" else ""))
+
+
+def _fleet_fetch_check(n: int = 8, frames: int = 3) -> str:
+    """``FleetEngine.fetch`` at 1920x1080: the host frames pinned and
+    byte-equal to a synchronous ``.cpu()`` of the device frames."""
+    from glava_tpu_torch.config import loader
+    from glava_tpu_torch.runtime.fleet import FleetEngine
+
+    eng = FleetEngine(loader.load(), _fleet_streams(n), screen=HOST_SCREEN,
+                      device="cuda")
+    cfg = eng.loaded.cfg
+    rng = np.random.default_rng(3)
+    g = np.full(n, cfg.gravity_step / cfg.nominal_ups, np.float32)
+    for _ in range(frames):
+        snaps = (rng.standard_normal((n, 2, cfg.bufsize)) * 0.3).astype(np.float32)
+        dev = eng.step(snaps, np.ones(n, bool), 0.0, np.ones(n, np.float32), g)
+        host = eng.fetch(dev)
+        if not torch.from_numpy(host).is_pinned() or \
+                host.tobytes() != dev.cpu().numpy().tobytes():
+            raise AssertionError("FleetEngine.fetch: a host frame is not "
+                                 "pinned or differs from .cpu()")
+    return (f"FleetEngine.fetch S {n} {HOST_SCREEN[0]}x{HOST_SCREEN[1]}: "
+            f"{frames} pinned (S, H, W, 4) frames byte-equal to .cpu()")
+
+
+def _fixed_engine(device: str, module: str, user_dir=None, reqs=SMALL,
+                  sink=None, pipe_stream=None, **opts):
+    """An Engine whose ring snapshots are the fixed tones of
+    ``tone_snapshot`` (one hop a frame, every frame an update), so a
+    cuda and a cpu run see the same audio."""
+    from glava_tpu_torch.runtime.engine import Engine, EngineOptions
+    from glava_tpu_torch.runtime.sinks import LatestFrameSink
+
+    eng = Engine(EngineOptions(audio_backend="synth", force_module=module,
+                               user_dir=user_dir, requests=reqs,
+                               device=device, **opts),
+                 sink=sink or LatestFrameSink(), pipe_stream=pipe_stream)
+    cfg = eng.loaded.cfg
+    k = iter(range(1 << 30))
+    eng.audio.snapshot = lambda: (tone_snapshot(cfg, next(k)), True)
+    return eng
+
+
+def _pipe_frame(device: str, module: str, user_dir: str, binds,
+                line: str) -> np.ndarray:
+    """The 6th frame of an Engine whose pipe stream sends ``line`` (its
+    reader has consumed it before the first frame)."""
+    import io
+
+    from glava_tpu_torch.runtime.stdin_pipe import PipeBind
+
+    eng = _fixed_engine(device, module, user_dir,
+                        pipe_stream=io.StringIO(line + "\n"),
+                        pipe_binds=tuple(PipeBind(b, "vec4") for b in binds))
+    eng.pipe.start()
+    while not eng.pipe.eof:
+        time.sleep(0.001)
+    eng.run(max_frames=6)
+    return eng.tex()
+
+
+class _FakeLibpulse:
+    """A stand-in for libpulse-simple's four entry points: each read
+    fills the fragment with a 440 Hz stereo tone, paced at the sample
+    rate, so the pulseaudio backend's ctypes path runs without a
+    PulseAudio server."""
+
+    def __init__(self, rate: int = 22050):
+        self.rate, self.n = rate, 0
+
+    def pa_simple_new(self, *args):
+        return 1
+
+    def pa_simple_read(self, handle, buf, nbytes, err):
+        import ctypes
+
+        frames = int(getattr(nbytes, "value", nbytes)) // 8
+        t = (self.n + np.arange(frames)) / self.rate
+        self.n += frames
+        tone = (0.4 * np.sin(2 * np.pi * 440.0 * t)).astype(np.float32)
+        ctypes.memmove(buf, np.repeat(tone, 2).tobytes(), frames * 8)
+        time.sleep(frames / self.rate)
+        return 0
+
+    def pa_simple_free(self, handle):
+        pass
+
+    def pa_strerror(self, code):
+        return b"stand-in"
+
+
+def _wallpaper(path: Path, rgb) -> None:
+    from glava_tpu_torch.runtime.sinks import write_png
+
+    wall = np.zeros((300, 400, 4), np.uint8)
+    wall[..., :3] = rgb
+    wall[..., 0] = np.minimum(wall[..., 0] + np.arange(400)[None, :] // 4, 255)
+    wall[..., 3] = 255
+    write_png(path, wall)
+
+
+def phase_host(user_dir: str, tmp: Path) -> None:
+    """Phase 4's host-runtime checks on the card, each raising on a miss."""
+    import os
+    import threading
+
+    from glava_tpu_torch import api
+    from glava_tpu_torch.runtime.engine import Engine, EngineOptions
+    from glava_tpu_torch.runtime.sinks import CallbackSink
+
+    for module in ("bars", "circle"):
+        for sink_kind in ("y4m", "null"):
+            for depth in (0, 1, 2):
+                print(f"[4 host] {_fetch_check(module, sink_kind, depth)}")
+    print(f"[4 host] {_fleet_fetch_check()}")
+
+    for name, frag in (("pipebar", PIPE_FRAG), ("stdinbar", STDIN_FRAG)):
+        (Path(user_dir) / name).mkdir(exist_ok=True)
+        (Path(user_dir) / name / "1.frag").write_text(frag)
+    for module, binds, line in PIPE_RUNS:
+        ud = user_dir if module.endswith("bar") else None
+        gpu, cpu = (_pipe_frame(d, module, ud, binds, line)
+                    for d in ("cuda", "cpu"))
+        frac = golden_rule(gpu, cpu)
+        drawn = gpu[gpu[..., 3] > 0]
+        if frac >= 0.002 or not drawn.size or \
+                drawn[:, :3].mean(axis=0).argmax() != 1:
+            raise AssertionError(f"pipe '{line}', {module}: cuda vs cpu "
+                                 f"{frac:.4%} off, drawn {drawn.shape}")
+        print(f"[4 host] pipe '{line}' (binds {', '.join(binds)}) through "
+              f"Engine, {module} 320x240: green drawn, cuda vs cpu "
+              f"{frac:.4%} px > 2 LSB")
+
+    wp = tmp / "wall.png"
+    _wallpaper(wp, (200, 40, 40))
+    reqs = ("setgeometry 16 12 320 240", "setprintframes false",
+            'setopacity "xroot"', f'setbgimg "{wp}"')
+    gpu, cpu = (_fixed_engine(d, "bars", reqs=reqs) for d in ("cuda", "cpu"))
+    for eng in (gpu, cpu):
+        eng.run(max_frames=6)
+    frac = golden_rule(gpu.tex(), cpu.tex())
+    if frac >= 0.002:
+        raise AssertionError(f"setbgimg xroot bars: cuda vs cpu {frac:.4%} off")
+    frames = []
+
+    def swap(f, t):
+        frames.append(f)
+        if len(frames) == 3:
+            _wallpaper(wp, (30, 40, 210))
+
+    eng = _fixed_engine("cuda", "bars", reqs=reqs, sink=CallbackSink(swap))
+    eng.run(max_frames=10)
+
+    def modal(f):   # the wallpaper's blue, constant over the image
+        v, n = np.unique(f[..., 2], return_counts=True)
+        return int(v[n.argmax()])
+
+    first, last = modal(frames[1]), modal(frames[-1])
+    if first != 40 or last != 210:
+        raise AssertionError(f"wallpaper swap: modal colours {first} -> {last}")
+    print(f"[4 host] setbgimg + xroot, bars 320x240: cuda vs cpu {frac:.4%} px "
+          f"> 2 LSB; a wallpaper swapped mid-run reaches the composite "
+          f"(modal blue {first} -> {last})")
+
+    h = api.entry(["--device", "cuda", "-a", "synth", "--size", "320x240",
+                   "-r", "setprintframes false"])
+    try:
+        api.wait(h, timeout=120)
+        f0 = api.tex(h)
+        api.sizereq(h, 0, 0, 640, 480)
+        deadline = time.monotonic() + 60
+        while api.tex(h).shape != (480, 640, 4) and time.monotonic() < deadline:
+            time.sleep(0.01)
+        f1 = api.tex(h)
+    finally:
+        api.terminate(h)
+    if f0.shape != (240, 320, 4) or f1.shape != (480, 640, 4) or h.alive \
+            or h.error is not None or h.engine.renderer.device.type != "cuda":
+        raise AssertionError(f"api: {f0.shape} -> {f1.shape}, alive {h.alive}, "
+                             f"error {h.error!r}")
+    print(f"[4 host] api.entry(--device cuda): wait, tex {f0.shape}, sizereq "
+          f"-> tex {f1.shape}, terminate ({h.engine.frames_rendered} frames)")
+
+    fifo = tmp / "mpd.fifo"
+    os.mkfifo(fifo)
+
+    def writer():
+        t = np.arange(22050 * 3) / 22050.0
+        pcm = (np.sin(2 * np.pi * 440 * t) * 20000).astype("<i2")
+        inter = np.repeat(pcm, 2)
+        try:
+            with open(fifo, "wb") as fh:
+                for i in range(0, len(inter), 1024):
+                    fh.write(inter[i:i + 1024].tobytes())
+                    fh.flush()
+                    time.sleep(1024 / 2 / 22050.0)
+        except BrokenPipeError:
+            pass   # the engine stopped reading first
+
+    wt = threading.Thread(target=writer, daemon=True)
+    wt.start()
+    eng = Engine(EngineOptions(audio_backend="fifo", screen=(320, 240),
+                               requests=("setprintframes false",
+                                         f'setsource "{fifo}"'),
+                               device="cuda"))
+    _zero_counts()
+    eng.run(max_seconds=2.0)
+    torch.cuda.synchronize()
+    counts = _counts()
+    frame = eng.tex()
+    wt.join(timeout=10)
+    if eng.updates == 0 or counts["fused_update"] != eng.updates \
+            or frame is None or not (frame[..., 3] > 0).any():
+        raise AssertionError(f"fifo: {eng.frames_rendered} frames, "
+                             f"{eng.updates} updates, launches {counts}")
+    print(f"[4 host] fifo backend ({type(eng.audio).__name__}) through "
+          f"os.mkfifo: {eng.frames_rendered} frames on cuda, {eng.updates} "
+          f"updates, launches {counts}")
+
+    from glava_tpu_torch.runtime.audio.pulse import PulseBackend
+
+    PulseBackend.libpulse = _FakeLibpulse()
+    try:
+        eng = Engine(EngineOptions(audio_backend="pulseaudio",
+                                   screen=(320, 240), device="cuda",
+                                   requests=("setprintframes false",
+                                             'setsource "stand-in.monitor"')))
+        _zero_counts()
+        eng.run(max_seconds=1.5)
+        torch.cuda.synchronize()
+    finally:
+        PulseBackend.libpulse = None
+    counts = _counts()
+    frame = eng.tex()
+    if eng.updates == 0 or counts["fused_update"] != eng.updates \
+            or frame is None or not (frame[..., 3] > 0).any():
+        raise AssertionError(f"pulseaudio: {eng.frames_rendered} frames, "
+                             f"{eng.updates} updates, launches {counts}")
+    print(f"[4 host] pulseaudio backend (pa_simple over a stand-in "
+          f"libpulse): {eng.frames_rendered} frames on cuda, {eng.updates} "
+          f"updates, launches {counts}")
 
 
 def event_ms(fn, iters: int) -> float:
@@ -1229,7 +1626,27 @@ def frames_side() -> None:
     out["bars 800x600"] = _frame_ms(None, "bars")[0]
     for n in (1, 64):
         out[f"fleet S {n} 800x600"] = _fleet_times(n, None, 20, "")
+    out["fleet S 64 1920x1080"] = _fleet_times(64, (1920, 1080), 3, "")
+    out["circle 1080p Engine"] = _engine_ms("circle", (1920, 1080), 60)
     print(json.dumps(out))
+
+
+def _engine_ms(module: str, screen, frames: int) -> float:
+    """Host-clock ms a frame of ``Engine.run`` with a null sink, after a
+    warm-up, through the tree's own frame fetch."""
+    from glava_tpu_torch.runtime.engine import Engine, EngineOptions
+    from glava_tpu_torch.runtime.sinks import NullSink
+
+    eng = Engine(EngineOptions(audio_backend="synth", screen=screen,
+                               force_module=module, device="cuda",
+                               requests=("setprintframes false",)),
+                 sink=NullSink())
+    eng.run(max_frames=10)
+    eng.frames_rendered = 0
+    t0 = time.perf_counter()
+    eng.run(max_frames=frames)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / frames
 
 
 def frames_ab(parent: Path, card: str, pairs: int = 8) -> None:
@@ -1409,14 +1826,27 @@ def _frame_ms(screen, module="bars", user_dir=None, iters=200):
     audio = torch.as_tensor(rng.standard_normal((64, 2, 4096)) * 0.3,
                             dtype=torch.float32, device="cuda")
     box = {"s": r.init_state(), "k": 0}
+    to_host = _to_host()
 
     def frame():
         box["s"], f = r.step_u8(box["s"], audio[box["k"] % 64], True, 0.0,
                                 1.0, 0.05)
         box["k"] += 1
-        return f.cpu()
+        return to_host(f)
 
     return cuda_ms(frame, iters), r, frame
+
+
+def _to_host():
+    """The tree's own way to bring one frame to the host, synchronously:
+    ``FrameFetch`` at depth 0 (a pinned side-stream copy) where the tree
+    has it, else a pageable ``.cpu()`` (a parent tree under ``--ab``)."""
+    try:
+        from glava_tpu_torch.runtime.engine import FrameFetch
+    except ImportError:
+        return lambda f: f.cpu()
+    ff = FrameFetch("cuda", 0)
+    return lambda f: ff.push(f, 0.0)[0][0]
 
 
 def _profile(frame, label: str, card: str, frames: int = 50,
@@ -1483,7 +1913,8 @@ def _raster_times(S: int, H: int, W: int):
 def _fleet_times(n: int, screen, frames: int, card: str,
                  breakdown: bool = False) -> float:
     """One fleet frame as ``FleetEngine.run`` makes it (host snapshots to
-    the card, the step, the uint8 frames back), n bars streams with
+    the card, the step, the uint8 frames back through
+    ``FleetEngine.fetch``), n bars streams with
     their own colours, every stream updating: the host clock per frame,
     CUDA events around the step (the snapshot copy and the kernels,
     with any idle gaps) and around the frame copy, and the device busy
@@ -1500,10 +1931,13 @@ def _fleet_times(n: int, screen, frames: int, card: str,
     mods, interp = np.ones(n, bool), np.ones(n, np.float32)
     g = np.full(n, cfg.gravity_step / cfg.nominal_ups, np.float32)
     box = {"k": 0}
+    # the fleet's own copy: pinned, one synchronize (a parent tree
+    # without FleetEngine.fetch copies pageable, as its run does)
+    fetch = getattr(eng, "fetch", lambda f: f.cpu().numpy())
 
     def frame():
         box["k"] += 1
-        return eng.step(pool[box["k"] % 4], mods, 0.0, interp, g).cpu()
+        return fetch(eng.step(pool[box["k"] % 4], mods, 0.0, interp, g))
 
     for _ in range(2):
         frame()
@@ -1516,7 +1950,7 @@ def _fleet_times(n: int, screen, frames: int, card: str,
         e[0].record()
         out = eng.step(pool[box["k"] % 4], mods, 0.0, interp, g)
         e[1].record()
-        out.cpu()
+        fetch(out)
         e[2].record()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / frames
@@ -1584,7 +2018,8 @@ def phase_times(card: str, user_dir: str) -> dict:
         ms8, _, f8 = _frame_ms(None, module, ud, iters)
         ms10, _, f10 = _frame_ms((1920, 1080), module, ud, iters)
         frames[module] = (f8, f10)
-        print(f"[5 times] {module} frame (update + raster + uint8 + host copy) "
+        print(f"[5 times] {module} frame (update + raster + uint8 + FrameFetch "
+              f"to the host) "
               f"800x600: {ms8:.3f} ms = {1e3 / ms8:.1f} fps; 1920x1080: "
               f"{ms10:.3f} ms = {1e3 / ms10:.1f} fps ({card})")
     _profile(frames["bars"][0], "bars 800x600", card)
@@ -1596,6 +2031,123 @@ def phase_times(card: str, user_dir: str) -> dict:
             _fleet_times(n, screen, count, card,
                          breakdown=n == 64 and screen is None)
     return out
+
+
+def _copy_ms(src: torch.Tensor, pinned: bool, reps: int) -> float:
+    """Median milliseconds of one device-to-host copy of ``src`` (CUDA
+    events): ``.cpu()`` into fresh pageable memory, as the port copied
+    before, or ``copy_(non_blocking=True)`` into a pinned tensor."""
+    dst = torch.empty(src.shape, dtype=src.dtype, pin_memory=True) \
+        if pinned else None
+    times = []
+    for _ in range(reps + 1):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        if pinned:
+            dst.copy_(src, non_blocking=True)
+        else:
+            src.cpu()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times[1:]))
+
+
+COPY_SIZES = (("RGBA8 1920x1080", 1920 * 1080 * 4),
+              ("YUV420 1920x1080", 1920 * 1080 * 3 // 2),
+              ("fleet S 64 RGBA8 1920x1080", 64 * 1920 * 1080 * 4))
+
+
+def host_times(card: str) -> None:
+    """Phase 5's host-runtime times: device-to-host copy rates pageable
+    against pinned, Engine fps at 1920x1080 (bars, circle) for each
+    wire and in-flight depth, and the 64-stream fleet loop on the native
+    and the Python ring, on the host clock. The sinks drop the frames (a
+    null sink declaring the wire), so the fps compare the wires and
+    depths, not a writer."""
+    from glava_tpu_torch.runtime import sinks
+    from glava_tpu_torch.runtime.engine import Engine, EngineOptions
+
+    class NullYuv(sinks.NullSink):
+        wire_format = "yuv420"
+
+    for label, n in COPY_SIZES:
+        src = torch.randint(0, 256, (n,), dtype=torch.uint8, device="cuda")
+        reps = 3 if n > 1e8 else 20
+        page, pin = _copy_ms(src, False, reps), _copy_ms(src, True, reps)
+        del src
+        print(f"[5 times] copy {label} ({n / 1e6:.2f} MB) device to host: "
+              f"pageable .cpu() {page:.3f} ms = {n / page / 1e6:.2f} GB/s, "
+              f"pinned {pin:.3f} ms = {n / pin / 1e6:.2f} GB/s (CUDA events, "
+              f"median of {reps}) ({card})")
+    engines = {}
+    for module in ("bars", "circle"):
+        for wire in ("rgba8", "yuv420"):
+            for depth in (0, 1, 2):
+                sink = NullYuv() if wire == "yuv420" else sinks.NullSink()
+                eng = engines[module, wire, depth] = Engine(EngineOptions(
+                    audio_backend="synth", screen=HOST_SCREEN,
+                    force_module=module, inflight=depth, device="cuda",
+                    requests=("setprintframes false",)), sink=sink)
+                if eng._wire[0] != wire:
+                    raise AssertionError(f"{module}: wire {eng._wire}")
+                eng.run(max_frames=10)
+    # host times spread: every configuration once a round, ENGINE_ROUNDS
+    # rounds, the median and the range printed
+    ms = {key: [] for key in engines}
+    for _ in range(ENGINE_ROUNDS):
+        for key, eng in engines.items():
+            eng.frames_rendered = 0
+            t0 = time.perf_counter()
+            eng.run(max_frames=ENGINE_FRAMES)
+            torch.cuda.synchronize()
+            ms[key].append((time.perf_counter() - t0) * 1e3 / ENGINE_FRAMES)
+    for (module, wire, depth), t in ms.items():
+        med = float(np.median(t))
+        print(f"[5 times] Engine {module} 1920x1080 {wire} inflight {depth}: "
+              f"{1e3 / med:.1f} fps = {med:.3f} ms a frame, median of "
+              f"{ENGINE_ROUNDS} rounds of {ENGINE_FRAMES} frames (range "
+              f"{min(t):.3f}-{max(t):.3f} ms; host clock, null sink) ({card})")
+    # the fleet's host loop (64 synth capture threads, 64 ring snapshots
+    # a frame) on the native seqlock ring against the Python ring
+    ring_ms = {True: [], False: []}
+    for _ in range(3):
+        for native in (True, False):
+            ring_ms[native].append(_fleet_run_ms(native))
+    runs = {n: f"{np.median(t):.3f} ms a frame (runs "
+               + " ".join(f"{x:.3f}" for x in t) + ")"
+            for n, t in ring_ms.items()}
+    print(f"[5 times] FleetEngine.run S 64 800x600, 20 frames, alternating: "
+          f"native ring {runs[True]}, Python ring {runs[False]} (host "
+          f"clock) ({card})")
+
+
+def _fleet_run_ms(native: bool, frames: int = 20) -> float:
+    import functools
+
+    from glava_tpu_torch.config import loader
+    from glava_tpu_torch.runtime import audio as audio_mod
+    from glava_tpu_torch.runtime.fleet import FleetEngine
+
+    make = audio_mod.make_audio_data
+    audio_mod.make_audio_data = functools.partial(make, prefer_native=native)
+    try:
+        eng = FleetEngine(loader.load(), _fleet_streams(64), device="cuda")
+    finally:
+        audio_mod.make_audio_data = make
+    if isinstance(eng.audio[0], audio_mod.NativeAudioData) != native:
+        raise AssertionError(f"fleet ring: {type(eng.audio[0]).__name__}")
+    eng.run(max_frames=3)
+    eng.frames_rendered = 0
+    t0 = time.perf_counter()
+    eng.run(max_frames=frames)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / frames
+
+
+ENGINE_ROUNDS, ENGINE_FRAMES = 5, 60
 
 
 # the TPU kernel each entry of PATH replaces
@@ -1618,7 +2170,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as td:
         user_dir = str(write_shader_modules(Path(td)))
         launches = phase_main_path(user_dir)
+        phase_host(user_dir, Path(td))
         times = phase_times(card, user_dir)
+        host_times(card)
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

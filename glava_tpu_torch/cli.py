@@ -1,14 +1,17 @@
 """Command-line entry point of the port, flag-compatible with the JAX
-package's CLI on the flags the port supports (-r -m -e -a --sink
---frames --seconds --size --offline --fps -T), plus ``--device``.
+package's CLI on the flags the port supports (-v -d -r -m -e -a
+-p/--pipe -i/--stdin -T --config-dir --sink --frames --seconds --size
+--offline --fps), plus ``--device``.
 
     python -m glava_tpu_torch --audio synth --frames 300 --sink null
+    echo 'fg = #00ff00' | python -m glava_tpu_torch -a synth -p fg --frames 60
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import shutil
 import signal
 import sys
 from pathlib import Path
@@ -17,6 +20,7 @@ from glava_tpu_torch import __version__
 from glava_tpu_torch.runtime import audio as audio_mod
 from glava_tpu_torch.runtime.engine import Engine, EngineOptions
 from glava_tpu_torch.runtime.sinks import make_sink
+from glava_tpu_torch.runtime.stdin_pipe import VALID_TYPES, PipeBind
 
 USER_CONFIG_DIRS = ("~/.config/glava_tpu", "~/.config/glava")
 
@@ -29,6 +33,18 @@ def default_user_dir() -> str | None:
     return None
 
 
+def parse_pipe(spec: str | None) -> PipeBind:
+    if not spec:
+        raise argparse.ArgumentTypeError("--pipe needs BIND[:TYPE]")
+    name, _, stype = spec.partition(":")
+    stype = stype or "vec4"
+    if stype not in VALID_TYPES:
+        raise argparse.ArgumentTypeError(
+            f"invalid --pipe type '{stype}' (expected one of {VALID_TYPES})"
+        )
+    return PipeBind(name, stype)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="glava-tpu-torch",
@@ -36,16 +52,26 @@ def build_parser() -> argparse.ArgumentParser:
         "configuration) on PyTorch and CUDA.",
     )
     p.add_argument("-v", "--verbose", action="store_true")
+    p.add_argument("-d", "--desktop", action="store_true",
+                   help="desktop-widget mode: apply env_<WM>.glsl presets")
     p.add_argument("-r", "--request", action="append", default=[],
                    metavar="REQUEST", help="evaluate a #request after rc.glsl")
     p.add_argument("-m", "--force-mod", metavar="NAME",
                    help="force a module, overriding `#request mod`")
     p.add_argument("-e", "--entry", default="rc.glsl", metavar="FILE")
-    p.add_argument("-a", "--audio", default="synth", metavar="BACKEND",
-                   help=f"audio backend ({', '.join(audio_mod.available())})")
+    p.add_argument("-a", "--audio", default=None, metavar="BACKEND",
+                   help=f"audio backend ({', '.join(audio_mod.available())}; "
+                        "default pulseaudio when `parec` is on the PATH, "
+                        "else synth)")
     p.add_argument("-p", "--pipe", action="append", default=[],
-                   metavar="BIND[:TYPE]",
-                   help="not yet ported (ROADMAP slice 5)")
+                   metavar="BIND[:TYPE]", type=parse_pipe,
+                   help="bind a live uniform read from stdin as "
+                        "`name = value` lines (TYPE: int, float, bool, "
+                        "vec2, vec3, vec4 (default))")
+    p.add_argument("-i", "--stdin", nargs="?", const="vec4", default=None,
+                   metavar="TYPE",
+                   help="legacy: read bare values from stdin into the "
+                        "STDIN uniform (default type vec4)")
     p.add_argument("-V", "--version", action="version",
                    version=f"glava-tpu-torch {__version__}")
     p.add_argument("-T", "--run-tests", action="store_true",
@@ -74,22 +100,35 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    if args.pipe:
-        raise NotImplementedError("--pipe is not yet ported (ROADMAP slice 5)")
 
     screen = None
     if args.size:
         w, _, h = args.size.partition("x")
         screen = (int(w), int(h))
 
+    backend = args.audio
+    if backend is None:
+        backend = "pulseaudio" if shutil.which("parec") else "synth"
+        if args.verbose:
+            print(f"Using audio backend: '{backend}'")
+
+    pipe_binds = list(args.pipe)
+    if args.stdin:
+        if args.stdin not in VALID_TYPES:
+            print(f"invalid --stdin type '{args.stdin}'", file=sys.stderr)
+            return 2
+        pipe_binds.append(PipeBind("STDIN", args.stdin))
+
     opts = EngineOptions(
         entry=args.entry,
         user_dir=args.config_dir or default_user_dir(),
         requests=tuple(args.request),
         force_module=args.force_mod,
+        desktop=args.desktop,
         wm_name=os.environ.get("XDG_CURRENT_DESKTOP"),
-        audio_backend=args.audio,
+        audio_backend=backend,
         screen=screen,
+        pipe_binds=tuple(pipe_binds),
         test_mode=args.run_tests,
         verbose=args.verbose,
         device=args.device,
@@ -97,7 +136,7 @@ def main(argv: list[str] | None = None) -> int:
     sink = make_sink(args.sink, fps=args.fps)
 
     if args.offline:
-        if args.audio != "wav":
+        if backend != "wav":
             print("--offline requires `-a wav` with setsource", file=sys.stderr)
             return 2
         from glava_tpu_torch.config import loader
@@ -106,6 +145,7 @@ def main(argv: list[str] | None = None) -> int:
         lc = loader.load(
             entry=opts.entry, user_dir=opts.user_dir,
             cli_requests=opts.requests, force_module=opts.force_module,
+            desktop=opts.desktop, wm_name=opts.wm_name,
         )
         if not lc.cfg.audio_source or lc.cfg.audio_source == "auto":
             print("--offline needs `setsource \"/path.wav\"`", file=sys.stderr)
@@ -115,7 +155,8 @@ def main(argv: list[str] | None = None) -> int:
         sink.close()
         return 0 if n > 0 else 1
 
-    engine = Engine(opts, sink=sink)
+    engine = Engine(opts, sink=sink,
+                    pipe_stream=sys.stdin if pipe_binds else None)
 
     # SIGTERM/SIGINT -> terminate; SIGUSR1 -> reload (glava-cli/cli.c:7-15)
     signal.signal(signal.SIGTERM, lambda *_: engine.terminate())

@@ -71,11 +71,15 @@ def _raster(rend: Renderer, textures: dict, time, pipe: dict | None,
     one pass chain for a batched module, else one a stream."""
     if rend.module.batched:
         return rend.render_planes(textures, time, pipe)
+    if pipe:
+        raise NotImplementedError(
+            f"pipe values for module '{rend.module.name}' in a fleet are "
+            "not yet ported: bars, radial and wave take them (the "
+            "others need a stream axis, ROADMAP queue 1 item 3)")
     h, w = rend.screen[1], rend.screen[0]
     per = [
         rend.render_planes(
-            {k: t[s] for k, t in textures.items()}, float(time[s]),
-            {k: v[s] for k, v in pipe.items()} if pipe else None)
+            {k: t[s] for k, t in textures.items()}, float(time[s]), None)
         for s in range(n)
     ]
     return tuple(

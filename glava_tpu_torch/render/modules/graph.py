@@ -14,7 +14,9 @@ Re-expression of shaders/glava/graph/{1,2,3,4}.frag:
 
 Every column-only quantity is baked in numpy; per frame the passes are
 (W, 3) spectrum gathers and (H, W) masks. The COLOR knob depends only
-on the row (``pos``) and is evaluated once at build time.
+on the row (``pos``) and on the step's pipe values (``@fg``, read in
+the pass as the JAX module does), evaluated once for each set of
+values; OUTLINE is evaluated at build time, as in the JAX module.
 
 Knobs (shaders/glava/graph.glsl): VSCALE, DIRECTION, GRADIENT, COLOR,
 DRAW_OUTLINE, DRAW_HIGHLIGHT, ANTI_ALIAS, OUTLINE, JOIN_CHANNELS,
@@ -79,7 +81,9 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
 
     d_rows = (float(h) - yrow) if invert > 0 else yrow
     d_col = t(d_rows.astype(np.float32))[:, None]
-    color = base.color_tensors(ctx.color_fn("COLOR")(pos=d_col), dev)
+    color_fn = ctx.color_fn("COLOR")
+    color_now = ctx.pipe_cached(
+        lambda: base.color_tensors(color_fn(pos=d_col), dev))
 
     def line_heights(textures) -> torch.Tensor:
         """Per-column s (graph/1.frag:87-104), shape (W,)."""
@@ -98,6 +102,7 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
     def pass1(inputs: base.PassInputs) -> base.Planes:
         s = line_heights(inputs.textures)
         mask = (d_col + 1.5) <= s[None, :]
+        color = color_now()
         return tuple(torch.where(mask, color[c], 0.0) for c in range(4))
 
     passes = [pass1]

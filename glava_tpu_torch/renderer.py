@@ -19,7 +19,7 @@ from glava_tpu_torch.config.loader import LoadedConfig, builtin_variables
 from glava_tpu_torch.device import resolve
 from glava_tpu_torch.pipeline import AudioPipeline, FusedChainState, UniformSpec
 from glava_tpu_torch.render.base import (
-    ModuleContext, PassInputs, interleave, interleave_u8, mul,
+    ModuleContext, PassInputs, _host_f32, interleave, interleave_u8, mul,
 )
 from glava_tpu_torch.render.modules import build_module, module_uniforms
 
@@ -41,11 +41,6 @@ class Renderer:
         cfg = self.cfg = self.loaded.cfg
         if self.screen is None:
             self.screen = (cfg.geometry[2], cfg.geometry[3])
-        if cfg.copy_desktop and cfg.background_image \
-                and not cfg.premultiply_alpha:
-            raise NotImplementedError(
-                "the setbgimg wallpaper composite is not yet ported "
-                "(ROADMAP slice 5)")
         # user shader modules registered by this load shadow built-ins
         overrides = self.loaded.module_overrides
         self.uniforms = [UniformSpec(*u) for u in
@@ -62,8 +57,41 @@ class Renderer:
             channels=1 if cfg.mirror_input else 2,
         )
         self.module = build_module(self.loaded.module, mctx, overrides)
-        # xroot/none opacity composites over the `setbg` clear color
+        # xroot/none opacity composites over the `setbg` clear color, or
+        # over a `setbgimg` wallpaper sampled at the window geometry (the
+        # reference's root-pixmap copy, xwin.c:345-472): (H, W) planes on
+        # the device. The engine polls the file and feeds changed planes
+        # through the reserved ``__bg__`` pipe key (render.c:1832-1837).
         self._bg_planes = tuple(np.float32(c) for c in cfg.clear_color)
+        self.bg_path: str | None = None
+        if cfg.copy_desktop and cfg.background_image \
+                and not cfg.premultiply_alpha:
+            self.bg_path = cfg.background_image
+            self._bg_planes = tuple(
+                torch.as_tensor(p, device=self.device)
+                for p in self.load_bg_planes())
+
+    def load_bg_planes(self) -> tuple[np.ndarray, ...]:
+        """Read the ``setbgimg`` wallpaper and build the 4 (H, W)
+        bottom-up background channel planes sampled at the window
+        geometry (the root-pixmap copy, xwin.c:345-472)."""
+        from glava_tpu_torch.runtime.sinks import read_png
+
+        cfg = self.cfg
+        img = read_png(cfg.background_image).astype(np.float32) / 255.0
+        gx, gy = cfg.geometry[0], cfg.geometry[1]
+        w, h = self.screen
+        canvas = np.broadcast_to(
+            np.asarray(cfg.clear_color, np.float32), (h, w, 4)
+        ).copy()
+        ih, iw = img.shape[:2]
+        y0, y1 = max(gy, 0), min(gy + h, ih)
+        x0, x1 = max(gx, 0), min(gx + w, iw)
+        if y1 > y0 and x1 > x0:
+            canvas[y0 - gy:y1 - gy, x0 - gx:x1 - gx] = img[y0:y1, x0:x1]
+        canvas[..., 3] = 1.0  # the root pixmap is opaque
+        canvas = canvas[::-1]  # bottom-up
+        return tuple(canvas[..., c].copy() for c in range(4))
 
     # -- state -------------------------------------------------------------
 
@@ -88,8 +116,29 @@ class Renderer:
         #                           accel path (render.c:2161-2173)
         gravity_g=None,         # gravity_step / measured UPS
         pipe: dict | None = None,   # live pipe uniform values (name ->
-        #                            value), read by `@name:default` knobs
+        #                            value), read by `@name:default` knobs;
+        #                            the reserved ``__bg__`` key holds the
+        #                            live (4, H, W) wallpaper planes
     ) -> tuple[RenderState, tuple]:
+        bg = None
+        if pipe and "__bg__" in pipe:
+            pipe = dict(pipe)
+            bg = pipe.pop("__bg__")
+            bg = tuple(bg[i] for i in range(4))
+        if pipe and not self.module.batched:
+            # a module without a stream axis reads the step's values as
+            # the JAX step does: through the load's env, in the knobs it
+            # evaluates inside the pass (graph's COLOR, a shader
+            # module's `@name` knobs); build-time knobs (circle's and
+            # graph's OUTLINE) keep the load's values. vecN values are
+            # component tuples of float32 host scalars.
+            vals = {}
+            for k, v in pipe.items():
+                a = _host_f32(v)
+                vals[k] = tuple(a[i] for i in range(a.shape[0])) if a.ndim \
+                    else a[()]
+            self.module_env.pipe_values.clear()
+            self.module_env.pipe_values.update(vals)
         # Keyframe push on update (render.c:2348-2353): start <- end,
         # end <- new buffers.
         if modified:
@@ -113,24 +162,19 @@ class Renderer:
             rows = None if not pipe else {
                 k: np.asarray(v, np.float32)[None] for k, v in pipe.items()}
             planes = self.render_planes(
-                {k: t[None] for k, t in textures.items()}, time, rows)
+                {k: t[None] for k, t in textures.items()}, time, rows, bg)
             planes = tuple(p[0] if np.ndim(p) == 3 else p for p in planes)
         else:
-            planes = self.render_planes(textures, time, pipe)
+            planes = self.render_planes(textures, time, None, bg)
         return RenderState(chains, key_start, key_end), planes
 
-    def render_planes(self, textures: dict, time, pipe: dict | None) -> tuple:
-        """The module's pass chain and the background composite, for the
-        module's own input layout (a stream axis when it is batched:
-        ``pipe`` is then name -> (S, ...) rows)."""
-        if pipe and "__bg__" in pipe:
-            raise NotImplementedError(
-                "the live wallpaper (`__bg__` pipe key) is not yet ported "
-                "(ROADMAP slice 5)")
-        if pipe and not self.module.batched:
-            raise NotImplementedError(
-                f"pipe values for module '{self.module.name}' are not yet "
-                "ported: bars, radial and wave take them (ROADMAP slice 5)")
+    def render_planes(self, textures: dict, time, pipe: dict | None,
+                      bg: tuple | None = None) -> tuple:
+        """The module's pass chain and the background composite (over
+        ``bg`` planes when given, else the load's), for the module's own
+        input layout (a stream axis when it is batched: ``pipe`` is then
+        name -> (S, ...) rows; an unbatched module reads the values the
+        step loaded into its env)."""
         planes = self.module.render(
             PassInputs(prev=None, textures=textures, time=time, pipe=pipe))
         if not self.cfg.premultiply_alpha:
@@ -140,7 +184,7 @@ class Renderer:
             a = planes[3]
             planes = tuple(
                 mul(c, a) + mul(b, 1.0 - a)
-                for c, b in zip(planes, self._bg_planes)
+                for c, b in zip(planes, bg or self._bg_planes)
             )
         return planes
 
@@ -156,6 +200,18 @@ class Renderer:
         st, planes = self.step_planes(*args, **kwargs)
         return st, interleave_u8(planes, self.screen[1], self.screen[0],
                                  self.device)
+
+    def step_yuv420(self, *args, **kwargs) -> tuple[RenderState, torch.Tensor]:
+        """:meth:`step_planes` + the frame packed to YUV420 on the device
+        (the JAX ``jit_step(yuv420=True)``): ONE contiguous uint8 buffer,
+        the (H, W) Y plane then the (H/2, W/2) U and V planes, top-down,
+        1.5 B/px on the device-to-host wire instead of RGBA8's 4. Needs
+        even dimensions."""
+        w, h = self.screen
+        if h % 2 or w % 2:
+            raise ValueError("yuv420 packing needs even dimensions")
+        st, planes = self.step_planes(*args, **kwargs)
+        return st, yuv420_buffer(planes, h, w, self.device)
 
     # -- golden-frame evaluation (render.c:2419-2453) -----------------------
 
@@ -173,9 +229,58 @@ class Renderer:
         return bool(np.all(np.abs(got - want) <= 0.5 / 255.0 + 1e-9))
 
 
+def _yuv_from_rgb(rgb: torch.Tensor, h: int, w: int):
+    """BT.601 full-range (Y, U, V) uint8 planes of (3, H, W) 0-255
+    float32 top-down r, g, b planes, 2x2-mean chroma, each stage
+    round-half-to-even (``torch.round``, as ``jnp.round``). U and V
+    share their reduction and rounding launches (the per-element math is
+    the JAX package's)."""
+    r, g, b = rgb
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    u = -0.168736 * r - 0.331264 * g + 0.5 * b + 128.0
+    v = 0.5 * r - 0.418688 * g - 0.081312 * b + 128.0
+    uv = torch.stack([u, v]).reshape(2, h // 2, 2, w // 2, 2).mean(dim=(2, 4))
+
+    def to8(p):
+        return torch.clamp(torch.round(p), 0.0, 255.0).to(torch.uint8)
+
+    uv = to8(uv)
+    return to8(y), uv[0], uv[1]
+
+
+def yuv420_pack_planes(planes, h: int, w: int, device="cpu"):
+    """Planar form of :func:`yuv420_pack` (the same per-element math):
+    consumes the channel planes directly, so the interleaved RGBA frame
+    never materializes on the yuv420 wire. Planes may be tensors, numpy
+    arrays or scalars broadcastable to (H, W), GL bottom-up."""
+    rgb = torch.stack([
+        torch.as_tensor(p, dtype=torch.float32, device=device).expand(h, w)
+        for p in planes[:3]])
+    rgb = torch.clamp(torch.round(rgb * 255.0), 0.0, 255.0).flip(1)
+    return _yuv_from_rgb(rgb, h, w)
+
+
+def yuv420_buffer(planes, h: int, w: int, device="cpu") -> torch.Tensor:
+    """:func:`yuv420_pack_planes` as ONE contiguous uint8 buffer, Y then
+    U then V: the frame on the yuv420 wire, fetched in one copy."""
+    return torch.cat([p.reshape(-1)
+                      for p in yuv420_pack_planes(planes, h, w, device)])
+
+
+def yuv420_pack(frame: torch.Tensor):
+    """f32 RGBA [0,1] (h, w, 4), GL bottom-up -> (Y, U, V) uint8
+    planes, top-down, BT.601 full-range, 2x2-mean chroma (C420jpeg
+    siting), on the frame's device."""
+    img = torch.clamp(torch.round(frame * 255.0), 0.0, 255.0).flip(0)
+    h, w = img.shape[:2]
+    return _yuv_from_rgb(img[..., :3].permute(2, 0, 1), h, w)
+
+
 def yuv420_pack_host(frame_u8: np.ndarray):
     """RGBA8 (h, w, 4), GL bottom-up -> (Y, U, V) uint8 planes, top-down,
-    BT.601 full-range, 2x2-mean chroma (C420jpeg siting), in numpy."""
+    BT.601 full-range, 2x2-mean chroma (C420jpeg siting), in numpy: the
+    mirror of :func:`yuv420_pack` for sinks fed RGBA8 frames (within 1
+    LSB of the device path, from float32 operation order)."""
     img = frame_u8[::-1].astype(np.float32)
     r, g, b = img[..., 0], img[..., 1], img[..., 2]
     y = 0.299 * r + 0.587 * g + 0.114 * b

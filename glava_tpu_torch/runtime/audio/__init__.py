@@ -56,10 +56,38 @@ class AudioData:
         return buf, mod
 
 
+class NativeAudioData(AudioData):
+    """AudioData backed by the C++ seqlock ring (``glava_tpu_torch.native``).
+
+    Same interface; push/snapshot never contend on a Python lock and the
+    snapshot copy runs in native code.
+    """
+
+    def __init__(self, bufsize: int, sample_sz: int, rate: int,
+                 channels: int, source: str | None = None):
+        from glava_tpu_torch.native import NativeRing
+
+        super().__init__(
+            buffer=np.zeros((2, bufsize), np.float32),
+            sample_sz=sample_sz, rate=rate, channels=channels, source=source,
+        )
+        self.ring = NativeRing(bufsize)
+
+    def push(self, left: np.ndarray, right: np.ndarray) -> None:
+        self.ring.push(left, right, mono=self.channels == 1)
+
+    def snapshot(self) -> tuple[np.ndarray, bool]:
+        return self.ring.snapshot()
+
+
 def make_audio_data(bufsize: int, sample_sz: int, rate: int, channels: int,
-                    source: str | None = None):
-    """AudioData factory: the Python ring (the native seqlock ring is
-    ROADMAP slice 5)."""
+                    source: str | None = None, prefer_native: bool = True):
+    """AudioData factory: native ring when buildable, Python otherwise."""
+    if prefer_native:
+        from glava_tpu_torch import native
+
+        if native.available():
+            return NativeAudioData(bufsize, sample_sz, rate, channels, source)
     return AudioData(
         buffer=np.zeros((2, bufsize), np.float32),
         sample_sz=sample_sz, rate=rate, channels=channels, source=source,
@@ -122,4 +150,4 @@ def available() -> list[str]:
     return sorted(_BACKENDS)
 
 
-from glava_tpu_torch.runtime.audio import synth, wav  # noqa: E402,F401
+from glava_tpu_torch.runtime.audio import fifo, pulse, synth, wav  # noqa: E402,F401

@@ -5,7 +5,8 @@ batch onto one device step per frame (one fused spectrum update and
 one raster launch for the whole fleet), and each stream's frames flow
 to its own sink. Per frame the engine makes one host-to-device copy of
 the (S, 2, bufsize) ring snapshots, one step, and one device-to-host
-copy of the (S, H, W, 4) uint8 frames, which it hands to the sinks.
+copy of the (S, H, W, 4) uint8 frames into pinned memory
+(:meth:`FleetEngine.fetch`), which it hands to the sinks.
 
 Streams whose ``StreamSpec.loaded`` differs from the engine's run other
 modules in the same step (:class:`MixedBatchedRenderer`). Per-stream
@@ -216,8 +217,21 @@ class FleetEngine:
             for s in self.sinks:
                 s.close()
 
+    def fetch(self, frames: torch.Tensor) -> np.ndarray:
+        """The (S, H, W, 4) uint8 frames on the host in one transfer: on
+        CUDA into a fresh pinned tensor (``non_blocking``, then one
+        synchronize), so the copy runs at the link's rate instead of a
+        pageable copy's; no frame stays in flight, as in the JAX fleet.
+        A failed pinned allocation or copy raises."""
+        if frames.device.type != "cuda":
+            return frames.numpy()
+        host = torch.empty(frames.shape, dtype=frames.dtype, pin_memory=True)
+        host.copy_(frames, non_blocking=True)
+        torch.cuda.current_stream(frames.device).synchronize()
+        return host.numpy()
+
     def _distribute(self, frames: torch.Tensor, tnow: float) -> None:
-        host = frames.cpu().numpy()  # (S, H, W, 4) uint8, one transfer
+        host = self.fetch(frames)
         for i, sink in enumerate(self.sinks):
             sink.submit(host[i], tnow)
 

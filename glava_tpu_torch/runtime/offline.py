@@ -4,8 +4,9 @@ With compute decoupled from presentation, a recorded track renders as
 fast as the device allows: the exact realtime schedule — hop-cadence
 ring updates (fifo.c:91-92) and nominal-UPS gravity decay
 (render.c:728) — is precomputed on the host, then frames run one by one
-through :meth:`Renderer.step_u8`. Offline output is deterministic for a
-given track and config.
+through :meth:`Renderer.step_u8`, each copied to the host while the
+next one renders (``FrameFetch``). Offline output is deterministic for
+a given track and config.
 
     glava-tpu-torch --offline -a wav -r 'setsource "track.wav"' \
                     --sink y4m:out.y4m
@@ -22,6 +23,7 @@ from glava_tpu_torch.config.loader import LoadedConfig
 from glava_tpu_torch.pipeline import frame_windows
 from glava_tpu_torch.renderer import Renderer
 from glava_tpu_torch.runtime.audio.wav import read_wav
+from glava_tpu_torch.runtime.engine import FrameFetch
 from glava_tpu_torch.runtime.sinks import FrameSink
 
 
@@ -74,6 +76,8 @@ def render_wav(loaded: LoadedConfig, wav_path: str, sink: FrameSink,
 
     r = Renderer(loaded, screen=screen, device=device)
     state = r.init_state()
+    # one frame in flight: its pinned copy overlaps the next step
+    fetch = FrameFetch(r.device, 1)
     written = 0
     t0 = _time.monotonic()
     for k in range(sched["n_frames"]):
@@ -81,8 +85,11 @@ def render_wav(loaded: LoadedConfig, wav_path: str, sink: FrameSink,
         audio = torch.from_numpy(np.stack([wl[i], wr[i]]))
         state, frame = r.step_u8(state, audio, bool(sched["modified"][k]),
                                  float(sched["time"][k]), 1.0, g)
-        sink.submit(frame.cpu().numpy(), float(sched["time"][k]))
+        for host, t in fetch.push(frame, float(sched["time"][k])):
+            sink.submit(host, t)
         written += 1
+    for host, t in fetch.drain():
+        sink.submit(host, t)
     if verbose:
         dt = _time.monotonic() - t0
         print(f"offline: {written} frames in {dt:.2f}s "

@@ -162,6 +162,14 @@ class Y4MSink(FrameSink):
             return
         self._header(w, h, "C444")
         self.fh.write(b"FRAME\n")
+        # native conversion when available (glava_tpu/native/ring.cpp)
+        from glava_tpu_torch import native
+
+        planes = native.rgba_to_yuv444(frame)
+        if planes is not None:
+            for plane in planes:
+                self.fh.write(plane.tobytes())
+            return
         img = frame[::-1]  # top-down
         r = img[..., 0].astype(np.float32)
         g = img[..., 1].astype(np.float32)
@@ -235,8 +243,14 @@ def read_png(path: str | Path) -> np.ndarray:
     stride = w * nchan
     if len(raw) < h * (stride + 1):
         raise ValueError(f"{path}: truncated PNG data")
-    # scanline unfiltering in Python (the JAX package's native C++
-    # unfilter is ROADMAP slice 5)
+    # scanline unfiltering: native C++ when buildable (the per-byte
+    # Sub/Average/Paeth recurrences are pathological in Python at
+    # wallpaper sizes), Python fallback otherwise
+    from glava_tpu_torch import native
+
+    out = native.png_unfilter(raw, h, stride, nchan)
+    if out is not None:
+        return _expand_rgba(out.reshape(h, w, nchan), nchan)
     out = np.empty((h, stride), np.uint8)
     prev = np.zeros((stride,), np.uint8)
     pos = 0

@@ -194,14 +194,20 @@ def test_single_stream_pipe_colours_match_jax(tmp_path):
 def test_pipe_values_of_unbatched_modules_are_refused(tmp_path):
     lc, _ = _loads("circle", tmp_path)
     br = BatchedRenderer(lc, n_streams=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(NotImplementedError, match="stream axis"):
         br.step(br.init_state(), np.zeros((2, 2, 1024), np.float32),
                 np.ones(2, bool), np.zeros(2), np.ones(2), np.full(2, 0.05),
                 {"fg": np.ones((2, 4), np.float32)})
-    r = Renderer(_loads("bars", tmp_path)[0], device="cpu")
-    with pytest.raises(NotImplementedError, match="wallpaper"):
-        r.step_u8(r.init_state(), np.zeros((2, 1024), np.float32), True, 0.0,
-                  1.0, 0.05, {"__bg__": np.zeros((4, 64, 96), np.float32)})
+    # one stream takes the live wallpaper (the reserved `__bg__` key):
+    # under xroot opacity the planes reach the composite
+    r = Renderer(_loads("bars", tmp_path, ('setopacity "xroot"',))[0],
+                 device="cpu")
+    bg = np.broadcast_to(np.float32([0.2, 0.4, 0.6, 1.0])[:, None, None],
+                         (4, 64, 96)).copy()
+    _, frame = r.step_u8(r.init_state(), np.zeros((2, 1024), np.float32),
+                         True, 0.0, 1.0, 0.05, {"__bg__": torch.as_tensor(bg)})
+    px, n = np.unique(frame.numpy().reshape(-1, 4), axis=0, return_counts=True)
+    assert tuple(px[n.argmax()]) == (51, 102, 153, 255)
 
 
 def test_unbatched_module_renders_per_stream(tmp_path):

@@ -80,6 +80,34 @@ def test_fleet_modules_import_without_jax(module):
     assert proc.stdout.startswith("ok")
 
 
+@pytest.mark.parametrize("module", [
+    "glava_tpu_torch.api", "glava_tpu_torch.native",
+    "glava_tpu_torch.runtime.engine", "glava_tpu_torch.runtime.stdin_pipe",
+    "glava_tpu_torch.runtime.audio.fifo", "glava_tpu_torch.runtime.audio.pulse",
+    "glava_tpu_torch.runtime.audio.pa_simple",
+])
+def test_host_runtime_modules_import_without_jax(module):
+    """The host runtime's modules alone, each in a fresh process with jax
+    blocked; the native ring loads from ``build/``, never from
+    ``glava_tpu/native/`` (whose own library may be absent)."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        f"import {module}\n"
+        "from glava_tpu_torch import native\n"
+        "if native.available():\n"
+        "    assert native._target().parent.parts[-2:] == "
+        "('build', 'glava_tpu_torch'), native._target()\n"
+        "bad = sorted(k for k in sys.modules if k == 'glava_tpu' "
+        "or k.startswith('glava_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
 def test_sources_name_neither_jax_nor_glava_tpu_modules():
     for p in PKG.rglob("*.py"):
         for line in p.read_text().splitlines():
@@ -108,10 +136,17 @@ def test_cli_runs_on_cpu():
 
 
 def test_cli_pipe_is_not_yet_ported():
-    from glava_tpu_torch import cli
-
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        cli.main(["--device", "cpu", "--pipe", "fg:vec4", "--frames", "1"])
+    """``--pipe`` is ported: the CLI binds the uniform and reads its
+    values from stdin (here, one line turning bars green)."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "glava_tpu_torch", "--device", "cpu", "-a",
+         "synth", "--pipe", "fg:vec4", "--frames", "3", "--sink", "null",
+         "-r", "setgeometry 0 0 64 48"],
+        cwd=ROOT, input="fg = #00ff00\n", capture_output=True, text=True,
+        timeout=120,
+        env={**os.environ, "PYTHONPATH": str(ROOT) + os.pathsep
+             + os.environ.get("PYTHONPATH", "")})
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_engine_counts_updates_on_cpu():
@@ -120,7 +155,7 @@ def test_engine_counts_updates_on_cpu():
     from glava_tpu_torch.runtime.sinks import LatestFrameSink
 
     sink = LatestFrameSink()
-    eng = Engine(EngineOptions(device="cpu", requests=(
+    eng = Engine(EngineOptions(device="cpu", audio_backend="synth", requests=(
         "setgeometry 0 0 64 48", "setprintframes false")), sink=sink)
     before = fused.launches
     eng.run(max_frames=12)

@@ -100,7 +100,8 @@ def test_engine_drives_every_module_on_cpu(module):
     from glava_tpu_torch.runtime.sinks import LatestFrameSink
 
     sink = LatestFrameSink()
-    eng = Engine(EngineOptions(device="cpu", force_module=module, requests=(
+    eng = Engine(EngineOptions(device="cpu", audio_backend="synth",
+                               force_module=module, requests=(
         "setgeometry 0 0 64 48", "setbufsize 1024", "setsamplesize 256",
         "setprintframes false")), sink=sink)
     before = (fused.launches, lookup.launches)
