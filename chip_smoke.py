@@ -7,9 +7,9 @@ code is non-zero and no result line is printed):
 
 1. device    — needs ``torch.cuda.is_available()``; prints the card's
                name and power limit (nvidia-smi).
-2. build     — builds the five CUDA kernels from ``csrc/``
+2. build     — builds the six CUDA kernels from ``csrc/``
                (fused_update, table_lookup, rowwise_lookup, latch_scan,
-               bars_raster), the nvcc runs side by side.
+               bars_raster, smooth_scan), the nvcc runs side by side.
 3. kernel    — each kernel vs its plain torch version on the card.
                fused_update at every n in {256, ..., 65536} (clusters of
                1 to 16 CTAs), B in {1, 2, 128}, F in {1, 6, 16}, and F 24
@@ -40,7 +40,12 @@ code is non-zero and no result line is printed):
                at S = 64 streams 800x600 and 1920x1080 and at S = 1
                through a MIRROR_YX view (rows 1920, columns 1080, read
                transposed), both outline branches, per-stream and shared
-               colour tables.
+               colour tables. smooth_scan at sz 4096 and 65536 (the
+               prefix tables in device memory), ratio 4 and 1, distance
+               0.01 and 0.5, on rows with about 20% exact zeros and an
+               empty first window: one launch a call, the zero
+               positions (NaN -> 0 and the input's zeros) identical and
+               the values within 1e-5 of the plain version.
 4. main path — ``Engine`` with the synth backend and a null sink, the
                kernel counts set to 0 just before each run and read
                just after: bars (the shipped rc.glsl) at 800x600 and
@@ -48,8 +53,14 @@ code is non-zero and no result line is printed):
                (bufsize 4096), wave and graph at 800x600, and three user
                GLSL shader modules written into a temporary config dir
                (``SHADER_MODULES``: docs/examples/rings, a first-hit
-               anti-alias walk and a fetch at run-time rows) at 800x600
-               and 1920x1080. fused_update launches must equal the
+               anti-alias walk, a fetch at run-time rows and a `window,
+               smooth` uniform, one smooth_scan a frame) at 800x600
+               and 1920x1080. The CPU path (``CPU_PATH_RUNS``: bars with
+               ``setaccelfft false``, ``setinterpolate`` on and off)
+               through ``Engine``: the chain route, no fused_update
+               launch; its cuda frame after 24 frames (audio every
+               other frame, interp_mod 0.5 between) against the cpu
+               frame under the golden rule. fused_update launches must equal the
                audio updates of fft modules; table_lookup launches and
                rowwise_lookup and latch_scan launches by channel count
                C the frames times each module's launches a frame
@@ -59,8 +70,18 @@ code is non-zero and no result line is printed):
                800x600 and 1920x1080: one fused_update launch a frame over
                B = 128 rows and one bars_raster launch a frame; a mixed
                fleet (bars, radial, wave; S = 6) adds one table_lookup a
-               frame for its radial group. An S = 4 fleet's cuda frames
-               must meet its cpu frames under the golden rule. Every
+               frame for its radial group; 64 circle streams at 800x600
+               and 1920x1080 one table_lookup a frame for every stream;
+               an S 64 fleet of the six native modules and rings, with
+               fg/bg rows, one lookup a frame each for its radial and
+               circle groups and one a rings stream. An S = 4 fleet's
+               cuda frames must meet its cpu frames under the golden
+               rule; the circle fleets and the all-module fleet, on
+               fixed tones with fg/bg rows, streams 0, 31, 63 and each
+               module's first must meet one-stream cpu renders
+               (``_fleet_parity``). ``log_mel`` of 30 s of 16 kHz audio
+               (3001 frames) on cuda within 2e-5 of the peak of the cpu
+               features. Every
                row-wise launch of the main path must take the staged
                route. ``Renderer`` at ``BUFSIZE_REQUESTS``: bars and
                circle (a 65536-entry table, read from the L2) at
@@ -112,13 +133,16 @@ code is non-zero and no result line is printed):
                kernel (``event_ms``), fused_update and latch_scan also
                from torch.profiler on one warm input set, the others
                from torch.profiler; fused_update also at n 32768 and
-               65536;
+               65536; smooth_scan (events) at the checked shapes and
+               its plain version at the main path's (1 row, sz 4096);
+               the CPU-path bars frame at both sizes; log_mel frames/s;
                CUDA-event frame times of
                bars, radial and circle and of the shader modules at
                800x600 and 1920x1080 (each frame brought to the host
                through ``FrameFetch``, pinned); fleet frame times at S in {1, 8,
-               64} at both sizes, split into the device step and the
-               frame copy, with the device busy share; a profiler
+               64} at both sizes and the 64-stream circle fleet, split
+               into the device step and the frame copy, with the device
+               busy share; a profiler
                breakdown of bars at 800x600, circle at 1920x1080, the
                anti-alias walk module at 1920x1080 and the 64-stream
                fleet at 800x600 (the fleet's frame copy through
@@ -140,6 +164,12 @@ times the fused update of other trees beside this checkout's instead
 (``fused_ab``): each DIR holds a tree's ``ops/fused.py`` and
 ``csrc/fused_update.cu``.
 
+    python3 chip_smoke.py --smooth-ab DIR [DIR ...]
+
+times the smooth transform of other trees beside this checkout's
+(``smooth_ab``): each DIR holds a tree's ``ops/smooth.py`` and
+``csrc/smooth_scan.cu``.
+
     python3 chip_smoke.py --ab PARENT
 
 times another tree unpacked at PARENT (for example the parent commit,
@@ -147,8 +177,10 @@ times another tree unpacked at PARENT (for example the parent commit,
 running its own tree's package and kernels (``frames_ab``): the
 row-wise lookup at C = 4 on the colfetch 1080p frame's own inputs and
 on a random plane, the colfetch 1080p, bars and fleet frames (S 1 and
-64 at 800x600, S 64 at 1920x1080, each tree's own frame copy), and the
-circle 1920x1080 Engine frame.
+64 at 800x600, S 64 at 1920x1080, each tree's own frame copy), the S 64
+circle fleet frames at both sizes (no pipe values: a tree before the
+circle's stream axis refuses them) and the circle 1920x1080 Engine
+frame.
 """
 
 from __future__ import annotations
@@ -167,12 +199,12 @@ import torch
 TOL = 2e-5           # spectra (the JAX suite's fused-vs-unfused tolerance)
 ROOT = Path(__file__).resolve().parent
 KERNELS = ("fused_update", "table_lookup", "rowwise_lookup", "latch_scan",
-           "bars_raster")
+           "bars_raster", "smooth_scan")
 # what the main path launches, a kernel for each C it takes: the kernels
 # JSON has one entry each; "rowwise_lookup C=1" (checked, timed) must
 # stay off the path
 PATH = ("fused_update", "table_lookup", "rowwise_lookup C=4",
-        "latch_scan C=0", "latch_scan C=4", "bars_raster")
+        "latch_scan C=0", "latch_scan C=4", "bars_raster", "smooth_scan")
 COUNTED = PATH + ("rowwise_lookup C=1",)
 MODULES = ("bars", "radial", "circle", "wave", "graph", "test")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
@@ -302,11 +334,34 @@ void main() {
 }
 """
 
+SMOOTH_FRAG = """
+/* A stateless audio uniform through the `smooth` transform: the feed
+ * audio, log-scale averaged bin by bin, drawn as a column height. */
+in vec4 gl_FragCoord;
+#request uniform "screen" screen
+uniform ivec2 screen;
+#request uniform "audio_l" audio_l
+#request transform audio_l "window"
+#request transform audio_l "smooth"
+uniform sampler1D audio_l;
+out vec4 fragment;
+
+void main() {
+    float v = texture(audio_l, gl_FragCoord.x / screen.x).r * screen.y;
+    if (gl_FragCoord.y < v) {
+        fragment = vec4(0.2, 0.6, 0.9, 1.0);
+        return;
+    }
+    fragment = vec4(0, 0, 0, 0);
+}
+"""
+
 RINGS = ROOT / "docs" / "examples" / "rings"
 SHADER_MODULES = {
     "rings": lambda: tuple((RINGS / f"{i}.frag").read_text() for i in (1, 2)),
     "aawalk": lambda: (BASE_FRAG, AA_WALK_FRAG),
     "colfetch": lambda: (BASE_FRAG, COL_FETCH_FRAG),
+    "smoothy": lambda: (SMOOTH_FRAG,),
 }
 
 # kernel launches a frame (fused_update: one an audio update instead).
@@ -317,7 +372,8 @@ SHADER_MODULES = {
 # latch scans (C = 4). colfetch: two table fetches (smooth_audio and
 # texture); one walk, one key scan; the fetch at the walk result in
 # the next column and the fetch at the audio-driven row, one row-wise
-# lookup with C = 4 each.
+# lookup with C = 4 each. smoothy: the smooth transform of its stateless
+# uniform (every frame: it reads the feed) and one texture fetch.
 LAUNCHES = {
     "bars": {"bars_raster": 1}, "wave": {}, "graph": {}, "test": {},
     "radial": {"table_lookup": 1}, "circle": {"table_lookup": 1},
@@ -325,7 +381,13 @@ LAUNCHES = {
     "aawalk": {"table_lookup": 1, "latch_scan C=0": 2, "latch_scan C=4": 2},
     "colfetch": {"table_lookup": 2, "rowwise_lookup C=4": 2,
                  "latch_scan C=0": 1},
+    "smoothy": {"table_lookup": 1, "smooth_scan": 1},
 }
+
+
+# the modules with no fft uniform: wave reads the feed, smoothy's one
+# uniform is stateless (`window, smooth`); no fused launch on their path
+NO_FFT = ("wave", "smoothy")
 
 
 def write_shader_modules(root: Path) -> Path:
@@ -709,6 +771,55 @@ def phase_raster() -> float:
     return 0.0
 
 
+# (sz, ratio, distance) of the smooth transform's checks: the shipped
+# bufsize and the largest, the default ratio and the whole row, the
+# default distance and a wide one
+SMOOTH_CASES = tuple((sz, ratio, d) for sz in (4096, 65536)
+                     for ratio in (4.0, 1.0) for d in (0.01, 0.5))
+SMOOTH_TOL = 1e-5    # the JAX suite's oracle tolerance (tests/test_ops.py)
+
+
+def smooth_rows(sz: int, rows: int, seed: int) -> np.ndarray:
+    """Rows in [-1, 1] with about 20% exact zeros; row 0 opens on 64
+    zeros (empty windows: NaNs that propagate, then 0)."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1.0, 1.0, (rows, sz)).astype(np.float32)
+    x[rng.uniform(size=x.shape) < 0.2] = 0.0
+    x[0, :64] = 0.0
+    return x
+
+
+def phase_smooth() -> float:
+    """smooth_scan vs its plain version on the card, one launch a call:
+    the zero positions (NaN -> 0 and the input's zeros) identical, the
+    values within SMOOTH_TOL."""
+    from glava_tpu_torch.ops import smooth
+
+    worst = 0.0
+    lines = []
+    for sz, ratio, d in SMOOTH_CASES:
+        x = torch.as_tensor(smooth_rows(sz, 2, sz + int(ratio)), device="cuda")
+        n0 = smooth.launches
+        got = smooth.smooth_transform(x, ratio, d)
+        torch.cuda.synchronize()
+        want = smooth.smooth_transform_plain(x, ratio, d)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if smooth.launches != n0 + 1 or not torch.equal(got == 0, want == 0) \
+                or not err <= SMOOTH_TOL:
+            raise AssertionError(f"smooth_scan sz {sz} ratio {ratio} d {d}: "
+                                 f"{smooth.launches - n0} launches, zeros equal "
+                                 f"{torch.equal(got == 0, want == 0)}, max abs "
+                                 f"err {err} (tolerance {SMOOTH_TOL})")
+        worst = max(worst, err)
+        lines.append(f"sz {sz} r {ratio:g} d {d:g}: {err:.2e}, "
+                     f"{int((want[:, :-(-sz // int(ratio))] == 0).sum())} zeros")
+    print(f"[3 kernel] smooth_scan vs plain, 2 rows, one launch a call, zero "
+          f"positions equal; max abs err: {'; '.join(lines)} (tolerance "
+          f"{SMOOTH_TOL}; prefix tables of rows of 65536 in device memory)")
+    return worst
+
+
 def _fixed_frame(device: str, screen=None, reqs=(), module="bars",
                  user_dir=None, with_renderer: bool = False):
     """The final uint8 frame of 24 updates of fixed stereo tones
@@ -729,6 +840,24 @@ def _fixed_frame(device: str, screen=None, reqs=(), module="bars",
     return (frame.cpu().numpy(), r) if with_renderer else frame.cpu().numpy()
 
 
+def _cpu_path_frame(device: str, reqs, with_renderer: bool = False):
+    """The final uint8 frame of 24 frames of the shipped rc.glsl on the
+    CPU path (``reqs``), fixed stereo tones arriving every other frame
+    and an interpolation phase of 0.5 between."""
+    from glava_tpu_torch.config import loader
+    from glava_tpu_torch.renderer import Renderer
+
+    r = Renderer(loader.load(cli_requests=reqs), device=device)
+    cfg = r.cfg
+    state = r.init_state()
+    g = float(np.float32(cfg.gravity_step / cfg.nominal_ups))
+    for k in range(24):
+        state, frame = r.step_u8(state, tone_snapshot(cfg, k // 2), k % 2 == 0,
+                                 0.25, 0.5 if k % 2 else 1.0, g)
+    frame = frame.cpu().numpy()
+    return (frame, r) if with_renderer else frame
+
+
 def tone_snapshot(cfg, k: int) -> np.ndarray:
     """The (2, bufsize) ring after k + 1 hops of fixed stereo tones (440
     and 3000 Hz at 0.4), tests/test_golden.py's input."""
@@ -742,10 +871,10 @@ def tone_snapshot(cfg, k: int) -> np.ndarray:
 
 
 def _counts() -> dict:
-    from glava_tpu_torch.ops import fused, latch, lookup, raster
+    from glava_tpu_torch.ops import fused, latch, lookup, raster, smooth
 
     counts = {"fused_update": fused.launches, "table_lookup": lookup.launches,
-              "bars_raster": raster.launches}
+              "bars_raster": raster.launches, "smooth_scan": smooth.launches}
     counts.update({f"rowwise_lookup C={C}": n
                    for C, n in lookup.rowwise_launches.items()})
     counts.update({f"latch_scan C={C}": n for C, n in latch.launches.items()})
@@ -753,24 +882,27 @@ def _counts() -> dict:
 
 
 def _zero_counts() -> None:
-    from glava_tpu_torch.ops import fused, latch, lookup, raster
+    from glava_tpu_torch.ops import fused, latch, lookup, raster, smooth
 
-    fused.launches = lookup.launches = raster.launches = 0
+    fused.launches = lookup.launches = raster.launches = smooth.launches = 0
     lookup.rowwise_launches = dict.fromkeys(lookup.rowwise_launches, 0)
     lookup.rowwise_routes = dict.fromkeys(lookup.rowwise_routes, 0)
     latch.launches = dict.fromkeys(latch.launches, 0)
 
 
-def _engine_run(frames: int, screen=None, module=None, user_dir=None):
+def _engine_run(frames: int, screen=None, module=None, user_dir=None,
+                requests=()):
     """One main-path run: the counts are set to 0 just before the run
-    and read just after it."""
+    and read just after it. fused_update launches once an audio update
+    of a module with an fft uniform, never on the CPU path (its route
+    the chain) nor for a module without one (``NO_FFT``)."""
     from glava_tpu_torch.ops import lookup
     from glava_tpu_torch.runtime.engine import Engine, EngineOptions
     from glava_tpu_torch.runtime.sinks import NullSink
 
     eng = Engine(EngineOptions(audio_backend="synth", screen=screen,
                                force_module=module, user_dir=user_dir,
-                               device="cuda"),
+                               requests=tuple(requests), device="cuda"),
                  sink=NullSink())
     _zero_counts()
     t0 = time.perf_counter()
@@ -784,7 +916,15 @@ def _engine_run(frames: int, screen=None, module=None, user_dir=None):
     if eng.frames_rendered != frames:
         raise AssertionError(f"{name}: engine rendered {eng.frames_rendered} "
                              f"of {frames}")
-    fft = name != "wave"
+    # the expectation comes from the run's configuration, not from the
+    # route the pipeline chose: the CPU path takes the chain, a module
+    # with an fft uniform the fused kernel, and one without none
+    cpu_path = "setaccelfft false" in requests
+    fft = not cpu_path and name not in NO_FFT
+    route = eng.renderer.pipeline.route
+    if (cpu_path and route != "chain") or (fft and route != "kernel"):
+        raise AssertionError(f"{name} {w}x{h}: update route {route}, expected "
+                             f"{'chain' if cpu_path else 'kernel'}")
     want = {k: frames * LAUNCHES[name].get(k, 0) for k in COUNTED}
     want["fused_update"] = eng.updates if fft else 0
     # every row-wise fetch of the smoke's planes (T = h <= 1080) stages
@@ -793,41 +933,70 @@ def _engine_run(frames: int, screen=None, module=None, user_dir=None):
             "staged": staged, "direct": 0}:
         raise AssertionError(f"{name} {w}x{h}: launches {counts}, routes "
                              f"{routes}, expected {want} ({eng.updates} updates)")
-    print(f"[4 main path] {name} {w}x{h}: {frames} frames, {eng.updates} "
+    extra = f" ({', '.join(requests)})" if requests else ""
+    print(f"[4 main path] {name} {w}x{h}{extra}: {frames} frames, {eng.updates} "
           f"updates, update route {eng.renderer.pipeline.route}, launches "
           f"{counts}{f', row-wise routes {routes}' if staged else ''}, "
           f"{frames / dt:.1f} fps host clock")
     return counts
 
 
-def _fleet_streams(n: int, loadeds=(None,)) -> list:
+def _fleet_streams(n: int, loadeds=(None,), pipe: bool = True) -> list:
     """``n`` fleet streams: synth tones (stream i at 110 (i + 1) Hz and
-    1.5x that), its own ``fg`` colour, a null sink; stream i runs
-    ``loadeds[i % len(loadeds)]`` (None: the engine's own)."""
+    1.5x that), its own ``fg`` and ``bg`` colours (none when not
+    ``pipe``), a null sink; stream i runs ``loadeds[i % len(loadeds)]``
+    (None: the engine's own)."""
     from glava_tpu_torch.runtime.fleet import StreamSpec
     from glava_tpu_torch.runtime.sinks import NullSink
 
     rng = np.random.default_rng(n)
     return [StreamSpec(f"s{i}", source=f"synth:{110 * (i + 1)},{165 * (i + 1)}",
                        sink=NullSink(),
-                       pipe={"fg": (*rng.uniform(0.3, 1.0, 3), 1.0)},
+                       pipe={"fg": (*rng.uniform(0.3, 1.0, 3), 1.0),
+                             "bg": (*rng.uniform(0.0, 0.5, 3), 1.0)}
+                       if pipe else {},
                        loaded=loadeds[i % len(loadeds)])
             for i in range(n)]
 
 
-def _fleet_run(n: int, frames: int, screen=None, mixed: bool = False) -> dict:
-    """One fleet main-path run through ``FleetEngine.run``: the counts
-    are set to 0 just before and read just after. 64 bars streams: one
-    fused update over B = 2 n rows and one raster a frame; a mixed fleet
-    (bars, radial, wave) adds one table lookup a frame (its radial
-    group)."""
+# the modules of each kind of fleet run: stream i runs module i mod len
+FLEET_KINDS = {"bars": ("bars",), "circle": ("circle",),
+               "mixed": ("bars", "radial", "wave"),
+               "all": MODULES + ("rings",)}
+
+
+def _kind_loads(kind: str, user_dir=None, reqs=()) -> list:
     from glava_tpu_torch.config import loader
+
+    return [loader.load(cli_requests=reqs, force_module=m,
+                        user_dir=user_dir if m in SHADER_MODULES else None)
+            for m in FLEET_KINDS[kind]]
+
+
+def _fleet_want(kind: str, n: int, frames: int) -> dict:
+    """A fleet run's launches: one fused update a frame over every
+    stream; one raster a frame for a bars group; one table lookup a
+    frame for a radial group and one for a circle group (the (S, 2 sz)
+    tables against its static plane); a shader module's per stream."""
+    mods = FLEET_KINDS[kind]
+    per_stream = sum(1 for i in range(n) if mods[i % len(mods)] in SHADER_MODULES)
+    want = dict.fromkeys(COUNTED, 0)
+    want["fused_update"] = frames
+    want["bars_raster"] = frames * ("bars" in mods)
+    want["table_lookup"] = frames * (("radial" in mods) + ("circle" in mods)
+                                     + per_stream)
+    return want
+
+
+def _fleet_run(n: int, frames: int, screen=None, kind: str = "bars",
+               user_dir=None) -> dict:
+    """One fleet main-path run through ``FleetEngine.run``, per-stream
+    pipe values: the counts are set to 0 just before and read just
+    after, and must be ``_fleet_want``'s."""
     from glava_tpu_torch.runtime.fleet import FleetEngine
 
-    lc = loader.load()
-    loadeds = ((None, loader.load(force_module="radial"),
-                loader.load(force_module="wave")) if mixed else (None,))
-    eng = FleetEngine(lc, _fleet_streams(n, loadeds), screen=screen,
+    loads = _kind_loads(kind, user_dir)
+    eng = FleetEngine(loads[0], _fleet_streams(n, loads), screen=screen,
                       device="cuda")
     _zero_counts()
     t0 = time.perf_counter()
@@ -836,18 +1005,80 @@ def _fleet_run(n: int, frames: int, screen=None, mixed: bool = False) -> dict:
     dt = time.perf_counter() - t0
     counts = _counts()
     rows = eng.state.chains.count.shape[0]
-    want = dict.fromkeys(COUNTED, 0)
-    want["fused_update"] = want["bars_raster"] = frames
-    if mixed:
-        want["table_lookup"] = frames
+    want = _fleet_want(kind, n, frames)
     w, h = eng.br.screen
-    label = f"{'mixed' if mixed else 'bars'} fleet S {n} {w}x{h}"
+    label = f"{kind} fleet S {n} {w}x{h}"
     if eng.frames_rendered != frames or counts != want or rows != 2 * n:
         raise AssertionError(f"{label}: {eng.frames_rendered} frames, launches "
                              f"{counts}, expected {want}; B {rows}, expected {2 * n}")
-    print(f"[4 main path] {label}: {frames} frames, fused_update B {rows}, "
-          f"launches {counts}, {frames / dt:.1f} fps host clock")
+    print(f"[4 main path] {label} ({', '.join(FLEET_KINDS[kind])}): {frames} "
+          f"frames, fused_update B {rows}, launches {counts}, "
+          f"{frames / dt:.1f} fps host clock")
     return counts
+
+
+def _fleet_parity(kind: str, screen, user_dir, n: int = 64,
+                  steps: int = 12) -> str:
+    """A fleet of ``n`` streams on the card (stream i running module
+    i mod len, its own fg/bg row, fixed tones, staggered clocks) against
+    one-stream cpu renders of streams 0, 31, 63 and each module's first
+    stream, fed the same inputs: the golden rule each. Returns the
+    result line."""
+    from glava_tpu_torch.parallel import BatchedRenderer, MixedBatchedRenderer
+    from glava_tpu_torch.renderer import Renderer
+
+    mods = FLEET_KINDS[kind]
+    loads = _kind_loads(kind, user_dir)
+    assign = [i % len(mods) for i in range(n)]
+    br = (BatchedRenderer(loads[0], n, screen=screen, device="cuda")
+          if len(mods) == 1 else
+          MixedBatchedRenderer(loads, assign, screen=screen, device="cuda"))
+    cfg = loads[0].cfg
+    tt = np.arange(cfg.sample_rate) / cfg.sample_rate
+    tones = np.stack([np.stack([0.4 * np.sin(2 * np.pi * 110.0 * (s + 1) * tt),
+                                0.4 * np.sin(2 * np.pi * 165.0 * (s + 1) * tt)])
+                      for s in range(n)]).astype(np.float32)
+    rng = np.random.default_rng(5)
+    pipe = {"fg": rng.uniform(0.3, 1.0, (n, 4)).astype(np.float32),
+            "bg": rng.uniform(0.0, 0.5, (n, 4)).astype(np.float32)}
+    g = np.full(n, cfg.gravity_step / cfg.nominal_ups, np.float32)
+
+    def inputs(k):
+        end = (k + 1) * cfg.hop
+        snap = np.zeros((n, 2, cfg.bufsize), np.float32)
+        seg = tones[..., max(end - cfg.bufsize, 0):end]
+        snap[..., cfg.bufsize - seg.shape[-1]:] = seg
+        return snap, np.array([k % (1 + s % 3) == 0 for s in range(n)])
+
+    state = br.init_state()
+    for k in range(steps):
+        snap, mod = inputs(k)
+        state, frames = br.step(state, snap, mod, np.zeros(n), np.ones(n), g,
+                                pipe, quantize=True)
+    frames = frames.cpu().numpy()
+    check = sorted({s for s in (0, 31, 63) if s < n}
+                   | {assign.index(v) for v in range(len(mods))})
+    fracs = {}
+    for s in check:
+        r = Renderer(_kind_loads(kind, user_dir)[assign[s]], screen=screen,
+                     device="cpu")
+        st = r.init_state()
+        for k in range(steps):
+            snap, mod = inputs(k)
+            st, f = r.step_u8(st, snap[s], bool(mod[s]), 0.0, 1.0, float(g[s]),
+                              {name: v[s] for name, v in pipe.items()})
+        fracs[s] = golden_rule(frames[s], f.numpy())
+        if fracs[s] >= 0.002:
+            raise AssertionError(f"{kind} fleet S {n}: stream {s} "
+                                 f"({mods[assign[s]]}) {fracs[s]:.4%} of pixels "
+                                 "off its one-stream cpu render")
+    if not all((frames[s][..., 3] > 0).any() for s in check):
+        raise AssertionError(f"{kind} fleet S {n}: a checked stream drew nothing")
+    w, h = br.screen
+    return (f"{kind} fleet S {n} {w}x{h}, per-stream fg/bg rows, staggered "
+            f"clocks, cuda fleet vs one-stream cpu renders: " + ", ".join(
+                f"stream {s} ({mods[assign[s]]}) {fracs[s]:.4%}" for s in check)
+            + " px > 2 LSB")
 
 
 def _fleet_fixed_frames(device: str, n: int = 4) -> np.ndarray:
@@ -886,7 +1117,13 @@ RUNS = (
     ("rings", None, 40), ("rings", (1920, 1080), 20),
     ("aawalk", None, 40), ("aawalk", (1920, 1080), 20),
     ("colfetch", None, 40), ("colfetch", (1920, 1080), 20),
+    ("smoothy", None, 40), ("smoothy", (1920, 1080), 20),
 )
+
+# the CPU path (`setaccelfft false`) of the shipped rc.glsl, keyframe
+# interpolation on and off: the chain route, no fused launch
+CPU_PATH_RUNS = (("setaccelfft false", "setinterpolate true"),
+                 ("setaccelfft false", "setinterpolate false"))
 
 
 # (module, requests, route) of bufsizes off the shipped 4096 through
@@ -897,9 +1134,13 @@ BUFSIZE_REQUESTS = (("bars", ("setbufsize 32768",), "kernel"),
                     ("circle", ("setbufsize 32768",), "kernel"),
                     ("bars", ("setbufsize 4096", "setbufscale 32"), "chain"))
 
-# (streams, screen, frames, mixed): the fleet's main-path runs
-FLEET_RUNS = ((64, None, 30, False), (64, (1920, 1080), 8, False),
-              (6, None, 30, True))
+# (streams, screen, frames, kind): the fleet's main-path runs
+FLEET_RUNS = ((64, None, 30, "bars"), (64, (1920, 1080), 8, "bars"),
+              (6, None, 30, "mixed"), (64, None, 30, "circle"),
+              (64, (1920, 1080), 8, "circle"), (64, None, 6, "all"))
+# (kind, screen): fleets held stream by stream against one-stream cpu
+# renders
+FLEET_PARITY = (("circle", None), ("circle", (1920, 1080)), ("all", None))
 
 
 def phase_main_path(user_dir: str) -> dict:
@@ -913,8 +1154,12 @@ def phase_main_path(user_dir: str) -> dict:
                              user_dir if shader else None)
         for k in PATH:
             totals[k] += counts[k]
-    for n, screen, frames, mixed in FLEET_RUNS:
-        counts = _fleet_run(n, frames, screen, mixed)
+    for reqs in CPU_PATH_RUNS:
+        counts = _engine_run(60, None, "bars", requests=reqs)
+        for k in PATH:
+            totals[k] += counts[k]
+    for n, screen, frames, kind in FLEET_RUNS:
+        counts = _fleet_run(n, frames, screen, kind, user_dir)
         for k in PATH:
             totals[k] += counts[k]
     if not all(totals.values()):
@@ -944,6 +1189,18 @@ def phase_main_path(user_dir: str) -> dict:
     print(f"[4 main path] bars fleet S 4 800x600, per-stream colours and "
           f"staggered clocks: cuda vs cpu "
           f"{', '.join(f'{f:.4%}' for f in fracs)} px > 2 LSB")
+    for kind, screen in FLEET_PARITY:
+        print(f"[4 main path] {_fleet_parity(kind, screen, user_dir)}")
+    for reqs in CPU_PATH_RUNS:
+        gpu, r = _cpu_path_frame("cuda", reqs, with_renderer=True)
+        frac = golden_rule(gpu, _cpu_path_frame("cpu", reqs))
+        if r.pipeline.route != "chain" or frac >= 0.002 \
+                or not (gpu[..., 3] > 0).any():
+            raise AssertionError(f"{', '.join(reqs)}: route {r.pipeline.route}, "
+                                 f"cuda vs cpu {frac:.4%} off")
+        print(f"[4 main path] bars 800x600 {', '.join(reqs)}: route chain, 24 "
+              f"frames, audio every other frame, interp_mod 0.5 between; cuda "
+              f"vs cpu {frac:.4%} px > 2 LSB")
     eng = Engine(EngineOptions(audio_backend="synth", test_mode=True,
                                device="cuda"), sink=NullSink())
     if not eng.run_tests():
@@ -971,6 +1228,40 @@ def phase_main_path(user_dir: str) -> dict:
             line += f", {w}x{h} vs golden {gfrac:.4%}"
         print(f"[4 main path] {line}")
     return totals
+
+
+MEL_SECONDS, MEL_RATE = 30, 16000
+MEL_TOL = 2e-5       # relative to the peak (tests/test_mel.py)
+
+
+def mel_frames() -> np.ndarray:
+    """30 s of 16 kHz audio (two tones in noise) framed as Whisper
+    frames it: (3001, 512)."""
+    from glava_tpu_torch.models import mel
+
+    rng = np.random.default_rng(6)
+    t = np.arange(MEL_SECONDS * MEL_RATE) / MEL_RATE
+    pcm = (0.4 * np.sin(2 * np.pi * 440.0 * t) + 0.2 * np.sin(2 * np.pi * 3000.0 * t)
+           + 0.05 * rng.standard_normal(t.size)).astype(np.float32)
+    return mel.frame_track(pcm, n_fft=512, hop=160)
+
+
+def phase_mel() -> None:
+    """log_mel on the card against the cpu, within MEL_TOL of the peak."""
+    from glava_tpu_torch.models import mel
+
+    frames = mel_frames()
+    gpu = mel.log_mel(frames, device="cuda")
+    cpu = mel.log_mel(frames, device="cpu")
+    gpu = gpu.cpu().numpy()
+    err = float(np.abs(gpu - cpu.numpy()).max() / max(np.abs(cpu.numpy()).max(), 1.0))
+    if gpu.shape != (frames.shape[0], 80) or not np.isfinite(gpu).all() \
+            or err > MEL_TOL:
+        raise AssertionError(f"log_mel cuda vs cpu: shape {gpu.shape}, "
+                             f"relative err {err} (tolerance {MEL_TOL})")
+    print(f"[4 main path] log_mel {MEL_SECONDS} s of {MEL_RATE} Hz audio, "
+          f"{frames.shape[0]} frames x {frames.shape[1]} -> {gpu.shape}: cuda vs "
+          f"cpu {err:.2e} of the peak (tolerance {MEL_TOL})")
 
 
 # -- the host runtime: the frame's way to the host, pipe values, the
@@ -1422,20 +1713,22 @@ def host_us(fn, iters: int = 1000, repeats: int = 5) -> float:
     return float(np.median(runs))
 
 
-def _fused_variants(dirs: list[str]) -> list:
-    """Other trees' fused updates, each from a directory holding its
-    ``fused.py`` and ``fused_update.cu``: (name, module loaded under its
-    own name, its kernel built into build/ and loaded), the nvcc runs
-    side by side."""
+def _tree_variants(dirs: list[str], py: str = "fused.py",
+                   cu: str = "fused_update.cu") -> list:
+    """Other trees' wrappers and kernels, each from a directory holding
+    its ``py`` (a module of ``glava_tpu_torch/ops``) and ``cu``: (name,
+    module loaded under its own name, its kernel built into build/ and
+    loaded), the nvcc runs side by side."""
     import ctypes
     import importlib.util
 
     from glava_tpu_torch.ops import _build
 
     mods = []
+    stem = Path(cu).stem
     for d in map(Path, dirs):
-        name = f"fused_ab_{d.name}"
-        spec = importlib.util.spec_from_file_location(name, d / "fused.py")
+        name = f"{stem}_ab_{d.name}"
+        spec = importlib.util.spec_from_file_location(name, d / py)
         mod = importlib.util.module_from_spec(spec)
         sys.modules[name] = mod      # dataclasses look their module up
         spec.loader.exec_module(mod)
@@ -1443,8 +1736,7 @@ def _fused_variants(dirs: list[str]) -> list:
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = [subprocess.Popen(
         [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
-         str(_build.BUILD_DIR / f"fused_ab_{d.name}.so"),
-         str(d / "fused_update.cu")],
+         str(_build.BUILD_DIR / f"{stem}_ab_{d.name}.so"), str(d / cu)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for d, _ in mods]
     logs = [p.communicate()[0] for p in procs]
@@ -1452,7 +1744,7 @@ def _fused_variants(dirs: list[str]) -> list:
     for (d, mod), proc, log in zip(mods, procs, logs):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {d}:\n{log}")
-        so = _build.BUILD_DIR / f"fused_ab_{d.name}.so"
+        so = _build.BUILD_DIR / f"{stem}_ab_{d.name}.so"
         ptxas = " | ".join(ln.strip() for ln in log.splitlines()
                            if "registers" in ln)
         print(f"[ab] built {d.name}: {ptxas}")
@@ -1462,17 +1754,17 @@ def _fused_variants(dirs: list[str]) -> list:
 
 
 @contextlib.contextmanager
-def _serving(built):
-    """Let ``_build.load("fused_update")``, through which a variant's
-    wrapper finds its kernel, return ``built`` for a while."""
+def _serving(built, name: str = "fused_update"):
+    """Let ``_build.load(name)``, through which a variant's wrapper
+    finds its kernel, return ``built`` for a while."""
     from glava_tpu_torch.ops import _build
 
-    saved = _build._LOADED["fused_update"]
-    _build._LOADED["fused_update"] = built
+    saved = _build._LOADED[name]
+    _build._LOADED[name] = built
     try:
         yield
     finally:
-        _build._LOADED["fused_update"] = saved
+        _build._LOADED[name] = saved
 
 
 def fused_ab(dirs: list[str]) -> int:
@@ -1489,7 +1781,7 @@ def fused_ab(dirs: list[str]) -> int:
 
     card = phase_device()
     variants = [("this", fused, _build.load("fused_update")),
-                *_fused_variants(dirs)]
+                *_tree_variants(dirs)]
     for n in (512, 1024, 2048, 4096, 16384):
         for B in (2, 128):
             sets = _update_sets(n, B)
@@ -1516,6 +1808,45 @@ def fused_ab(dirs: list[str]) -> int:
                   f"{bound_ms(_update_bytes(n, B, 6)) * 1e3:.3f} us (bytes), "
                   f"{K} input sets in turn")
     _host_ab(variants, card)
+    return 0
+
+
+def smooth_ab(dirs: list[str]) -> int:
+    """``--smooth-ab DIR ...``: the smooth transform of each DIR (a
+    tree's ``glava_tpu_torch/ops/smooth.py`` and ``csrc/smooth_scan.cu``)
+    beside this checkout's, in one process on one card, at the main
+    path's shape (1 row, sz 4096, ratio 4, d 0.01) and the other
+    ``SMOOTH_CASES``: CUDA-event time on 8 input sets in turn, each
+    variant twice, in the order given and then reversed. Every
+    variant's first call is held against the plain version (zeros
+    equal, ``SMOOTH_TOL``), so a mix-up of kernels fails the run."""
+    from glava_tpu_torch.ops import _build, smooth
+
+    card = phase_device()
+    variants = [("this", smooth, _build.load("smooth_scan")),
+                *_tree_variants(dirs, "smooth.py", "smooth_scan.cu")]
+    for sz, ratio, d in ((4096, 4.0, 0.01),) + tuple(
+            c for c in SMOOTH_CASES if c != (4096, 4.0, 0.01)):
+        sets = [torch.as_tensor(smooth_rows(sz, 1, seed), device="cuda")
+                for seed in range(8)]
+        want = smooth.smooth_transform_plain(sets[0], ratio, d)
+        asz = -(-sz // int(ratio))
+        for r, (name, mod, built) in enumerate(variants + variants[::-1]):
+            with _serving(built, "smooth_scan"):
+                mod._FN = None          # resolve the served kernel
+                before = mod.launches
+                got = mod.smooth_transform(sets[0], ratio, d)
+                err = (got - want).abs().max().item()
+                if mod.launches != before + 1 or not err <= SMOOTH_TOL \
+                        or not torch.equal(got == 0, want == 0):
+                    raise AssertionError(f"{name} smooth sz {sz} ratio "
+                                         f"{ratio} d {d}: err {err}")
+                ms = event_ms(lambda i: mod.smooth_transform(
+                    sets[i % 8], ratio, d), 20 if sz > 4096 else 100)
+                mod._FN = None
+            print(f"[ab] smooth_scan 1 row sz {sz} ratio {ratio:g} d {d:g} "
+                  f"{name}: events {ms * 1e3:.2f} us, {ms * 1e6 / asz:.1f} ns "
+                  f"a bin, err {err:.2e}, round {r // len(variants)} ({card})")
     return 0
 
 
@@ -1627,6 +1958,11 @@ def frames_side() -> None:
     for n in (1, 64):
         out[f"fleet S {n} 800x600"] = _fleet_times(n, None, 20, "")
     out["fleet S 64 1920x1080"] = _fleet_times(64, (1920, 1080), 3, "")
+    # without pipe values, which a tree before the circle's stream axis
+    # refuses in a circle fleet
+    for screen, label in ((None, "800x600"), ((1920, 1080), "1920x1080")):
+        out[f"circle fleet S 64 {label}"] = _fleet_times(
+            64, screen, 10, "", module="circle", pipe=False)
     out["circle 1080p Engine"] = _engine_ms("circle", (1920, 1080), 60)
     print(json.dumps(out))
 
@@ -1682,23 +2018,30 @@ def frames_ab(parent: Path, card: str, pairs: int = 8) -> None:
               f"({card})")
 
 
-def device_ms(fn, iters: int = 100) -> float:
+def device_ms(fn, iters: int = 100, tries: int = 3) -> float:
     """Mean device milliseconds per call of ``fn``: the kernels' own
     time from torch.profiler, free of the host's launch overhead that
-    an event-timed loop of small launches measures instead."""
+    an event-timed loop of small launches measures instead. A profile
+    that recorded no device time (CUPTI drops one now and then) is taken
+    again; after ``tries`` such profiles the time comes from CUDA events
+    around the calls (``cuda_ms``), and the line says so."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    busy = sum(e.self_device_time_total for e in prof.key_averages())
-    if busy <= 0:
-        raise AssertionError("torch.profiler recorded no device time")
-    return busy / 1e3 / iters
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in prof.key_averages())
+        if busy > 0:
+            return busy / 1e3 / iters
+    ms = cuda_ms(fn, iters)
+    print(f"[5 times] torch.profiler recorded no device time in {tries} "
+          f"profiles: {ms * 1e3:.2f} us a call by CUDA events instead")
+    return ms
 
 
 def bound_ms(nbytes: float) -> float:
@@ -1816,11 +2159,12 @@ def _latch_times():
     return out
 
 
-def _frame_ms(screen, module="bars", user_dir=None, iters=200):
+def _frame_ms(screen, module="bars", user_dir=None, iters=200, requests=()):
     from glava_tpu_torch.config import loader
     from glava_tpu_torch.renderer import Renderer
 
-    r = Renderer(loader.load(force_module=module, user_dir=user_dir),
+    r = Renderer(loader.load(cli_requests=requests, force_module=module,
+                             user_dir=user_dir),
                  screen=screen, device="cuda")
     rng = np.random.default_rng(2)
     audio = torch.as_tensor(rng.standard_normal((64, 2, 4096)) * 0.3,
@@ -1910,19 +2254,81 @@ def _raster_times(S: int, H: int, W: int):
                     "events, back to back); no library call computes it"}
 
 
+def _smooth_times(card: str) -> dict:
+    """smooth_scan at the main path's shape (a shader module's one
+    stateless uniform at bufsize 4096: 1 row, sz 4096, the default
+    ratio 4 and distance 0.01) by CUDA events on 8 input sets in turn,
+    its plain version beside it; the kernel alone at the other checked
+    shapes. Bound: bytes, each row read once and written once, and the
+    window table."""
+    from glava_tpu_torch.ops import smooth
+
+    out = None
+    for sz, ratio, d in ((4096, 4.0, 0.01),) + tuple(
+            c for c in SMOOTH_CASES if c != (4096, 4.0, 0.01)):
+        sets = [torch.as_tensor(smooth_rows(sz, 1, seed), device="cuda")
+                for seed in range(8)]
+        asz = -(-sz // int(ratio))
+        nbytes = 2 * sz * 4 + asz * 8
+        ms = event_ms(lambda i: smooth.smooth_transform(sets[i % 8], ratio, d),
+                      20 if sz > 4096 else 100)
+        line = (f"[5 times] smooth_scan 1 row sz {sz} ratio {ratio:g} d {d:g} "
+                f"({asz} bins walked): kernel {ms * 1e3:.2f} us (CUDA events, "
+                f"back to back, 8 input sets in turn), {ms * 1e6 / asz:.1f} ns a "
+                f"bin, bound {bound_ms(nbytes) * 1e3:.3f} us (bytes)")
+        if out is None:
+            # ~7 launches a bin: more than the launch queue holds behind
+            # event_ms's spin kernel, so CUDA events around whole calls
+            # (launch-bound, as the eager loop runs)
+            plain = cuda_ms(lambda: smooth.smooth_transform_plain(
+                sets[0], ratio, d), 3)
+            out = {"ms": ms, "plain_ms": plain, "library_ms": None,
+                   "bound_ms": bound_ms(nbytes),
+                   "what": f"1 row, sz {sz}, ratio {ratio:g}, d {d:g}"}
+            line += (f", plain {plain * 1e3:.2f} us (CUDA events around 3 "
+                     "calls); library none")
+        print(f"{line} ({card})")
+    return out
+
+
+def _mel_times(card: str) -> None:
+    """log_mel of the 30 s clip: CUDA events with the frames on the card,
+    and the host clock from host frames (the copy in, the features left
+    on the card, synchronised)."""
+    from glava_tpu_torch.models import mel
+
+    frames = mel_frames()
+    dev = torch.as_tensor(frames, device="cuda")
+    ms = cuda_ms(lambda: mel.log_mel(dev), 20)
+    runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        mel.log_mel(frames, device="cuda")
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    host = float(np.median(runs))
+    n = frames.shape[0]
+    print(f"[5 times] log_mel {n} frames x 512 -> 80 mels: {ms:.3f} ms on the "
+          f"card = {n / ms * 1e3:.0f} frames/s (CUDA events, frames on the "
+          f"card); {host:.3f} ms = {n / host * 1e3:.0f} frames/s from host "
+          f"frames (host clock, median of 5) ({card})")
+
+
 def _fleet_times(n: int, screen, frames: int, card: str,
-                 breakdown: bool = False) -> float:
+                 breakdown: bool = False, module: str = "bars",
+                 pipe: bool = True) -> float:
     """One fleet frame as ``FleetEngine.run`` makes it (host snapshots to
     the card, the step, the uint8 frames back through
-    ``FleetEngine.fetch``), n bars streams with
-    their own colours, every stream updating: the host clock per frame,
+    ``FleetEngine.fetch``), n streams of ``module`` with their own
+    colours (``pipe``), every stream updating: the host clock per frame,
     CUDA events around the step (the snapshot copy and the kernels,
     with any idle gaps) and around the frame copy, and the device busy
     share under the profiler."""
     from glava_tpu_torch.config import loader
     from glava_tpu_torch.runtime.fleet import FleetEngine
 
-    eng = FleetEngine(loader.load(), _fleet_streams(n), screen=screen,
+    eng = FleetEngine(loader.load(force_module=module),
+                      _fleet_streams(n, pipe=pipe), screen=screen,
                       device="cuda")
     cfg = eng.loaded.cfg
     rng = np.random.default_rng(2)
@@ -1957,7 +2363,7 @@ def _fleet_times(n: int, screen, frames: int, card: str,
     step = sum(e[0].elapsed_time(e[1]) for e in ev) / frames
     copy = sum(e[1].elapsed_time(e[2]) for e in ev) / frames
     w, h = eng.br.screen
-    label = f"bars fleet S {n} {w}x{h}"
+    label = f"{module} fleet S {n} {w}x{h}"
     busy, _ = _profile(frame, label, card, frames=3 if n > 8 else 10,
                        show=breakdown)
     mb = n * w * h * 4 / 1e6
@@ -2010,6 +2416,16 @@ def phase_times(card: str, user_dir: str) -> dict:
         print(f"[5 times] latch_scan C {C} at {shape}: {ms * 1e3:.2f} us (CUDA "
               f"events, back to back, {K} input sets in turn), bound "
               f"{bound_ms(nbytes) * 1e3:.2f} us (bytes) ({card})")
+    out["smooth_scan"] = _smooth_times(card)
+    _print_kernel_time("smooth_scan", out["smooth_scan"], card)
+    for reqs in CPU_PATH_RUNS:
+        ms8 = _frame_ms(None, "bars", requests=reqs)[0]
+        ms10 = _frame_ms((1920, 1080), "bars", requests=reqs)[0]
+        print(f"[5 times] bars frame {', '.join(reqs)} (update every frame, "
+              f"chain route + raster + uint8 + FrameFetch to the host) "
+              f"800x600: {ms8:.3f} ms = {1e3 / ms8:.1f} fps; 1920x1080: "
+              f"{ms10:.3f} ms = {1e3 / ms10:.1f} fps ({card})")
+    _mel_times(card)
     frames = {}
     for module in ("bars", "radial", "circle") + tuple(SHADER_MODULES):
         shader = module in SHADER_MODULES
@@ -2030,6 +2446,9 @@ def phase_times(card: str, user_dir: str) -> dict:
         for screen, count in ((None, 20), ((1920, 1080), 5 if n == 64 else 10)):
             _fleet_times(n, screen, count, card,
                          breakdown=n == 64 and screen is None)
+    for screen in (None, (1920, 1080)):
+        _fleet_times(64, screen, 10, card, breakdown=screen is None,
+                     module="circle")
     return out
 
 
@@ -2158,6 +2577,8 @@ REPLACES = {
     "latch_scan C=0": "glava_tpu/ops/pallas/latch.py:82",
     "latch_scan C=4": "glava_tpu/ops/pallas/latch.py:82",
     "bars_raster": "scripts/exp_pallas_bars.py:138",
+    # no pallas_call: the counterpart of the JAX package's lax.scan
+    "smooth_scan": "glava_tpu/ops/transforms.py:145",
 }
 
 
@@ -2166,10 +2587,11 @@ def main() -> int:
     phase_build()
     errs = {"fused_update": phase_kernel(), "table_lookup": phase_lookup(),
             "latch_scan": phase_latch(), "rowwise_lookup": phase_rowwise(),
-            "bars_raster": phase_raster()}
+            "bars_raster": phase_raster(), "smooth_scan": phase_smooth()}
     with tempfile.TemporaryDirectory() as td:
         user_dir = str(write_shader_modules(Path(td)))
         launches = phase_main_path(user_dir)
+        phase_mel()
         phase_host(user_dir, Path(td))
         times = phase_times(card, user_dir)
         host_times(card)
@@ -2205,6 +2627,8 @@ def ab(parent: str) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--fused-ab"]:
         raise SystemExit(fused_ab(sys.argv[2:]))
+    if sys.argv[1:2] == ["--smooth-ab"]:
+        raise SystemExit(smooth_ab(sys.argv[2:]))
     if sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
         raise SystemExit(ab(sys.argv[2]))
     raise SystemExit(main())

@@ -143,16 +143,23 @@ def age_weights(avg_weights) -> np.ndarray:
 
 
 def fused_update_plain(pcm, grav, hist, slot, fft_scale, fft_cutoff, g,
-                       window, age_weights):
+                       window, age_weights, clamp: bool = True):
     """Plain torch version of the fused update; returns new
-    ``(grav', hist', avg)`` tensors and leaves its inputs untouched."""
+    ``(grav', hist', avg)`` tensors and leaves its inputs untouched.
+    ``clamp`` is the accel path's GL_R16 per-stage clamping
+    (render.c:512-523) of the spectrum and the gravity store; without it
+    (the CPU path, ``setaccelfft false``) gravity runs unclamped
+    (render.c:730-735) and only the average clamps, as the texture."""
     B, n = pcm.shape
     m = n // 2
     F = hist.shape[1]
     spec = fft.packed_spectrum(pcm * window, fft_scale, fft_cutoff)
-    # GL_R16 per-stage clamping (render.c:512-523)
-    spec = torch.clamp(spec, 0.0, 1.0).reshape(B, m, 2).transpose(1, 2)
-    grav = torch.clamp(torch.maximum(grav, spec) - g[:, None, None], 0.0, 1.0)
+    if clamp:
+        spec = torch.clamp(spec, 0.0, 1.0)
+    spec = spec.reshape(B, m, 2).transpose(1, 2)
+    grav = torch.maximum(grav, spec) - g[:, None, None]
+    if clamp:
+        grav = torch.clamp(grav, 0.0, 1.0)
     slot = torch.remainder(slot.long(), F)
     hist = hist.clone()
     hist[torch.arange(B, device=pcm.device), slot] = grav
@@ -173,6 +180,14 @@ def ring_average(hist, newest, age_weights):
     return torch.clamp(acc, 0.0, 1.0)
 
 
+def check_length(n: int) -> None:
+    """Raise ``ValueError`` unless n is a power of two >= 4, the packed
+    FFT's lengths (glava_tpu/ops/fft.py ``plan_packed_fft``)."""
+    if n < 4 or n & (n - 1):
+        raise ValueError(f"packed fft length must be a power of two >= 4, "
+                         f"got {n}")
+
+
 def update_route(n: int) -> str:
     """How an update at bufsize ``n`` runs: ``"kernel"`` where the
     kernel takes n (a power of two in [MIN_N, MAX_N]); ``"chain"``
@@ -182,9 +197,7 @@ def update_route(n: int) -> str:
     two >= 4, the packed FFT's lengths (glava_tpu/ops/fft.py
     ``plan_packed_fft``), and ``NotImplementedError`` above MAX_N, where
     the kernel's one-cluster split runs out of shared memory."""
-    if n < 4 or n & (n - 1):
-        raise ValueError(f"packed fft length must be a power of two >= 4, "
-                         f"got {n}")
+    check_length(n)
     if n > MAX_N:
         raise NotImplementedError(
             f"bufsize {n}: the fused kernel takes at most {MAX_N} "
@@ -193,13 +206,16 @@ def update_route(n: int) -> str:
 
 
 def chain_update(pcm, grav, hist, slot, fft_scale, fft_cutoff, g, window,
-                 age_weights):
+                 age_weights, clamp: bool = True):
     """:func:`fused_update_plain` on the tensors' own device, IN PLACE on
     ``grav`` and ``hist`` like the kernel; returns ``(grav, hist, avg)``.
-    No kernel: the bufsizes below MIN_N on any device, and every bufsize
-    on the CPU."""
+    No kernel: the bufsizes below MIN_N on any device, every bufsize on
+    the CPU, and the CPU path (``clamp`` off: ``setaccelfft false``,
+    where the JAX package takes its XLA chain, never the Pallas kernel,
+    glava_tpu/pipeline.py:128-129) at every bufsize."""
     g2, h2, avg = fused_update_plain(pcm, grav, hist, slot, fft_scale,
-                                     fft_cutoff, g, window, age_weights)
+                                     fft_cutoff, g, window, age_weights,
+                                     clamp)
     grav.copy_(g2)
     hist.copy_(h2)
     return grav, hist, avg

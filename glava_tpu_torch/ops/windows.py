@@ -150,8 +150,8 @@ def avg_weights(frames: int, windowed: bool, accel: bool = True) -> np.ndarray:
     transform_average (tests/test_refdsp_differential.py).
 
     Returned weights are POSITIONAL, oldest-first — index 0 weights the
-    oldest history frame, matching ``transforms.avg_apply``'s history
-    axis. The GPU path's shader indexes by AGE (t0 = newest,
+    oldest history frame, matching the JAX package's ``transforms.avg_apply``
+    history axis. The GPU path's shader indexes by AGE (t0 = newest,
     render.c:2252-2256), so its curve is reversed here; the CPU path's
     ``bufs[f*sz]`` is oldest-first already (render.c:751-766). With the
     true (shifted, asymmetric) curves this ordering is observable —

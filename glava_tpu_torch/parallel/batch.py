@@ -7,20 +7,25 @@ writes the stream axis out:
 
 * the spectrum update of every stream is ONE fused call over B = S * U
   rows (rows ``s * U + u``), the CUDA kernel on the card;
-* a batched module (bars, radial, wave: ``ModuleBuild.batched``)
-  rasterizes every stream in one call of its pass chain, with its
-  per-stream colours from each stream's pipe values;
-* any other module (circle, graph, test, user shader modules) renders
-  one stream at a time inside the same step, the eager form of
-  ``vmap``.
+* a batched module (every native module: bars, radial, circle, wave,
+  graph, test; ``ModuleBuild.batched``) rasterizes every stream in one
+  call of its pass chain, the knobs it evaluates inside a pass taking
+  each stream's pipe values;
+* a user shader module renders one stream at a time inside the same
+  step, each stream's pipe row loaded into the module's env before its
+  render: the eager form of the JAX ``vmap``
+  (glava_tpu/parallel/batch.py:98-116).
 
 Per-stream update gating follows the JAX step: every row advances and
 :meth:`AudioPipeline.select_updated` keeps the carried rows of the
 streams with no new audio. The advance writes the state in place, so
 the carried rows are copied first, and only when some stream is not
-modified. Per-stream scalars (``time``, ``interp_mod``, ``gravity_g``)
-and pipe values (name -> (S, ...)) have a leading stream axis; the
-``modified`` mask is read on the host.
+modified. On the CPU path with ``setinterpolate`` on, the feed blends
+each stream's two newest keyframes by its ``interp_mod`` before the
+gated advance (glava_tpu/parallel/batch.py:76-88). Per-stream scalars
+(``time``, ``interp_mod``, ``gravity_g``) and pipe values (name ->
+(S, ...)) have a leading stream axis; the ``modified`` mask is read on
+the host.
 
 There is no ``sharded_step``/``shard_state``: one card (mesh sharding
 waits for more than one GPU, ROADMAP).
@@ -32,11 +37,13 @@ import numpy as np
 import torch
 
 from glava_tpu_torch.config.loader import LoadedConfig
+from glava_tpu_torch.ops import transforms
 from glava_tpu_torch.pipeline import (
     AudioPipeline, FusedChainState, UniformSpec, clone_state,
 )
 from glava_tpu_torch.render.base import interleave, interleave_u8
-from glava_tpu_torch.renderer import Renderer, RenderState
+from glava_tpu_torch.renderer import Renderer, RenderState, load_pipe_values
+from glava_tpu_torch.utils import profiling
 
 
 def _host(v) -> np.ndarray:
@@ -44,10 +51,11 @@ def _host(v) -> np.ndarray:
 
 
 def _advance(pipeline: AudioPipeline, state: RenderState, audio, modified,
-             gravity_g) -> tuple[FusedChainState, torch.Tensor, torch.Tensor]:
+             interp_mod, gravity_g):
     """The keyframe push and the gated spectrum update of every stream
-    -> (chains, key_start, key_end)."""
+    -> (chains, key_start, key_end, feed)."""
     dev = pipeline.device
+    cfg = pipeline.cfg
     audio = torch.as_tensor(audio, dtype=torch.float32, device=dev)
     mod = _host(modified).astype(bool).reshape(-1)
     m = torch.as_tensor(mod, device=dev)
@@ -55,33 +63,36 @@ def _advance(pipeline: AudioPipeline, state: RenderState, audio, modified,
     # keyframe push on update (render.c:2348-2353)
     key_start = torch.where(m3, state.key_end, state.key_start)
     key_end = torch.where(m3, audio, state.key_end)
-    # the accel path feeds the newest keyframe (render.c:2161-2173);
-    # AudioPipeline refuses the CPU-path chain that would interpolate
+    if cfg.interpolate and not cfg.accel_fft:
+        # CPU-path interpolation (render.c:1792-1809); the accel path
+        # feeds the newest keyframe (render.c:2161-2173)
+        feed = transforms.interpolate(key_start, key_end,
+                                      _host(interp_mod).reshape(-1))
+    else:
+        feed = key_end
     carried = None if mod.all() else clone_state(state.chains)
-    chains = pipeline.advance(state.chains, key_end[:, 0, :], key_end[:, 1, :],
+    chains = pipeline.advance(state.chains, feed[:, 0, :], feed[:, 1, :],
                               gravity_g=gravity_g)
     if carried is not None:
         chains = pipeline.select_updated(chains, carried, m)
-    return chains, key_start, key_end
+    return chains, key_start, key_end, feed
 
 
 def _raster(rend: Renderer, textures: dict, time, pipe: dict | None,
             n: int) -> tuple:
     """Channel planes of ``n`` streams, each broadcastable to (n, H, W):
-    one pass chain for a batched module, else one a stream."""
+    one pass chain for a batched module, else one a stream, each after
+    its pipe row is loaded into the module's env."""
     if rend.module.batched:
         return rend.render_planes(textures, time, pipe)
-    if pipe:
-        raise NotImplementedError(
-            f"pipe values for module '{rend.module.name}' in a fleet are "
-            "not yet ported: bars, radial and wave take them (the "
-            "others need a stream axis, ROADMAP queue 1 item 3)")
     h, w = rend.screen[1], rend.screen[0]
-    per = [
-        rend.render_planes(
-            {k: t[s] for k, t in textures.items()}, float(time[s]), None)
-        for s in range(n)
-    ]
+    per = []
+    for s in range(n):
+        if pipe:
+            load_pipe_values(rend.module_env,
+                             {k: v[s] for k, v in pipe.items()})
+        per.append(rend.render_planes(
+            {k: t[s] for k, t in textures.items()}, float(time[s]), None))
     return tuple(
         torch.stack([torch.as_tensor(p[c], dtype=torch.float32,
                                      device=rend.device).expand(h, w)
@@ -93,6 +104,8 @@ def _frames(rend: Renderer, planes, n: int, quantize: bool) -> torch.Tensor:
     """(n, H, W, 4) frames: float32, or uint8 when ``quantize`` (the
     serving wire format, quantized per channel plane before the
     interleave)."""
+    if profiling.nan_guard_enabled():
+        profiling.check_nans(planes)
     pack = interleave_u8 if quantize else interleave
     return pack(planes, rend.screen[1], rend.screen[0], rend.device,
                 batch=(n,))
@@ -125,13 +138,13 @@ class BatchedRenderer:
         ``modified``/``time``/``interp_mod``/``gravity_g`` (S,) and pipe
         values name -> (S, ...) -> the new state and (S, H, W, 4)
         frames on the device. ``interp_mod`` feeds only the CPU-path
-        interpolation, which the pipeline does not take yet."""
+        interpolation."""
         S = self.n_streams
         rend = self.renderer
-        chains, key_start, key_end = _advance(rend.pipeline, state, audio,
-                                              modified, gravity_g)
-        textures = rend.pipeline.textures_from(chains, key_end[:, 0, :],
-                                               key_end[:, 1, :])
+        chains, key_start, key_end, feed = _advance(
+            rend.pipeline, state, audio, modified, interp_mod, gravity_g)
+        textures = rend.pipeline.textures_from(chains, feed[:, 0, :],
+                                               feed[:, 1, :])
         planes = _raster(rend, textures, _host(time), _pipe_rows(pipe), S)
         return (RenderState(chains, key_start, key_end),
                 _frames(rend, planes, S, quantize))
@@ -220,10 +233,10 @@ class MixedBatchedRenderer:
         """(S, H, W, 4) frames of every stream, each from its own
         variant (float32, or uint8 when ``quantize``; see
         :meth:`BatchedRenderer.step`)."""
-        chains, key_start, key_end = _advance(self.pipeline, state, audio,
-                                              modified, gravity_g)
-        textures = self.pipeline.textures_from(chains, key_end[:, 0, :],
-                                               key_end[:, 1, :])
+        chains, key_start, key_end, feed = _advance(
+            self.pipeline, state, audio, modified, interp_mod, gravity_g)
+        textures = self.pipeline.textures_from(chains, feed[:, 0, :],
+                                               feed[:, 1, :])
         time = _host(time)
         pipe = _pipe_rows(pipe)
         parts = []

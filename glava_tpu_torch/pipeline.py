@@ -17,24 +17,33 @@ uniforms come in two kinds:
   CPU tensors its plain torch version. The state layout is the JAX
   package's ``FusedChainState`` (glava_tpu/pipeline.py:72-91).
 * **stateless uniforms** (no ``fft``, e.g. wave's ``window, wrange``)
-  carry no state: their texture is ``wrange`` of the frame's feed
-  audio, ``window`` being a no-op without ``fft``
-  (glava_tpu/pipeline.py:440-449). A module with no fft uniform keeps a
-  state of B = 0 rows and launches no kernel.
+  carry no state: their texture is the frame's feed audio through the
+  chain's ``wrange`` and ``smooth`` transforms in order (``window``
+  being a no-op without ``fft``, glava_tpu/pipeline.py:440-449);
+  ``smooth`` is ``ops.smooth.smooth_transform``, the CUDA kernel on the
+  card. A ``smooth`` in an fft chain is ignored, as in the JAX package:
+  the whole chain takes the fft update. A module with no fft uniform
+  keeps a state of B = 0 rows and launches no update.
 
-The update's route follows from the scaled bufsize alone
-(``AudioPipeline.route``): ``"kernel"`` for a power of two in
-256..65536, the sizes of the kernel; ``"chain"`` for 4..128, the same
-function in plain torch on the rows' own device
-(``ops.fused.chain_update``). The JAX package takes its Pallas kernel
-from 512 up and its XLA chain below (``_fused_supported``,
-glava_tpu/pipeline.py:126-137), so no TPU kernel has a counterpart to
-port at 4..128. Other bufsizes raise ``ValueError``.
+The update's route (``AudioPipeline.route``) follows from the
+configuration alone:
 
-Configurations not ported yet raise ``NotImplementedError`` at
-construction: ``setaccelfft false`` and the ``smooth`` transform
-(ROADMAP queue 1, the CPU-path chain) and bufsizes above 65536, which
-the kernel's one-cluster split does not hold (ROADMAP queue 2).
+* ``"kernel"``: the accel path (``setaccelfft true``, the default) at a
+  scaled bufsize that is a power of two in 256..65536, the kernel's
+  sizes;
+* ``"chain"``: the same function in plain torch on the rows' own device
+  (``ops.fused.chain_update``): the accel path at 4..128, where the
+  JAX package takes its XLA chain too (``_fused_supported``,
+  glava_tpu/pipeline.py:126-137), and the CPU path (``setaccelfft
+  false``) at every bufsize, unclamped: the spectrum and the gravity
+  store run without the accel path's GL_R16 clamps and the average
+  clamps only at the texture (glava_tpu/pipeline.py:310-313). The JAX
+  package never takes its Pallas kernel on the CPU path, so no kernel
+  is ported for it.
+
+Other bufsizes raise ``ValueError``, and accel-path bufsizes above
+65536, which the kernel's one-cluster split does not hold (ROADMAP
+queue 2), ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -47,7 +56,7 @@ import torch
 
 from glava_tpu_torch.config.state import RenderConfig
 from glava_tpu_torch.device import resolve
-from glava_tpu_torch.ops import fused, smoothing, transforms, windows
+from glava_tpu_torch.ops import fused, smooth, smoothing, transforms, windows
 
 
 @dataclass(frozen=True)
@@ -96,20 +105,15 @@ class AudioPipeline:
             if unknown:
                 raise ValueError(
                     f"transform function does not exist: {sorted(unknown)!r}")
-        if not cfg.accel_fft:
-            raise NotImplementedError(
-                "setaccelfft false (the CPU-path chain) is not yet ported "
-                "(ROADMAP queue 1)")
         self.fft_uniforms = [u for u in self.uniforms if has_fft(u.transforms)]
-        for u in self.uniforms:
-            if "smooth" in u.transforms:
-                raise NotImplementedError(
-                    f"uniform '{u.name}': the smooth transform is not yet "
-                    "ported (ROADMAP queue 1)")
-        # "kernel" or "chain", from the shape alone (None: no fft
-        # uniform, no update)
-        self.route = (fused.update_route(self.sz) if self.fft_uniforms
-                      else None)
+        # "kernel" or "chain" (None: no fft uniform, no update)
+        if not self.fft_uniforms:
+            self.route = None
+        elif cfg.accel_fft:
+            self.route = fused.update_route(self.sz)
+        else:
+            fused.check_length(self.sz)
+            self.route = "chain"
         dev = self.device
         self.avg_weights = windows.avg_weights(
             cfg.avg_frames, cfg.avg_window, cfg.accel_fft)
@@ -180,12 +184,15 @@ class AudioPipeline:
         pcm = pcm.reshape(-1, self.sz).to(torch.float32).contiguous()
         B = pcm.shape[0]
         scale, cutoff, g = self._row_params(B, fft_scale, fft_cutoff, gravity_g)
-        update = (fused.fused_update if self.route == "kernel"
-                  else fused.chain_update)
-        grav, hist, avg = update(
-            pcm, state.gravity, state.history, state.count,
-            scale, cutoff, g, self.window, self.age_weights,
-        )
+        if self.route == "kernel":
+            grav, hist, avg = fused.fused_update(
+                pcm, state.gravity, state.history, state.count,
+                scale, cutoff, g, self.window, self.age_weights)
+        else:
+            grav, hist, avg = fused.chain_update(
+                pcm, state.gravity, state.history, state.count,
+                scale, cutoff, g, self.window, self.age_weights,
+                clamp=cfg.accel_fft)
         # store mod F: only slot/age math ever consumes count
         count = torch.remainder(state.count + 1, cfg.avg_frames).to(torch.int32)
         return FusedChainState(grav, hist, avg, count)
@@ -214,6 +221,10 @@ class AudioPipeline:
                 for t in u.transforms:
                     if t == "wrange":
                         buf = transforms.wrange(buf)
+                    elif t == "smooth":
+                        buf = smooth.smooth_transform(
+                            buf, self.cfg.smooth_ratio,
+                            self.cfg.smooth_distance)
                 textures[u.name] = torch.clamp(buf, 0.0, 1.0)
                 continue
             i = row[u.name]

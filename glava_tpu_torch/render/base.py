@@ -143,27 +143,6 @@ class ModuleContext:
             raise KeyError(f"module knob '{name}' is not defined")
         return default
 
-    def pipe_cached(self, build: Callable[[], Any]) -> Callable[[], Any]:
-        """``build()`` evaluated again only when the env's pipe values
-        change: a knob the JAX step evaluates inside the pass (graph's
-        ``COLOR``) reads the step's values (``Renderer.step_planes``
-        loads them into the env) at one host evaluation per distinct
-        set of values."""
-        cache: dict = {}
-
-        def get():
-            key = tuple(sorted(
-                (k, np.asarray(v, np.float32).tobytes())
-                for k, v in self.env.pipe_values.items()))
-            hit = cache.get(key)
-            if hit is None:
-                if len(cache) >= 8:
-                    cache.pop(next(iter(cache)))
-                hit = cache[key] = build()
-            return hit
-
-        return get
-
     def color_fn(self, name: str) -> Callable[..., Any]:
         """Knob -> callable evaluating a (possibly per-pixel) color.
 
@@ -368,7 +347,9 @@ class StreamColors:
             comps = []
             for c in range(4):
                 parts = [e[knob][c] for e in evals]
-                shape = torch.broadcast_shapes(*(p.shape for p in parts))
+                # numpy's: torch.broadcast_shapes imports sympy on first
+                # use, a second on the first frame
+                shape = np.broadcast_shapes(*(tuple(p.shape) for p in parts))
                 shape = (1,) * (self.ndim - len(shape)) + tuple(shape)
                 st = torch.stack([p.expand(shape) for p in parts])
                 if len(distinct) > 1:

@@ -44,6 +44,11 @@ def build_module(name: str, ctx: ModuleContext,
     return builder(ctx)
 
 
+def available() -> list[str]:
+    """The built-in modules' names."""
+    return sorted(_REGISTRY)
+
+
 def module_uniforms(name: str, overrides: dict | None = None) -> tuple:
     """Uniform declarations for a module's audio pipeline."""
     return _resolve(name, overrides)[1]

@@ -8,13 +8,16 @@ Every one of them is the CONSTANT outline colour times one scalar
 field, so the chain runs on one (H, W) plane and only the final RGBA
 materializes.
 
-Per frame the three per-pixel ``smooth_audio`` fetches
-(circle/1.frag:29-33) are ONE table lookup: the static index planes
-``round(clip(pos, 0, 1) * sz)`` + ``sz * (not left)`` of the three
-sample sites, stacked (3, H, W), into the table ``cat([tl, tr])`` of
-2 * sz entries (presmoothed first when the smooth pass is off). On
-CUDA tensors that is the hand-written lookup kernel
-(``ops/lookup.py``), one launch a frame.
+The module is batched (``ModuleBuild.batched``): textures (S, sz) in,
+(S, H, W) planes out. Per frame the three per-pixel ``smooth_audio``
+fetches (circle/1.frag:29-33) of every stream are ONE table lookup:
+the static index planes ``round(clip(pos, 0, 1) * sz)`` + ``sz * (not
+left)`` of the three sample sites, stacked (3, H, W), into the (S,
+2 * sz) tables ``cat([tl, tr])`` (presmoothed first when the smooth
+pass is off). On CUDA tensors that is the hand-written lookup kernel
+(``ops/lookup.py``), one launch a frame for every stream. OUTLINE, the
+module's one colour, is evaluated once at build time, as in the JAX
+module, and keeps the load's ``@fg`` value.
 
 Knobs (shaders/glava/circle.glsl): C_RADIUS, C_LINE, OUTLINE, AMPLIFY,
 ROTATE, INVERT, C_FILL, C_SMOOTH.
@@ -94,11 +97,11 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
     active_t = torch.as_tensor(d0 >= -(c_line / 2.0), device=dev)
 
     def draw_mask(textures) -> torch.Tensor:
-        """The (H, W) bool draw predicate of circle/1.frag:44-66."""
+        """The (S, H, W) bool draw predicate of circle/1.frag:44-66."""
         tl, tr = textures["audio_l"], textures["audio_r"]
         if presmooth is not None:
             tl, tr = presmooth(tl), presmooth(tr)
-        v, vp, vm = lookup(torch.cat([tl, tr])) * amplify
+        v, vp, vm = (lookup(torch.cat([tl, tr], dim=-1)) * amplify).unbind(-3)
         a0 = vp - v
         a1 = vm - v
         dmax = torch.maximum(a0, a1)
@@ -132,4 +135,4 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
                     (o_cl[2] * coef) * a, a)
         return tuple(o_cl[c] * coef for c in range(4))
 
-    return base.ModuleBuild("circle", [pass_fused], [lookup])
+    return base.ModuleBuild("circle", [pass_fused], [lookup], batched=True)

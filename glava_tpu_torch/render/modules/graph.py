@@ -13,10 +13,13 @@ Re-expression of shaders/glava/graph/{1,2,3,4}.frag:
 * pass 4 (graph/4.frag) — premultiply.
 
 Every column-only quantity is baked in numpy; per frame the passes are
-(W, 3) spectrum gathers and (H, W) masks. The COLOR knob depends only
-on the row (``pos``) and on the step's pipe values (``@fg``, read in
-the pass as the JAX module does), evaluated once for each set of
-values; OUTLINE is evaluated at build time, as in the JAX module.
+(S, W, 3) spectrum gathers and (S, H, W) masks. The module is batched
+(``ModuleBuild.batched``). The COLOR knob depends only on the row
+(``pos``) and on each stream's pipe values (``@fg``, read in the pass
+as the JAX module does), evaluated on the host once for each distinct
+stream and cached by the values (``base.StreamColors``); OUTLINE is
+evaluated at build time, as in the JAX module, and keeps the load's
+values.
 
 Knobs (shaders/glava/graph.glsl): VSCALE, DIRECTION, GRADIENT, COLOR,
 DRAW_OUTLINE, DRAW_HIGHLIGHT, ANTI_ALIAS, OUTLINE, JOIN_CHANNELS,
@@ -79,21 +82,20 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
     fact_c_t = t(fact_c.astype(np.float32))
     fact_e_t = t(fact_e.astype(np.float32))
 
-    d_rows = (float(h) - yrow) if invert > 0 else yrow
-    d_col = t(d_rows.astype(np.float32))[:, None]
-    color_fn = ctx.color_fn("COLOR")
-    color_now = ctx.pipe_cached(
-        lambda: base.color_tensors(color_fn(pos=d_col), dev))
+    d_rows = ((float(h) - yrow) if invert > 0 else yrow).astype(np.float32)
+    d_col = t(d_rows)[:, None]
+    colors = base.StreamColors(ctx, ("COLOR",),
+                               pos=torch.as_tensor(d_rows)[:, None])
 
     def line_heights(textures) -> torch.Tensor:
-        """Per-column s (graph/1.frag:87-104), shape (W,)."""
+        """Per-column s (graph/1.frag:87-104), shape (S, W)."""
         sl = torch.mean(sample_cols(textures["audio_l"]), dim=-1)
         sr = torch.mean(sample_cols(textures["audio_r"]), dim=-1)
         s = torch.where(left_mask_t, sl, sr) * vscale
         if join > 0:
-            ml = torch.mean(sample_mid(textures["audio_l"]), dim=-1)[0]
-            mr = torch.mean(sample_mid(textures["audio_r"]), dim=-1)[1]
-            middle = vscale * (ml + mr) / 2.0
+            ml = torch.mean(sample_mid(textures["audio_l"]), dim=-1)[..., 0]
+            mr = torch.mean(sample_mid(textures["audio_r"]), dim=-1)[..., 1]
+            middle = (vscale * (ml + mr) / 2.0)[..., None]
             s = fact_c_t * s + (1.0 - fact_c_t) * middle
         else:
             s = s * fact_c_t
@@ -101,8 +103,8 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
 
     def pass1(inputs: base.PassInputs) -> base.Planes:
         s = line_heights(inputs.textures)
-        mask = (d_col + 1.5) <= s[None, :]
-        color = color_now()
+        mask = (d_col + 1.5) <= s[..., None, :]                 # (S, H, W)
+        color = colors(inputs.pipe)["COLOR"]
         return tuple(torch.where(mask, color[c], 0.0) for c in range(4))
 
     passes = [pass1]
@@ -132,37 +134,36 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
     # graph/3.frag — anti-alias: alpha-feather empty pixels between the
     # tops of adjacent columns.
     if anti_alias > 0:
-        col_ids = torch.arange(w, device=dev)
-        edge = torch.full((1,), -1.0, device=dev)
-
         def pass3(inputs: base.PassInputs) -> base.Planes:
             frame = inputs.prev
             # contiguous fill: colored rows of column x are d in
             # [0, s-1.5] -> top index ty = floor(s - 1.5) in d-space
-            s = line_heights(inputs.textures)
+            s = line_heights(inputs.textures)                   # (S, W)
             ty = torch.floor(s - 1.5)
-            ty_l = torch.cat([edge, ty[:-1]])
-            ty_r = torch.cat([ty[1:], edge])
+            edge = torch.full_like(ty[..., :1], -1.0)
+            ty_l = torch.cat([edge, ty[..., :-1]], dim=-1)
+            ty_r = torch.cat([ty[..., 1:], edge], dim=-1)
             empty = frame[3] <= 0
             # left / right neighbour colored at this row?
-            lcol = d_col <= ty_l[None, :]
-            rcol = d_col <= ty_r[None, :]
+            lcol = d_col <= ty_l[..., None, :]
+            rcol = d_col <= ty_r[..., None, :]
             h2 = ty  # own column top (first colored going down)
             # fragment colour of (x, h2): a plain per-column gather
             rows = torch.clamp(ty, 0, h - 1).to(torch.int64)
             rows_pix = torch.clamp(h - rows, 0, h - 1) if invert > 0 else rows
-            top = [frame[c][rows_pix, col_ids] for c in range(4)]
+            shape = (ty.shape[0], h, w)
+            top = [torch.as_tensor(frame[c], device=dev).expand(shape)
+                   .gather(-2, rows_pix[:, None, :]) for c in range(4)]
             # (ty_l - d) / (h2 - ty_l) is 0/0 where both vanish; the NaN
             # goes on through clamp/maximum as in the JAX module
-            af_l = torch.clamp(
-                torch.abs((ty_l[None, :] - d_col) / (h2 - ty_l)[None, :]), 0.0, 1.0)
-            af_r = torch.clamp(
-                torch.abs((ty_r[None, :] - d_col) / (h2 - ty_r)[None, :]), 0.0, 1.0)
+            af_l = torch.clamp(torch.abs(
+                (ty_l[..., None, :] - d_col) / (h2 - ty_l)[..., None, :]), 0.0, 1.0)
+            af_r = torch.clamp(torch.abs(
+                (ty_r[..., None, :] - d_col) / (h2 - ty_r)[..., None, :]), 0.0, 1.0)
             a_fact = torch.where(lcol, af_l, 0.0)
             a_fact = torch.maximum(a_fact, torch.where(rcol, af_r, 0.0))
             feather = empty & (lcol | rcol)
-            new = [top[c][None, :] for c in range(3)]
-            new.append(top[3][None, :] * a_fact)
+            new = top[:3] + [top[3] * a_fact]
             return tuple(torch.where(feather, new[c], frame[c]) for c in range(4))
 
         passes.append(pass3)
@@ -170,4 +171,4 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
     if ctx.cfg.premultiply_alpha:
         passes.append(base.premultiply_pass)  # graph/4.frag
 
-    return base.ModuleBuild("graph", passes)
+    return base.ModuleBuild("graph", passes, batched=True)

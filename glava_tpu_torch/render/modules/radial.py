@@ -3,11 +3,13 @@
 Re-expression of shaders/glava/radial/1.frag (in-shader alpha
 anti-aliasing via the APPLY_FRAG blend, radial/1.frag:34-39) plus the
 premultiply pass radial/2.frag. The per-pixel polar math is static, so
-bar ids, in-bar masks and alias factors bake to numpy constants. The
-COLOR / OUTLINE / BAR_OUTLINE knobs depend on the static distance ``d``
-and on the ``@fg``/``@bg`` pipe values; they are evaluated for each
-stream on the host, cached by the pipe values with the planes made
-from them (``base.StreamColors``).
+bar ids, in-bar masks and alias factors bake to numpy constants. Pipe
+values reach the knobs as in the JAX module: COLOR and BAR_OUTLINE,
+which it evaluates inside the pass (at the static distance ``d``), take
+each stream's ``@fg``/``@bg`` values, evaluated on the host and cached
+by the pipe values with the planes made from them
+(``base.StreamColors``); OUTLINE is evaluated once at build time and
+keeps the load's values.
 
 The module is batched (``ModuleBuild.batched``). Per frame: one
 (NBARS/2 + 1,) spectrum sample per channel and stream, then the
@@ -108,6 +110,8 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
     bar_d_host = torch.as_tensor(np.asarray(bar_d, np.float32))
     ring_t = t(ring)
     ring_alpha_t = f32(ring_alpha)
+    # built once, as the JAX module builds it (radial.py:99)
+    outline_col = base.color_tensors(ctx.color_fn("OUTLINE")(), dev)
 
     def bar_values(textures) -> torch.Tensor:
         vl = sample(textures["audio_l"])                 # (S, n1)
@@ -118,30 +122,30 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
         # ---- default path: no bar outline, alpha AA ---------------------
         # in_bar folds into the alias plane (alias_enc >= 0 iff in_bar;
         # clip(alias) is the AA alpha) and the ring into its
-        # premultiplied alpha f0a (0 off the ring); both layers' colours
-        # hang on the pipe values only, so only the body mask is per frame
+        # premultiplied alpha f0a (0 off the ring); the ring layer is
+        # static, the bar layer hangs on the pipe values only, so only the
+        # body mask is per frame
         alias_enc = f32(np.where(in_bar, np.clip(alias, 0.0, 1.0), -1.0))
+        f0a = torch.where(ring_t, outline_col[3] * ring_alpha_t, 0.0)
+        one_m = 1.0 - torch.clamp(f0a, 0.0, 1.0)
+        prem = [outline_col[k] * f0a for k in range(3)] + [f0a]
 
         def layers(c):
-            """(lit, prem): each stream's planes where a bar is drawn
-            and where it is not."""
-            outline_col, color = c["OUTLINE"], c["COLOR"]
-            f0a = torch.where(ring_t, outline_col[3] * ring_alpha_t, 0.0)
+            """Each stream's planes where a bar is drawn (``prem``
+            elsewhere)."""
+            color = c["COLOR"]
             ca = color[3] * torch.clamp_min(alias_enc, 0.0)
-            one_m = 1.0 - torch.clamp(f0a, 0.0, 1.0)
-            prem = [outline_col[k] * f0a for k in range(3)]
             lit = [prem[k] + color[k] * one_m for k in range(3)]
             lit.append(torch.maximum(ca, f0a))
-            prem.append(f0a)
-            return lit, prem
+            return lit
 
-        colors = base.StreamColors(ctx, ("OUTLINE", "COLOR"), derive=layers,
+        colors = base.StreamColors(ctx, ("COLOR",), derive=layers,
                                    d=bar_d_host)
 
         def pass1(inputs: base.PassInputs) -> base.Planes:
             v = bar_values(inputs.textures)
             body = (alias_enc >= 0.0) & (bar_d_t <= v)
-            lit, prem = colors(inputs.pipe)
+            lit = colors(inputs.pipe)
             return tuple(torch.where(body, lit[k], prem[k]) for k in range(4))
     else:
         # ---- general path: a bar outline, or no alpha AA: the frame is
@@ -149,7 +153,7 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
         zero = torch.zeros((), dtype=torch.float32, device=dev)
         in_bar_t = t(in_bar)
         alias_t = f32(alias)
-        colors = base.StreamColors(ctx, ("OUTLINE", "COLOR", "BAR_OUTLINE"),
+        colors = base.StreamColors(ctx, ("COLOR", "BAR_OUTLINE"),
                                    d=bar_d_host)
         # compared in float32, as the JAX module compares its f32 |ym| plane
         inner = in_bar_t & t(np.abs(ym).astype(np.float32)
@@ -161,8 +165,7 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
         def pass1(inputs: base.PassInputs) -> base.Planes:
             v = bar_values(inputs.textures)
             cols = colors(inputs.pipe)
-            outline_col, color, bar_out = (cols["OUTLINE"], cols["COLOR"],
-                                           cols["BAR_OUTLINE"])
+            color, bar_out = cols["COLOR"], cols["BAR_OUTLINE"]
             frag = (zero,) * 4
             # center ring (radial/1.frag:49-56)
             ring_col = list(_apply_frag(frag, outline_col, use_alpha))

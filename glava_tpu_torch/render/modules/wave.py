@@ -7,8 +7,9 @@ the module keeps no spectrum state. Pass 1 draws the line with
 adaptive thickness; pass 2 is an unconditional neighbourhood outline
 pass. The per-column texel indices are static (numpy); per frame the
 pass is three (S, W) gathers and (S, H, W) masks. The module is batched
-(``ModuleBuild.batched``); BASE_COLOR and OUTLINE take each stream's
-``@fg``/``@bg`` pipe values (``base.StreamColors``).
+(``ModuleBuild.batched``). BASE_COLOR and OUTLINE are evaluated once at
+build time, as in the JAX module (wave.py:37-38), so they keep the
+load's ``@fg``/``@bg`` values whatever a step's pipe values.
 
 Knobs (shaders/glava/wave.glsl): MIN_THICKNESS, MAX_THICKNESS,
 BASE_COLOR, AMPLIFY, OUTLINE.
@@ -40,7 +41,8 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
     min_t = ctx.knob_f("MIN_THICKNESS", 1)
     max_t = ctx.knob_f("MAX_THICKNESS", 6)
     amplify = ctx.knob_f("AMPLIFY", 500)
-    colors = base.StreamColors(ctx, ("BASE_COLOR", "OUTLINE"))
+    base_color = base.color_tensors(ctx.color_fn("BASE_COLOR")(), dev)
+    outline = base.color_tensors(ctx.color_fn("OUTLINE")(), dev)
 
     # pixel_center_integer: integer fragment coords (wave/1.frag:2)
     x, y = base.frag_coords(w, h, pixel_center_integer=True)
@@ -66,13 +68,11 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
         # BASE_COLOR + scalar brightens all components incl. alpha
         # (wave/1.frag:35)
         bright = (torch.abs((h * 0.5) - s) * 0.02)[..., None, :]
-        base_color = colors(inputs.pipe)["BASE_COLOR"]
         return tuple(torch.where(mask, base_color[c] + bright, 0.0)
                      for c in range(4))
 
     def pass2(inputs: base.PassInputs) -> base.Planes:
-        return neighbor_outline_pass(inputs.prev, colors(inputs.pipe)["OUTLINE"],
-                                     edge_columns=True)
+        return neighbor_outline_pass(inputs.prev, outline, edge_columns=True)
 
     return base.ModuleBuild("wave", [pass1, pass2], batched=True)
 

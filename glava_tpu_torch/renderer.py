@@ -4,7 +4,10 @@ The device-side equivalent of ``rd_update`` (glava/render.c:1743-2417):
 per frame it runs the audio update when a new ring snapshot arrived,
 rasterizes the module's pass chain and composites the result. Torch
 runs eagerly, so the JAX package's ``lax.cond`` on ``modified`` is a
-Python ``if`` here and there is no compile step.
+Python ``if`` here and there is no compile step. On the CPU path with
+``setinterpolate`` on, the feed blends the two newest keyframes by
+``interp_mod`` and the update runs every frame (render.c:1792-1809,
+glava_tpu/renderer.py:154-162).
 """
 
 from __future__ import annotations
@@ -17,11 +20,13 @@ import torch
 
 from glava_tpu_torch.config.loader import LoadedConfig, builtin_variables
 from glava_tpu_torch.device import resolve
+from glava_tpu_torch.ops import transforms
 from glava_tpu_torch.pipeline import AudioPipeline, FusedChainState, UniformSpec
 from glava_tpu_torch.render.base import (
     ModuleContext, PassInputs, _host_f32, interleave, interleave_u8, mul,
 )
 from glava_tpu_torch.render.modules import build_module, module_uniforms
+from glava_tpu_torch.utils import profiling
 
 
 class RenderState(NamedTuple):
@@ -112,8 +117,8 @@ class Renderer:
         audio,                  # (2, bufsize) current ring snapshot
         modified: bool,         # new audio since the last frame?
         time: float,            # seconds (wraps at timecycle)
-        interp_mod: float = 1.0,  # min(uratio*kcounter, 1); unused on the
-        #                           accel path (render.c:2161-2173)
+        interp_mod: float = 1.0,  # min(uratio*kcounter, 1); read only on
+        #                           the CPU path (render.c:2161-2173)
         gravity_g=None,         # gravity_step / measured UPS
         pipe: dict | None = None,   # live pipe uniform values (name ->
         #                            value), read by `@name:default` knobs;
@@ -126,37 +131,35 @@ class Renderer:
             bg = pipe.pop("__bg__")
             bg = tuple(bg[i] for i in range(4))
         if pipe and not self.module.batched:
-            # a module without a stream axis reads the step's values as
-            # the JAX step does: through the load's env, in the knobs it
-            # evaluates inside the pass (graph's COLOR, a shader
-            # module's `@name` knobs); build-time knobs (circle's and
-            # graph's OUTLINE) keep the load's values. vecN values are
-            # component tuples of float32 host scalars.
-            vals = {}
-            for k, v in pipe.items():
-                a = _host_f32(v)
-                vals[k] = tuple(a[i] for i in range(a.shape[0])) if a.ndim \
-                    else a[()]
-            self.module_env.pipe_values.clear()
-            self.module_env.pipe_values.update(vals)
+            load_pipe_values(self.module_env, pipe)
         # Keyframe push on update (render.c:2348-2353): start <- end,
         # end <- new buffers.
         if modified:
             key_start = state.key_end
             key_end = torch.as_tensor(audio, dtype=torch.float32,
                                       device=self.device)
-            # transforms run only when new audio arrived (render.c:2122);
-            # otherwise the carried state is reused (render.c:2268-2272)
-            chains = self.pipeline.advance(
-                state.chains, key_end[..., 0, :], key_end[..., 1, :],
-                gravity_g=gravity_g)
         else:
             key_start, key_end = state.key_start, state.key_end
-            chains = state.chains
+        cfg = self.cfg
+        if cfg.interpolate and not cfg.accel_fft:
+            # CPU-path interpolation; the accel path force-disables it
+            # (render.c:2161-2173). The feed changes every frame, so the
+            # transforms rerun every frame.
+            feed = transforms.interpolate(key_start, key_end, interp_mod)
+            chains = self.pipeline.advance(
+                state.chains, feed[..., 0, :], feed[..., 1, :],
+                gravity_g=gravity_g)
+        else:
+            feed = key_end
+            # transforms run only when new audio arrived (render.c:2122);
+            # otherwise the carried state is reused (render.c:2268-2272)
+            chains = (self.pipeline.advance(
+                state.chains, feed[..., 0, :], feed[..., 1, :],
+                gravity_g=gravity_g) if modified else state.chains)
 
-        # stateless uniforms (wave) read the feed: the newest keyframe
+        # stateless uniforms (wave) read the feed
         textures = self.pipeline.textures_from(
-            chains, key_end[..., 0, :], key_end[..., 1, :])
+            chains, feed[..., 0, :], feed[..., 1, :])
         if self.module.batched:
             # one stream of a module that takes a stream axis
             rows = None if not pipe else {
@@ -166,6 +169,8 @@ class Renderer:
             planes = tuple(p[0] if np.ndim(p) == 3 else p for p in planes)
         else:
             planes = self.render_planes(textures, time, None, bg)
+        if profiling.nan_guard_enabled():
+            profiling.check_nans(planes)
         return RenderState(chains, key_start, key_end), planes
 
     def render_planes(self, textures: dict, time, pipe: dict | None,
@@ -227,6 +232,20 @@ class Renderer:
             got = got.astype(np.float64)
         want = np.asarray(expect, dtype=np.float64)
         return bool(np.all(np.abs(got - want) <= 0.5 / 255.0 + 1e-9))
+
+
+def load_pipe_values(env, pipe: dict) -> None:
+    """Load one stream's pipe values (name -> value) into a module's env,
+    as the JAX step does: a module without a stream axis reads them
+    there, in the knobs it evaluates inside the pass (a shader module's
+    ``@name`` knobs); build-time knobs keep the load's values. vecN
+    values become component tuples of float32 host scalars."""
+    vals = {}
+    for k, v in pipe.items():
+        a = _host_f32(v)
+        vals[k] = tuple(a[i] for i in range(a.shape[0])) if a.ndim else a[()]
+    env.pipe_values.clear()
+    env.pipe_values.update(vals)
 
 
 def _yuv_from_rgb(rgb: torch.Tensor, h: int, w: int):

@@ -333,6 +333,8 @@ class Engine:
 
         nominal_ups = cfg.nominal_ups
         ur = nominal_ups  # measured updates/sec (render.c:2380-2399)
+        fr = max(float(cfg.framerate) or 60.0, 1.0)
+        kcounter = 0      # frames since the last audio update
         fcount = ucount = 0
         sec_mark = _time.monotonic()
         t0 = _time.monotonic()
@@ -368,6 +370,11 @@ class Engine:
                     raise RuntimeError(f"audio backend failed: {err}") from err
 
                 snap, modified = self.audio.snapshot()
+                # keyframe interpolation phase (render.c:1792-1809); the
+                # step reads it on the CPU path only
+                kcounter = 0 if modified else kcounter + 1
+                uratio = min(ur / max(self.fps or fr, 1.0), 1.0)
+                interp_mod = min(uratio * max(kcounter, 1), 1.0)
                 tnow = (now - t0) % cfg.timecycle
                 gravity_g = cfg.gravity_step / max(ur, 1.0)
                 pipe = {k: np.asarray(v, np.float32)
@@ -378,7 +385,7 @@ class Engine:
                     pipe["__bg__"] = self._bg_dev
                 self.state, frame = self._step(
                     self.state, torch.from_numpy(snap), bool(modified),
-                    tnow, 1.0, gravity_g, pipe,
+                    tnow, float(np.float32(interp_mod)), gravity_g, pipe,
                 )
                 # up to `depth` frames stay in flight: older frames'
                 # copies overlap newer frames' device work

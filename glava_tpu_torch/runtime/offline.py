@@ -40,9 +40,16 @@ def _schedule(n_samples: int, rate: int, hop: int, fps: float,
     modified = np.empty(n_frames, bool)
     modified[0] = True
     modified[1:] = widx[1:] != widx[:-1]
+    # kcounter/uratio interpolation (engine.py run(); render.c:1792-1809)
+    kcounter = np.zeros(n_frames, np.int64)
+    for k in range(1, n_frames):
+        kcounter[k] = 0 if modified[k] else kcounter[k - 1] + 1
+    uratio = min(ups / max(fps, 1.0), 1.0)
+    interp = np.minimum(uratio * np.maximum(kcounter, 1), 1.0)
     return dict(
         widx=widx,
         modified=modified,
+        interp=interp.astype(np.float32),
         time=(t % timecycle).astype(np.float32),
         ups=ups,
         n_frames=n_frames,
@@ -84,7 +91,8 @@ def render_wav(loaded: LoadedConfig, wav_path: str, sink: FrameSink,
         i = sched["widx"][k]
         audio = torch.from_numpy(np.stack([wl[i], wr[i]]))
         state, frame = r.step_u8(state, audio, bool(sched["modified"][k]),
-                                 float(sched["time"][k]), 1.0, g)
+                                 float(sched["time"][k]),
+                                 float(sched["interp"][k]), g)
         for host, t in fetch.push(frame, float(sched["time"][k])):
             sink.submit(host, t)
         written += 1

@@ -309,7 +309,6 @@ def test_frame_fetch_pinned_on_cuda(depth):
 
 SHADER = "eq"
 PIPE_MODULES = ("bars", "radial", "wave", "circle", "graph", "test", SHADER)
-BATCHED = ("bars", "radial", "wave")
 
 
 def _module_loads(module, tmp_path, pipe_values):
@@ -337,11 +336,8 @@ def test_renderer_pipe_values_match_jax(module, load_binds, tmp_path):
     graph's COLOR, shader ``@name`` knobs); its build-time knobs take
     the load's values. ``values``: both loads bind the step's values
     (every knob sees them); ``defaults``: both loads bind the engine's
-    defaults, which the unbatched modules (circle, graph, test, shader
-    modules) then share with the JAX package knob for knob."""
-    if load_binds == "defaults" and module in BATCHED:
-        pytest.skip("bars, radial and wave bind every @fg/@bg knob per "
-                    "stream (ROADMAP queue 3): held with loads that bind")
+    defaults, which every module then shares with the JAX package knob
+    for knob."""
     pipe = {"fg": np.float32([0.1, 0.9, 0.3, 1.0]),
             "bg": np.float32([0.7, 0.2, 0.5, 1.0])}
     bound = ({k: tuple(float(x) for x in v) for k, v in pipe.items()}

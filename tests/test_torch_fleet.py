@@ -33,6 +33,7 @@ from glava_tpu_torch.config import loader
 from glava_tpu_torch.parallel import BatchedRenderer, MixedBatchedRenderer, example_batch
 from glava_tpu_torch.renderer import Renderer
 from glava_tpu_torch.runtime.fleet import FleetDynamics, FleetEngine, StreamSpec
+from tests.test_glsl_shader import EQ_FRAG
 from tests.test_golden import TINY_KNOBS
 
 S = 4
@@ -40,13 +41,23 @@ REQS = ("setgeometry 0 0 96 64", "setprintframes false", "setbufsize 1024",
         "setsamplesize 256")
 
 
-def _loads(module, tmp_path, extra=()):
-    """(port, JAX) loads of ``module`` in the fleet configuration."""
-    kw = dict(cli_requests=REQS + tuple(extra), force_module=module)
-    if module in TINY_KNOBS:
+SHADER = "eq"      # a user shader module with an `@fg` knob (EQ_FRAG)
+NATIVE = ("bars", "radial", "circle", "wave", "graph", "test")
+
+
+def _loads(module, tmp_path, extra=(), knobs="", **kw):
+    """(port, JAX) loads of ``module`` in the fleet configuration, with
+    ``knobs`` (``#define`` lines) over its TINY_KNOBS."""
+    kw.update(cli_requests=REQS + tuple(extra), force_module=module)
+    if module in TINY_KNOBS or knobs:
         d = tmp_path / module
         d.mkdir(exist_ok=True)
-        (d / f"{module}.glsl").write_text(TINY_KNOBS[module])
+        (d / f"{module}.glsl").write_text(TINY_KNOBS.get(module, "") + knobs)
+        kw["user_dir"] = d
+    if module == SHADER:
+        d = tmp_path / "shaders"
+        (d / SHADER).mkdir(parents=True, exist_ok=True)
+        (d / SHADER / "1.frag").write_text(EQ_FRAG)
         kw["user_dir"] = d
     return loader.load(**kw), jloader.load(**kw)
 
@@ -103,8 +114,12 @@ def _pipe(rng, n=S):
             "bg": rng.uniform(0.0, 0.8, (n, 4)).astype(np.float32)}
 
 
-def _run_pair(module, tmp_path, quantize, pipe=None, steps=12, n=S):
-    lc, jlc = _loads(module, tmp_path)
+def _run_pair(module, tmp_path, quantize, pipe=None, steps=12, n=S, extra=(),
+              knobs=""):
+    """``steps`` staggered steps of the port's fleet and the JAX fleet,
+    loaded alike and given the same pipe rows; frames under the golden
+    rule every step."""
+    lc, jlc = _loads(module, tmp_path, extra, knobs)
     br = BatchedRenderer(lc, n_streams=n, device="cpu")
     jbr = JaxBatched(jlc, n_streams=n)
     jstep = jax.jit(functools.partial(jbr.step, quantize=quantize))
@@ -138,37 +153,39 @@ def test_batched_renderer_matches_jax(module, quantize, tmp_path):
 
 @pytest.mark.parametrize("module", ["bars", "radial", "wave"])
 def test_per_stream_pipe_colours_match_jax(module, tmp_path):
-    """fg/bg per stream. The reference for stream s is the JAX step of
-    one stream whose load binds s's values (``loader.load(pipe_values=
-    ...)``) and whose step gets them too: the JAX package reads a step's
-    pipe values only in the knobs it evaluates inside the pass (bars'
-    COLOR and BAR_OUTLINE, radial's COLOR), and bakes the load's values
-    into the others (radial's OUTLINE, wave's BASE_COLOR and OUTLINE)
-    at build time. The port binds every @fg/@bg knob per stream."""
+    """fg/bg per stream, against the JAX fleet's step loaded alike and
+    given the same rows: the JAX package reads a step's pipe values
+    only in the knobs it evaluates inside the pass (bars' COLOR and
+    BAR_OUTLINE, radial's COLOR and BAR_OUTLINE) and bakes the load's
+    values into the others at build time (radial's OUTLINE, wave's
+    BASE_COLOR and OUTLINE), and so does the port."""
     pipe = _pipe(np.random.default_rng(5))
-    lc, _ = _loads(module, tmp_path)
-    br = BatchedRenderer(lc, n_streams=S, device="cpu")
-    refs = []
-    for s in range(S):
-        bound = {k: tuple(float(x) for x in v[s]) for k, v in pipe.items()}
-        kw = dict(cli_requests=REQS, force_module=module, pipe_values=bound)
-        if module in TINY_KNOBS:
-            kw["user_dir"] = tmp_path / module
-        jbr = JaxBatched(jloader.load(**kw), n_streams=1)
-        refs.append((jbr, jax.jit(functools.partial(jbr.step, quantize=True)),
-                     {k: jnp.asarray(v[s:s + 1]) for k, v in pipe.items()}))
-    ps = br.init_state()
-    js = [jbr.init_state() for jbr, _, _ in refs]
-    rng = np.random.default_rng(12)
-    for it in range(6):
-        audio, mod, t, im, g = _inputs(rng, it)
-        ps, got = br.step(ps, audio, mod, t, im, g, pipe, quantize=True)
-        for s, (_, jstep, jpipe) in enumerate(refs):
-            js[s], want = jstep(js[s], *(jnp.asarray(a[s:s + 1]) for a in
-                                         (audio, mod, t, im, g)), jpipe)
-            _assert_frames(got[s:s + 1], want, f"{module} stream {s} step {it}")
-    assert (got[..., 3] > 0).any()
-    assert not torch.equal(got[0], got[1])
+    br, _, _, _ = _run_pair(module, tmp_path, True, pipe, steps=6)
+    f = br.step(br.init_state(), *_inputs(np.random.default_rng(12), 0),
+                pipe, quantize=True)[1].numpy()
+    if module != "wave":        # wave's colours are the load's
+        assert not np.array_equal(f[0], f[1])
+
+
+@pytest.mark.parametrize("module", ["radial", "wave"])
+def test_build_time_colours_keep_the_load_values(module, tmp_path):
+    """radial's OUTLINE and wave's BASE_COLOR and OUTLINE are evaluated
+    once at build time in the JAX module, from the load's values: a
+    step's pipe rows leave them as they are. With loads that bind
+    nothing and rows that differ a lot from the defaults, the port's
+    fleet meets the JAX fleet; radial's ring (OUTLINE only) is the same
+    in every stream and wave's whole frame is."""
+    pipe = {"fg": np.float32([[1, 0, 0, 1], [0, 0, 1, 1], [0, 1, 0, 1],
+                              [1, 1, 0, 1]]),
+            "bg": np.float32([[1, 1, 1, 1], [0, 1, 1, 1], [1, 0, 1, 1],
+                              [0.5, 0.5, 0.5, 1]])}
+    br, _, _, _ = _run_pair(module, tmp_path, True, pipe, steps=4)
+    audio = np.zeros((S, 2, 1024), np.float32)      # silence: ring/line only
+    f = br.step(br.init_state(), audio, np.ones(S, bool), np.zeros(S),
+                np.ones(S), np.full(S, 0.05), pipe, quantize=True)[1].numpy()
+    assert (f[..., 3] > 0).any()
+    for s in range(1, S):
+        assert np.array_equal(f[s], f[0])
 
 
 def test_single_stream_pipe_colours_match_jax(tmp_path):
@@ -192,12 +209,13 @@ def test_single_stream_pipe_colours_match_jax(tmp_path):
 
 
 def test_pipe_values_of_unbatched_modules_are_refused(tmp_path):
-    lc, _ = _loads("circle", tmp_path)
-    br = BatchedRenderer(lc, n_streams=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="stream axis"):
-        br.step(br.init_state(), np.zeros((2, 2, 1024), np.float32),
-                np.ones(2, bool), np.zeros(2), np.ones(2), np.full(2, 0.05),
-                {"fg": np.ones((2, 4), np.float32)})
+    """(Pipe values are taken by every module now.) circle's fleet
+    with pipe rows meets the JAX fleet: its one colour, OUTLINE, is
+    built from the load's values in both packages."""
+    br, _, ps, js = _run_pair("circle", tmp_path, True,
+                              _pipe(np.random.default_rng(6), 2), steps=4, n=2)
+    assert br.renderer.module.batched
+    _assert_state(ps, js, br.cfg)
     # one stream takes the live wallpaper (the reserved `__bg__` key):
     # under xroot opacity the planes reach the composite
     r = Renderer(_loads("bars", tmp_path, ('setopacity "xroot"',))[0],
@@ -211,11 +229,61 @@ def test_pipe_values_of_unbatched_modules_are_refused(tmp_path):
 
 
 def test_unbatched_module_renders_per_stream(tmp_path):
-    """circle is not batched: the batched renderer runs it one stream at
-    a time in the same step, and meets the JAX vmap."""
-    br, jbr, ps, js = _run_pair("circle", tmp_path, True, steps=6, n=3)
+    """A user shader module is not batched: the batched renderer runs
+    it one stream at a time in the same step, each stream's pipe row in
+    the module's env, and meets the JAX vmap."""
+    br, jbr, ps, js = _run_pair(SHADER, tmp_path, True,
+                                _pipe(np.random.default_rng(13), 3), steps=6, n=3)
     assert not br.renderer.module.batched
     _assert_state(ps, js, br.cfg)
+
+
+@pytest.mark.parametrize("module", ["circle", "graph", "test", SHADER])
+def test_fleet_pipe_rows_match_jax_fleet(module, tmp_path):
+    """circle, graph and test take a stream axis and a shader module
+    renders stream by stream; with per-stream fg/bg rows each meets the
+    JAX fleet's vmapped step, loaded alike."""
+    br, _, ps, js = _run_pair(module, tmp_path, True,
+                              _pipe(np.random.default_rng(14)), steps=5)
+    assert br.renderer.module.batched == (module != SHADER)
+    _assert_state(ps, js, br.cfg)
+
+
+# knob variants whose passes take the stream axis on other branches
+FLEET_VARIANTS = {
+    "graph-anti_alias": "#define ANTI_ALIAS 1\n",
+    "graph-join_invert": "#define JOIN_CHANNELS 1\n#define INVERT 1\n",
+    "graph-anti_alias_invert_outline": ("#define ANTI_ALIAS 1\n#define INVERT 1\n"
+                                        "#define DRAW_OUTLINE 1\n"),
+    "circle-fill": "#define C_FILL 1\n",
+    "circle-no_smooth": "#define C_SMOOTH 0\n",
+    "radial-bar_outline": "#define BAR_OUTLINE_WIDTH 1\n",
+}
+
+
+@pytest.mark.parametrize("variant", sorted(FLEET_VARIANTS))
+def test_fleet_knob_variants_match_jax_fleet(variant, tmp_path):
+    """Knob variants of the batched modules in a fleet with fg/bg rows,
+    against the JAX fleet loaded alike (golden rule per stream)."""
+    module = variant.split("-", 1)[0]
+    _run_pair(module, tmp_path, True, _pipe(np.random.default_rng(18), 3),
+              steps=5, n=3, knobs=FLEET_VARIANTS[variant])
+
+
+def test_circle_fleet_is_one_lookup_a_frame(tmp_path, monkeypatch):
+    """circle's fleet frame is one table lookup for every stream: the
+    (S, 2 sz) tables against the one static plane."""
+    from glava_tpu_torch.ops import lookup
+
+    calls = []
+    plain = lookup.table_lookup_plain
+    monkeypatch.setattr(lookup, "table_lookup_plain",
+                        lambda t, i: calls.append(tuple(t.shape)) or plain(t, i))
+    lc, _ = _loads("circle", tmp_path)
+    br = BatchedRenderer(lc, n_streams=S, device="cpu")
+    br.step(br.init_state(), *_inputs(np.random.default_rng(1), 0),
+            quantize=True)
+    assert calls == [(S, 2 * br.renderer.pipeline.sz)]
 
 
 def test_mixed_fleet_matches_jax(tmp_path):
@@ -240,6 +308,31 @@ def test_mixed_fleet_matches_jax(tmp_path):
     f = got.numpy()
     assert all((f[s][..., 3] > 0).any() for s in range(n))
     assert not np.array_equal(f[0], f[1]) and not np.array_equal(f[1], f[2])
+
+
+def test_mixed_fleet_of_every_module_matches_jax(tmp_path):
+    """The six native modules and a shader module in one mixed fleet,
+    each stream with its own fg/bg row, against the JAX mixed fleet
+    loaded alike: frames per stream under the golden rule."""
+    mods = NATIVE + (SHADER,)
+    loads = [_loads(m, tmp_path) for m in mods]
+    assign = [0, 1, 2, 3, 4, 5, 6, 1, 6, 2]
+    n = len(assign)
+    pipe = _pipe(np.random.default_rng(15), n)
+    mx = MixedBatchedRenderer([p for p, _ in loads], assign, device="cpu")
+    jmx = JaxMixed([j for _, j in loads], assign)
+    jstep = jax.jit(functools.partial(jmx.step, quantize=True))
+    jpipe = {k: jnp.asarray(v) for k, v in pipe.items()}
+    ps, js = mx.init_state(), jmx.init_state()
+    rng = np.random.default_rng(16)
+    for it in range(5):
+        audio, mod, t, im, g = _inputs(rng, it, n)
+        ps, got = mx.step(ps, audio, mod, t, im, g, pipe, quantize=True)
+        js, want = jstep(js, *(jnp.asarray(a) for a in (audio, mod, t, im, g)),
+                         jpipe)
+        _assert_frames(got, want, f"mixed step {it}")
+    _assert_state(ps, js, mx.cfg)
+    assert all((got[s][..., 3] > 0).any() for s in range(n))
 
 
 def test_mixed_fleet_pipe_rows_follow_their_streams(tmp_path):

@@ -283,21 +283,34 @@ def test_stateless_chain_textures_match_jax(uniforms):
 
 @pytest.mark.parametrize("case", ["cpu_path", "chain", "smooth", "bufsize131072"])
 def test_unported_configurations_raise(case):
+    """Of the configurations this test once saw refused, only the accel
+    path above the fused kernel's one-cluster split (fused.MAX_N) still
+    raises; the CPU path takes the chain route at any bufsize (131072
+    too), an fft chain holding ``smooth`` takes the fft update, and a
+    stateless ``smooth`` chain keeps no state (their values are held
+    against the JAX package in tests/test_torch_cpu_path.py)."""
     cfg = RenderConfig(bufsize=1024)
     uniforms = [UniformSpec(*u) for u in BARS]
     if case == "cpu_path":
-        cfg = dataclasses.replace(cfg, accel_fft=False)
+        for n in (1024, 131072):
+            # (smooth pass off: its dense matrix at 131072 would not fit)
+            p = AudioPipeline(dataclasses.replace(cfg, accel_fft=False,
+                                                  bufsize=n,
+                                                  smooth_pass=n < 65536),
+                              uniforms, device="cpu")
+            assert p.route == "chain"
     elif case == "chain":
-        # any fft chain runs the fused update now; one with the smooth
-        # transform still raises
         uniforms = [UniformSpec("audio_l", "audio_l", ("window", "fft", "smooth"))]
+        p = AudioPipeline(cfg, uniforms, device="cpu")
+        assert p.route == "kernel" and p.fft_uniforms == uniforms
     elif case == "smooth":
         uniforms = [UniformSpec("audio_l", "audio_l", ("wrange", "smooth"))]
+        p = AudioPipeline(cfg, uniforms, device="cpu")
+        assert p.route is None and p.init_state().count.numel() == 0
     else:
-        # above the fused kernel's one-cluster split (fused.MAX_N)
-        cfg = dataclasses.replace(cfg, bufsize=131072)
-    with pytest.raises(NotImplementedError):
-        AudioPipeline(cfg, uniforms, device="cpu")
+        with pytest.raises(NotImplementedError):
+            AudioPipeline(dataclasses.replace(cfg, bufsize=131072), uniforms,
+                          device="cpu")
 
 
 # ---------------------------------------------------------------------------

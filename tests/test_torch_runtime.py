@@ -54,6 +54,29 @@ def test_offline_render_matches_jax(tmp_path):
     assert any((f[..., 3] > 0).any() for f in got)
 
 
+def test_offline_render_cpu_path_matches_jax(tmp_path):
+    """``setaccelfft false`` with ``setinterpolate`` on: the offline
+    schedule's interpolation phase feeds the CPU path's keyframe blend
+    every frame, as in the JAX ``render_wav``. 86 updates a second
+    (hop 256) under 240 frames: phases 0.36, 0.72 and 1."""
+    wav = tmp_path / "tone.wav"
+    _write_wav(wav)
+    reqs = REQS + ("setsamplesize 1024", "setaccelfft false",
+                   "setinterpolate true")
+    got, want = [], []
+    n = render_wav(loader.load(cli_requests=reqs, force_module="bars"),
+                   str(wav), sinks.CallbackSink(lambda f, t: got.append(f)),
+                   fps=240.0, device="cpu")
+    jn = jrender_wav(jloader.load(cli_requests=reqs, force_module="bars"),
+                     str(wav), sinks.CallbackSink(lambda f, t: want.append(f)),
+                     fps=240.0, chunk=32)
+    assert n == jn == len(got) == len(want) > 20
+    for a, b in zip(got, want):
+        diff = np.abs(a.astype(np.int16) - np.asarray(b).astype(np.int16))
+        assert float((diff > 2).mean()) < 0.002
+    assert any((f[..., 3] > 0).any() for f in got)
+
+
 def test_yuv420_host_pack_matches_jax():
     frame = np.random.default_rng(0).integers(0, 256, (8, 12, 4), np.uint8)
     for a, b in zip(yuv420_pack_host(frame), jyuv420(frame)):
