@@ -7,7 +7,7 @@ code is non-zero and no result line is printed):
 
 1. device    — needs ``torch.cuda.is_available()``; prints the card's
                name and power limit (nvidia-smi).
-2. build     — builds the six CUDA kernels from ``csrc/``
+2. build     — builds the six CUDA sources from ``csrc/``
                (fused_update, table_lookup, rowwise_lookup, latch_scan,
                bars_raster, smooth_scan), the nvcc runs side by side.
 3. kernel    — each kernel vs its plain torch version on the card.
@@ -16,7 +16,12 @@ code is non-zero and no result line is printed):
                at n 16384 (the streamed route, which n 32768 and 65536
                take from F 4): 8 updates of fresh audio with staggered per-row
                slots; gravity, average and the written history slot
-               within 2e-5, the other history slots bit-identical.
+               within 2e-5, the other history slots bit-identical. Its
+               split route (``SPLIT_CASES``: n 131072 and 262144 at B 2
+               and 128, n 524288 at B 2, F 6; column FFTs, then the
+               k-point stage and the epilogue): 4 updates each, one
+               split launch an update, within 2e-5 or, where larger,
+               the plain version's own distance from a float64 model.
                table_lookup BIT-IDENTICAL (torch.equal) on: radial's
                162-entry table at its 1920x1080 id plane, an 8192-entry
                table at circle's three 1920x1080 site planes, a
@@ -88,8 +93,18 @@ code is non-zero and no result line is printed):
                setbufsize 32768 on the fused kernel (one launch an
                update), and bars at setbufsize 4096 with setbufscale 32
                (scaled 128, below the kernel's sizes) on the plain
-               chain, no fused launch; each cuda frame meets the cpu
-               frame under the golden rule.
+               chain, no fused launch, and bars at setbufsize 131072
+               with the smooth pass off (a user smooth_parameters.glsl)
+               on the split route, one split launch an update; each
+               cuda frame meets the cpu frame under the golden rule.
+               Sharded fleets (``phase_sharded``, ``SHARDED_FLEETS``: 64
+               bars streams and a mixed bars/radial/wave fleet of 24)
+               through ``FleetEngine(mesh=...)`` over ``[cuda:0]``,
+               ``[cuda:0, cuda:0]`` and, with more than one card, every
+               card: 4 frames of fixed snapshots byte-equal to the
+               unsharded fleet's, launches the shard count times its;
+               then on every card the kernels whose shared-memory
+               opt-in is per device against their plain versions.
                ``Engine.run_tests()`` (test_rc.glsl) must pass on cuda.
                Every module's frame after 24 updates of fixed stereo
                tones renders on cuda and cpu at 800x600 and must meet
@@ -121,8 +136,10 @@ code is non-zero and no result line is printed):
                stand-in libpulse.
 5. times     — device times of each kernel and its plain version at
                the main path's shapes, and of one PyTorch call computing
-               the same function where there is one: fused_update (n
-               4096 and 16384, B 2 and B 128), latch_scan and
+               the same function where there is one: fused_update
+               (``FUSED_TIMED``: n 4096 to 262144 at B 2 and 128, n
+               524288 at B 2; the split route above 65536; bound the
+               larger of bytes and float64 FFT operations), latch_scan and
                torch.cummax at (1081, 1920) (the latch also at (601,
                800)), bars_raster (S = 64 at 800x600 and 1920x1080) and
                rowwise_lookup and C x torch.gather (1080p .T views, C in
@@ -154,9 +171,18 @@ code is non-zero and no result line is printed):
                inflight 0, 1, 2, rgba8 and yuv420 wires, five alternating
                rounds; ``FleetEngine.run`` of 64 bars streams at 800x600
                on the native seqlock ring and on the Python ring,
-               alternating (host clock).
+               alternating (host clock); the S 64 bars fleet frame
+               unsharded and on every ``shard_meshes`` mesh, host clock,
+               split into the step and the pinned copy.
 
 The second-to-last line is the kernels JSON, the last the device JSON.
+
+    python3 chip_smoke.py --sharded [PARENT]
+
+runs only the build, the sharded fleets, the per-card kernels and the
+sharded fleet's times (on a machine of several cards, what it adds);
+with PARENT (another tree unpacked there) first that tree's per-device
+kernels on every card, in a process of its own package.
 
     python3 chip_smoke.py --fused-ab DIR [DIR ...]
 
@@ -203,11 +229,13 @@ KERNELS = ("fused_update", "table_lookup", "rowwise_lookup", "latch_scan",
 # what the main path launches, a kernel for each C it takes: the kernels
 # JSON has one entry each; "rowwise_lookup C=1" (checked, timed) must
 # stay off the path
-PATH = ("fused_update", "table_lookup", "rowwise_lookup C=4",
-        "latch_scan C=0", "latch_scan C=4", "bars_raster", "smooth_scan")
+PATH = ("fused_update", "fused_update split", "table_lookup",
+        "rowwise_lookup C=4", "latch_scan C=0", "latch_scan C=4",
+        "bars_raster", "smooth_scan")
 COUNTED = PATH + ("rowwise_lookup C=1",)
 MODULES = ("bars", "radial", "circle", "wave", "graph", "test")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
+FP64_FLOPS = 34e12          # H100 SXM float64 outside the tensor cores (data sheet)
 
 # -- user GLSL shader modules (<user_dir>/<name>/{1,2}.frag) -------------
 
@@ -456,7 +484,41 @@ def phase_build():
     print(f"[2 build] {len(built)} kernels built and loaded in {total:.2f} s")
 
 
-def _case(n: int, B: int, F: int, rng) -> float:
+def _plain_to_model(pcm, grav, hist, slot, scale, cutoff, g, window, w_age,
+                    pg, pavg, rows=(0, 1)) -> float:
+    """How far the plain version's gravity and average lie from a float64
+    numpy model of the update on ``rows``: where that exceeds TOL, the
+    plain float32 chain itself drifts further than the tolerance."""
+    n = pcm.shape[1]
+    m = n // 2
+    F = hist.shape[1]
+    h = lambda t: t.detach().cpu().numpy().astype(np.float64)  # noqa: E731
+    worst = 0.0
+    for r in rows:
+        x = h(pcm[r]) * h(window)
+        spec = np.fft.fft(x[0::2] + 1j * x[1::2])
+        inter = np.stack([spec.real, spec.imag], axis=-1).reshape(n)
+        boost = np.maximum(np.arange(n) / n * h(scale[r]) + 1.0 - h(cutoff[r]),
+                           1.0)
+        spec = np.clip(np.log(np.abs(inter) + 1.0) / 3.0 * boost, 0.0, 1.0)
+        spec = spec.reshape(m, 2).T
+        gv = np.clip(np.maximum(h(grav[r]), spec) - h(g[r]), 0.0, 1.0)
+        sl = int(slot[r]) % F
+        hr = h(hist[r])
+        hr[sl] = gv
+        w = h(w_age)[(sl - np.arange(F)) % F]
+        avg = np.clip(np.einsum("f,fcm->cm", w, hr), 0.0, 1.0)
+        worst = max(worst, float(np.abs(h(pg[r]) - gv).max()),
+                    float(np.abs(h(pavg[r]) - avg).max()))
+    return worst
+
+
+def _case(n: int, B: int, F: int, rng, updates: int = 8) -> float:
+    """``updates`` updates of fresh audio through the kernel and its
+    plain version, staggered per-row slots; gravity, average and the
+    written history slot within TOL (or, on the split route, within the
+    plain version's own distance from a float64 model where that is
+    larger), the other slots bit-identical. Returns the worst error."""
     from glava_tpu_torch.ops import fused, windows
 
     dev = torch.device("cuda")
@@ -468,7 +530,8 @@ def _case(n: int, B: int, F: int, rng) -> float:
     hist = t(rng.uniform(0, 1, (B, F, 2, m)))
     count = np.arange(B) % F                  # staggered per-row slots
     worst = 0.0
-    for _ in range(8):
+    split = fused.fft_plan(n).split
+    for _ in range(updates):
         pcm = t(rng.standard_normal((B, n)) * 0.3)
         scale = t(rng.uniform(5.0, 20.0, B))
         cutoff = t(rng.uniform(0.0, 0.5, B))
@@ -489,8 +552,10 @@ def _case(n: int, B: int, F: int, rng) -> float:
         }
         if not torch.equal(kh[~written], hist[~written]):
             raise AssertionError(f"n={n} B={B}: unwritten history slots changed")
-        if not all(np.isfinite(v) and v <= TOL for v in errs.values()):
-            raise AssertionError(f"n={n} B={B}: kernel vs plain {errs} > {TOL}")
+        tol = TOL if not split else max(TOL, _plain_to_model(
+            pcm, grav, hist, slot, scale, cutoff, g, window, w_age, pg, pavg))
+        if not all(np.isfinite(v) and v <= tol for v in errs.values()):
+            raise AssertionError(f"n={n} B={B}: kernel vs plain {errs} > {tol}")
         worst = max(worst, *errs.values())
         grav, hist = kg, kh
         count = (count + 1) % F
@@ -498,7 +563,7 @@ def _case(n: int, B: int, F: int, rng) -> float:
     return worst
 
 
-# (n, B, F) of the fused update's checks: every bufsize the kernel takes
+# (n, B, F) of the fused update's checks: every one-cluster bufsize
 # at one stream, one stereo stream and 64; a ring of 1, 6 (the shipped
 # avg frames) and 16 slots; and at n 16384 a ring of 24 slots, more than
 # shared memory holds, which takes the streamed route (as n 32768 and
@@ -507,7 +572,14 @@ FUSED_CASES = tuple((256 << i, B, F) for i in range(9) for B in (1, 2, 128)
                     for F in (1, 6, 16)) + ((16384, 2, 24), (16384, 128, 24))
 
 
-def phase_kernel() -> float:
+# (n, B, F) of the split route's checks (n above 65536: column FFTs, then
+# the k-point stage and the epilogue, two launches through device memory)
+SPLIT_CASES = ((131072, 2, 6), (131072, 128, 6), (262144, 2, 6),
+               (262144, 128, 6), (524288, 2, 6))
+
+
+def phase_kernel() -> tuple[float, float]:
+    """The one-cluster route's worst error, and the split route's."""
     from glava_tpu_torch.ops import fused
 
     rng = np.random.default_rng(0)
@@ -522,7 +594,21 @@ def phase_kernel() -> float:
           f"history slots torch.equal; max abs err by n: "
           f"{', '.join(f'{k} {v:.2e}' for k, v in worst.items())} "
           f"(tolerance {TOL})")
-    return max(worst.values())
+    split = {}
+    for n, B, F in SPLIT_CASES:
+        before = fused.split_launches
+        split[n, B] = _case(n, B, F, rng, updates=4)
+        if fused.split_launches != before + 4:
+            raise AssertionError(f"split n{n} B{B}: {fused.split_launches - before} "
+                                 "split launches for 4 updates")
+    print(f"[3 kernel] fused_update split route (k = n/4096 column FFTs of "
+          f"2048 points, then the k-point stage and the epilogue) vs plain, "
+          f"F 6, 4 updates of fresh audio each, one split launch an update, "
+          f"untouched history slots torch.equal; max abs err: "
+          f"{', '.join(f'n{n} B{B} (k {fused.fft_plan(n).k}) {v:.2e}' for (n, B), v in split.items())} "
+          f"(tolerance {TOL}, or the plain version's distance from a "
+          f"float64 model where larger)")
+    return max(worst.values()), max(split.values())
 
 
 def _module_lookup(module: str, screen, reqs=()):
@@ -873,7 +959,9 @@ def tone_snapshot(cfg, k: int) -> np.ndarray:
 def _counts() -> dict:
     from glava_tpu_torch.ops import fused, latch, lookup, raster, smooth
 
-    counts = {"fused_update": fused.launches, "table_lookup": lookup.launches,
+    counts = {"fused_update": fused.launches,
+              "fused_update split": fused.split_launches,
+              "table_lookup": lookup.launches,
               "bars_raster": raster.launches, "smooth_scan": smooth.launches}
     counts.update({f"rowwise_lookup C={C}": n
                    for C, n in lookup.rowwise_launches.items()})
@@ -884,7 +972,8 @@ def _counts() -> dict:
 def _zero_counts() -> None:
     from glava_tpu_torch.ops import fused, latch, lookup, raster, smooth
 
-    fused.launches = lookup.launches = raster.launches = smooth.launches = 0
+    fused.launches = fused.split_launches = 0
+    lookup.launches = raster.launches = smooth.launches = 0
     lookup.rowwise_launches = dict.fromkeys(lookup.rowwise_launches, 0)
     lookup.rowwise_routes = dict.fromkeys(lookup.rowwise_routes, 0)
     latch.launches = dict.fromkeys(latch.launches, 0)
@@ -1129,10 +1218,16 @@ CPU_PATH_RUNS = (("setaccelfft false", "setinterpolate true"),
 # (module, requests, route) of bufsizes off the shipped 4096 through
 # Renderer: 32768 on the fused kernel (clusters of 8 CTAs of 2048-point
 # FFTs, the history streamed; circle's table of 2 x 32768 entries read
-# from the L2) and scaled 128, below the kernel's sizes, on the chain
+# from the L2), scaled 128, below the kernel's sizes, on the chain, and
+# 131072 on the kernel's split route with the smooth pass off (a user
+# smooth_parameters.glsl, NO_SMOOTH_PASS: its dense matrix would take
+# 64 GB)
 BUFSIZE_REQUESTS = (("bars", ("setbufsize 32768",), "kernel"),
                     ("circle", ("setbufsize 32768",), "kernel"),
-                    ("bars", ("setbufsize 4096", "setbufscale 32"), "chain"))
+                    ("bars", ("setbufsize 4096", "setbufscale 32"), "chain"),
+                    ("bars", ("setbufsize 131072", "setsmoothpass false"),
+                     "kernel"))
+NO_SMOOTH_PASS = "#request setsmoothpass false\n"
 
 # (streams, screen, frames, kind): the fleet's main-path runs
 FLEET_RUNS = ((64, None, 30, "bars"), (64, (1920, 1080), 8, "bars"),
@@ -1143,7 +1238,135 @@ FLEET_RUNS = ((64, None, 30, "bars"), (64, (1920, 1080), 8, "bars"),
 FLEET_PARITY = (("circle", None), ("circle", (1920, 1080)), ("all", None))
 
 
+# (kind, streams) of the sharded fleets: each runs the unsharded fleet,
+# then the same fleet over every SHARD_MESHES mesh; every stream shard of
+# these meshes holds each of the kind's modules, so a shard launches
+# what the unsharded fleet launches
+SHARDED_FLEETS = (("bars", 64), ("mixed", 24))
+
+
+def shard_meshes() -> list:
+    """(label, devices) of the meshes the sharded fleets run on: one
+    card, the first card twice, and every card where there are more."""
+    meshes = [("[cuda:0]", ["cuda:0"]), ("[cuda:0, cuda:0]", ["cuda:0"] * 2)]
+    count = torch.cuda.device_count()
+    if count > 1:
+        meshes.append((f"every card [cuda:0 .. cuda:{count - 1}]",
+                       [f"cuda:{i}" for i in range(count)]))
+    return meshes
+
+
+def _fleet_engine(kind: str, n: int, user_dir, devices=None, screen=None):
+    """A FleetEngine of ``n`` streams of ``kind`` with fg/bg rows, on
+    cuda:0 or sharded over a mesh of ``devices``."""
+    from glava_tpu_torch.parallel.mesh import make_mesh
+    from glava_tpu_torch.runtime.fleet import FleetEngine
+
+    loads = _kind_loads(kind, user_dir)
+    mesh = None if devices is None else make_mesh(devices)
+    return FleetEngine(loads[0], _fleet_streams(n, loads), screen=screen,
+                       device="cuda", mesh=mesh)
+
+
+def _synchronize_all() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _sharded_frames(kind: str, n: int, user_dir, devices=None,
+                    frames: int = 4):
+    """``frames`` fleet frames through ``FleetEngine.step`` and ``fetch``
+    on fixed seeded snapshots and staggered clocks (the counts set to 0
+    just before, read just after) -> (host frames, counts)."""
+    eng = _fleet_engine(kind, n, user_dir, devices)
+    cfg = eng.loaded.cfg
+    rng = np.random.default_rng(31)
+    g = np.full(n, cfg.gravity_step / cfg.nominal_ups, np.float32)
+    snaps = [(rng.standard_normal((n, 2, cfg.bufsize)) * 0.3).astype(np.float32)
+             for _ in range(frames)]
+    _synchronize_all()
+    _zero_counts()
+    out = []
+    for k in range(frames):
+        mods = np.array([k % (1 + s % 3) == 0 for s in range(n)])
+        out.append(eng.fetch(eng.step(snaps[k], mods, 0.25,
+                                      np.ones(n, np.float32), g)))
+    _synchronize_all()
+    return np.stack(out), _counts()
+
+
+def _per_card_kernels(card: int) -> str:
+    """The kernels whose shared-memory opt-in is per device, launched on
+    cuda:``card`` against their plain versions: the row-wise lookup's
+    staged route at C 4 (bit-identical), the smooth scan at sz 4096 (its
+    prefix tables in 123 KB of shared memory; 1e-5, zeros equal), the
+    fused update's one-cluster kernel at n 65536 and its split route at
+    n 131072 (2e-5)."""
+    from glava_tpu_torch.ops import fused, lookup, smooth
+
+    with torch.cuda.device(card):
+        tabs, idx = rowwise_inputs(4)
+        plan = lookup.rowwise_plan(4, ROWWISE_SHAPE[1], ROWWISE_SHAPE[2],
+                                   idx.stride())
+        got = lookup.rowwise_lookup(tabs, idx)
+        want = lookup.rowwise_lookup_plain(tabs, idx)
+        if plan.route != "staged" or got[0].device.index != card or not all(
+                torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"cuda:{card}: rowwise_lookup ({plan.route}) "
+                                 "differs from its plain version")
+        x = torch.as_tensor(smooth_rows(4096, 2, 9), device=f"cuda:{card}")
+        got, want = smooth.smooth_transform(x, 4.0, 0.01), \
+            smooth.smooth_transform_plain(x, 4.0, 0.01)
+        serr = (got - want).abs().max().item()
+        if not torch.equal(got == 0, want == 0) or not serr <= SMOOTH_TOL:
+            raise AssertionError(f"cuda:{card}: smooth_scan err {serr}")
+        rng = np.random.default_rng(card)
+        ferr = max(_case(65536, 2, 6, rng, updates=2),
+                   _case(131072, 2, 6, rng, updates=2))
+        torch.cuda.synchronize()
+    return (f"cuda:{card}: rowwise_lookup C 4 staged torch.equal, smooth_scan "
+            f"sz 4096 {serr:.2e}, fused_update n 65536 and split n 131072 "
+            f"{ferr:.2e}")
+
+
+def phase_sharded(user_dir: str, totals: dict | None = None) -> list:
+    """``FleetEngine(mesh=...)`` of every ``SHARDED_FLEETS`` entry over
+    every ``shard_meshes`` mesh, held byte for byte to the unsharded
+    fleet, with launch counts the shard count times the unsharded
+    fleet's (added to ``totals``); then the per-device kernels on every
+    card. Returns the result lines."""
+    meshes = shard_meshes()
+    lines = []
+    for kind, n in SHARDED_FLEETS:
+        want_frames, one = _sharded_frames(kind, n, user_dir)
+        for label, devices in meshes:
+            got, counts = _sharded_frames(kind, n, user_dir, devices)
+            want = {k: v * len(devices) for k, v in one.items()}
+            if got.tobytes() != want_frames.tobytes() or counts != want:
+                raise AssertionError(
+                    f"{kind} fleet S {n} over {label}: frames byte-equal "
+                    f"{got.tobytes() == want_frames.tobytes()}, launches "
+                    f"{counts}, expected {want}")
+            if totals is not None:
+                for k in PATH:
+                    totals[k] += counts[k]
+            lines.append(f"{kind} fleet S {n} ({', '.join(FLEET_KINDS[kind])}) "
+                         f"800x600 sharded over {label}: 4 frames byte-equal "
+                         f"to the unsharded fleet's, launches "
+                         f"{ {k: v for k, v in counts.items() if v} } = "
+                         f"{len(devices)} x the unsharded fleet's")
+    lines.append("meshes run: " + "; ".join(label for label, _ in meshes))
+    for card in range(torch.cuda.device_count()):
+        lines.append(_per_card_kernels(card))
+    if torch.cuda.device_count() == 1:
+        lines.append("only one card is visible: the per-device shared-memory "
+                     "opt-ins (csrc/rowwise_lookup.cu, csrc/smooth_scan.cu) "
+                     "were not exercised on a second card")
+    return lines
+
+
 def phase_main_path(user_dir: str) -> dict:
+    from glava_tpu_torch.ops.fused import fft_plan as fused_plan
     from glava_tpu_torch.runtime.engine import Engine, EngineOptions
     from glava_tpu_torch.runtime.sinks import NullSink
 
@@ -1162,26 +1385,43 @@ def phase_main_path(user_dir: str) -> dict:
         counts = _fleet_run(n, frames, screen, kind, user_dir)
         for k in PATH:
             totals[k] += counts[k]
-    if not all(totals.values()):
-        raise AssertionError(f"a kernel of the path never launched: {totals}")
     for module, reqs, route in BUFSIZE_REQUESTS:
+        # the shipped smooth_parameters.glsl, read after the command
+        # line's requests, turns the smooth pass on; a user file after it
+        # turns it off again
+        ud = None
+        if "setsmoothpass false" in reqs:
+            ud = Path(user_dir) / "no_smooth_pass"
+            ud.mkdir(exist_ok=True)
+            (ud / "smooth_parameters.glsl").write_text(NO_SMOOTH_PASS)
         _zero_counts()
-        gpu, r = _fixed_frame("cuda", reqs=reqs, module=module,
+        gpu, r = _fixed_frame("cuda", reqs=reqs, module=module, user_dir=ud,
                               with_renderer=True)
         torch.cuda.synchronize()
         counts = _counts()
+        split = r.pipeline.route == "kernel" and fused_plan(r.pipeline.sz).split
         want = {k: 24 * LAUNCHES[module].get(k, 0) for k in COUNTED}
-        want["fused_update"] = 24 if route == "kernel" else 0
+        want["fused_update"] = 24 if route == "kernel" and not split else 0
+        want["fused_update split"] = 24 if split else 0
         label = (f"{module} 800x600 {', '.join(reqs)} (scaled bufsize "
                  f"{r.pipeline.sz})")
-        if r.pipeline.route != route or counts != want:
+        if r.pipeline.route != route or counts != want or (
+                ud is not None and r.cfg.smooth_pass):
             raise AssertionError(f"{label}: route {r.pipeline.route}, launches "
                                  f"{counts}, expected {route} and {want}")
-        frac = golden_rule(gpu, _fixed_frame("cpu", reqs=reqs, module=module))
+        for k in PATH:
+            totals[k] += counts[k]
+        frac = golden_rule(gpu, _fixed_frame("cpu", reqs=reqs, module=module,
+                                             user_dir=ud))
         if frac >= 0.002 or not (gpu[..., 3] > 0).any():
             raise AssertionError(f"{label} cuda vs cpu: {frac:.4%} off")
-        print(f"[4 main path] {label}: update route {route} through Renderer, "
-              f"24 updates, launches {counts}; cuda vs cpu {frac:.4%} px > 2 LSB")
+        print(f"[4 main path] {label}: update route {route}"
+              f"{' (split)' if split else ''} through Renderer, 24 updates, "
+              f"launches {counts}; cuda vs cpu {frac:.4%} px > 2 LSB")
+    for line in phase_sharded(user_dir, totals):
+        print(f"[4 main path] {line}")
+    if not all(totals.values()):
+        raise AssertionError(f"a kernel of the path never launched: {totals}")
     gpu, cpu = _fleet_fixed_frames("cuda"), _fleet_fixed_frames("cpu")
     fracs = [golden_rule(g, c) for g, c in zip(gpu, cpu)]
     if max(fracs) >= 0.002 or not all((g[..., 3] > 0).any() for g in gpu):
@@ -2044,6 +2284,23 @@ def device_ms(fn, iters: int = 100, tries: int = 3) -> float:
     return ms
 
 
+# (n, B) of the fused update's timed shapes: the one-cluster route at
+# the shipped 4096 and its larger sizes, the split route above 65536
+FUSED_TIMED = tuple((n, B) for n in (4096, 16384, 32768, 65536, 131072, 262144)
+                    for B in (2, 128)) + ((524288, 2),)
+
+
+def fused_bound(n: int, B: int, nbytes: int) -> tuple[float, str, float]:
+    """The fused update's bound in ms, what sets it, and the operations'
+    time: the larger of its bytes over the memory rate and its float64
+    FFT (5 m log2 m flops a row, m = n/2) over the card's float64 rate."""
+    m = n // 2
+    ops = B * 5 * m * np.log2(m) / FP64_FLOPS * 1e3
+    by_bytes = bound_ms(nbytes)
+    return (max(by_bytes, ops), "bytes" if by_bytes >= ops else "operations",
+            ops)
+
+
 def bound_ms(nbytes: float) -> float:
     """Least time to move ``nbytes`` through device memory. Every kernel
     here does a handful of operations a byte (compares, selects, one
@@ -2374,25 +2631,71 @@ def _fleet_times(n: int, screen, frames: int, card: str,
     return wall
 
 
+def _sharded_fleet_times(card: str, user_dir: str, n: int = 64,
+                         frames: int = 20) -> None:
+    """The S 64 bars fleet frame (``FleetEngine.step`` + ``fetch``) on
+    the unsharded engine and on every ``shard_meshes`` mesh, by the host
+    clock, split into the step (every shard's launches and their
+    completion on every device) and the pinned copy into the one host
+    buffer; meshes in turn, two rounds."""
+    engines = [("unsharded", _fleet_engine("bars", n, user_dir))] + [
+        (label, _fleet_engine("bars", n, user_dir, devices))
+        for label, devices in shard_meshes()]
+    cfg = engines[0][1].loaded.cfg
+    rng = np.random.default_rng(2)
+    pool = [(rng.standard_normal((n, 2, cfg.bufsize)) * 0.3).astype(np.float32)
+            for _ in range(4)]
+    mods, interp = np.ones(n, bool), np.ones(n, np.float32)
+    g = np.full(n, cfg.gravity_step / cfg.nominal_ups, np.float32)
+    res = {label: [] for label, _ in engines}
+    for rnd in range(2):
+        for label, eng in (engines if rnd == 0 else engines[::-1]):
+            for k in range(3):
+                eng.fetch(eng.step(pool[k % 4], mods, 0.0, interp, g))
+            _synchronize_all()
+            step = copy = 0.0
+            for k in range(frames):
+                t0 = time.perf_counter()
+                out = eng.step(pool[k % 4], mods, 0.0, interp, g)
+                _synchronize_all()
+                t1 = time.perf_counter()
+                eng.fetch(out)
+                copy += time.perf_counter() - t1
+                step += t1 - t0
+            res[label].append((step * 1e3 / frames, copy * 1e3 / frames))
+    for label, runs in res.items():
+        st = [a for a, _ in runs]
+        cp = [b for _, b in runs]
+        print(f"[5 times] bars fleet S {n} 800x600 {label}: frame "
+              f"{np.mean(st) + np.mean(cp):.3f} ms host clock = step "
+              f"{np.mean(st):.3f} ms (rounds {', '.join(f'{v:.3f}' for v in st)}) "
+              f"+ pinned copy {np.mean(cp):.3f} ms (rounds "
+              f"{', '.join(f'{v:.3f}' for v in cp)}) ({card})")
+
+
 def phase_times(card: str, user_dir: str) -> dict:
     from glava_tpu_torch.ops import latch
 
     times = {}
-    for n in (4096, 16384, 32768, 65536):
-        for B in (2, 128):
-            dk, dp, prof, nbytes, K = _update_times(n, B)
-            times[n, B] = {"ms": dk, "plain_ms": dp, "library_ms": None,
-                           "bound_ms": bound_ms(nbytes)}
-            print(f"[5 times] fused update n{n} B{B}: kernel {dk * 1e3:.2f} us, "
-                  f"plain {dp * 1e3:.2f} us (CUDA events, back to back, {K} "
-                  f"input sets in turn), bound "
-                  f"{times[n, B]['bound_ms'] * 1e3:.3f} us (bytes); profiler "
-                  f"device time of the kernel on one warm set {prof * 1e3:.2f} "
-                  f"us; library none ({card})")
+    for n, B in FUSED_TIMED:
+        dk, dp, prof, nbytes, K = _update_times(n, B)
+        bound, by, ops_ms = fused_bound(n, B, nbytes)
+        times[n, B] = {"ms": dk, "plain_ms": dp, "library_ms": None,
+                       "bound_ms": bound, "bound_by": by}
+        route = " (split route)" if n > 65536 else ""
+        print(f"[5 times] fused update n{n} B{B}{route}: kernel "
+              f"{dk * 1e3:.2f} us, plain {dp * 1e3:.2f} us (CUDA events, back "
+              f"to back, {K} input sets in turn), bound {bound * 1e3:.3f} us "
+              f"({by}; bytes {bound_ms(nbytes) * 1e3:.3f} us, float64 FFT "
+              f"operations {ops_ms * 1e3:.3f} us), {bound / dk:.1%} of it; "
+              f"profiler device time of the kernel on one warm set "
+              f"{prof * 1e3:.2f} us; library none ({card})")
     raster_t = {(H, W): _raster_times(64, H, W) for H, W in ((600, 800), (1080, 1920))}
     for t in raster_t.values():
         _print_kernel_time("bars_raster", t, card)
-    out = {"fused_update": times[4096, 2], "table_lookup": _lookup_times(),
+    out = {"fused_update": times[4096, 2],
+           "fused_update split": times[131072, 2],
+           "table_lookup": _lookup_times(),
            "bars_raster": raster_t[(600, 800)]}
     _print_kernel_time("table_lookup", out["table_lookup"], card)
     for (C, pattern), t in _rowwise_times(user_dir).items():
@@ -2449,6 +2752,7 @@ def phase_times(card: str, user_dir: str) -> dict:
     for screen in (None, (1920, 1080)):
         _fleet_times(64, screen, 10, card, breakdown=screen is None,
                      module="circle")
+    _sharded_fleet_times(card, user_dir)
     return out
 
 
@@ -2572,6 +2876,7 @@ ENGINE_ROUNDS, ENGINE_FRAMES = 5, 60
 # the TPU kernel each entry of PATH replaces
 REPLACES = {
     "fused_update": "glava_tpu/ops/pallas/fused.py:712",
+    "fused_update split": "glava_tpu/ops/pallas/fused.py:712",
     "table_lookup": "glava_tpu/ops/pallas/lookup.py:53,289,319",
     "rowwise_lookup C=4": "glava_tpu/ops/pallas/lookup.py:210",
     "latch_scan C=0": "glava_tpu/ops/pallas/latch.py:82",
@@ -2585,7 +2890,9 @@ REPLACES = {
 def main() -> int:
     card = phase_device()
     phase_build()
-    errs = {"fused_update": phase_kernel(), "table_lookup": phase_lookup(),
+    cluster_err, split_err = phase_kernel()
+    errs = {"fused_update": cluster_err, "fused_update split": split_err,
+            "table_lookup": phase_lookup(),
             "latch_scan": phase_latch(), "rowwise_lookup": phase_rowwise(),
             "bars_raster": phase_raster(), "smooth_scan": phase_smooth()}
     with tempfile.TemporaryDirectory() as td:
@@ -2601,11 +2908,11 @@ def main() -> int:
         "source": f"glava_tpu_torch/csrc/{name.split()[0]}.cu",
         "replaces": REPLACES[name],
         "launches": launches[name],
-        "max_abs_err": errs[name.split()[0]],
+        "max_abs_err": errs.get(name, errs[name.split()[0]]),
         "ms": times[name]["ms"],
         "plain_ms": times[name]["plain_ms"],
         "bound_ms": times[name]["bound_ms"],
-        "bound_by": "bytes",
+        "bound_by": times[name].get("bound_by", "bytes"),
         "library_ms": times[name]["library_ms"],
     } for name in PATH]}))
     print(json.dumps({"ok": True, "device": {
@@ -2624,7 +2931,71 @@ def ab(parent: str) -> int:
     return 0
 
 
+# run in a process of another tree's own package (argv[1]): its row-wise
+# lookup (staged, C 4, the 1080p .T views of the main path) and smooth
+# scan (sz 4096, prefix tables in shared memory) on every card against
+# their plain versions; a refused launch is printed, not raised
+OPT_IN_PROBE = r'''
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[1])
+from glava_tpu_torch.ops import lookup, smooth
+rng = np.random.default_rng(6)
+N, T, P = 1920, 1080, 1080
+for card in range(torch.cuda.device_count()):
+    dev = f"cuda:{card}"
+    tabs = tuple(torch.as_tensor(rng.standard_normal((T, N)).astype(np.float32),
+                                 device=dev).T for _ in range(4))
+    idx = torch.as_tensor(rng.integers(0, T, (P, N)).astype(np.int32),
+                          device=dev).T
+    x = torch.as_tensor(rng.uniform(-1, 1, (2, 4096)).astype(np.float32),
+                        device=dev)
+    for name, run, plain in (
+            ("rowwise_lookup C 4", lambda: lookup.rowwise_lookup(tabs, idx),
+             lambda: lookup.rowwise_lookup_plain(tabs, idx)),
+            ("smooth_scan sz 4096", lambda: (smooth.smooth_transform(x, 4.0, 0.01),),
+             lambda: (smooth.smooth_transform_plain(x, 4.0, 0.01),))):
+        try:
+            got = run()
+            torch.cuda.synchronize(card)
+            err = max((a - b).abs().max().item() for a, b in zip(got, plain()))
+            print(f"{dev} {name}: launched, max abs err against plain {err:.2e}")
+        except RuntimeError as e:
+            print(f"{dev} {name}: {e}")
+'''
+
+
+def sharded(parent: str | None = None) -> int:
+    """``--sharded [PARENT]``: the device phase, the build, with PARENT
+    (another tree, for example the parent commit unpacked by ``git
+    archive``) its per-device kernels on every card (``OPT_IN_PROBE``),
+    then this tree's sharded fleets and per-card kernels
+    (``phase_sharded``) and the sharded fleet's frame times: what a
+    machine of several cards adds."""
+    card = phase_device()
+    phase_build()
+    if parent is not None:
+        tree = Path(parent).resolve()
+        out = subprocess.run([sys.executable, "-c", OPT_IN_PROBE, str(tree)],
+                             cwd=tree, capture_output=True, text=True,
+                             timeout=600)
+        for line in out.stdout.splitlines():
+            print(f"[4 sharded] {tree.name}: {line}")
+        if out.returncode != 0:
+            raise AssertionError(f"the probe of {tree} failed:\n{out.stderr}")
+    with tempfile.TemporaryDirectory() as td:
+        user_dir = str(write_shader_modules(Path(td)))
+        for line in phase_sharded(user_dir):
+            print(f"[4 sharded] {line}")
+        _sharded_fleet_times(card, user_dir)
+    print("[4 sharded] every check passed")
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded"] and len(sys.argv) <= 3:
+        raise SystemExit(sharded(*sys.argv[2:]))
     if sys.argv[1:2] == ["--fused-ab"]:
         raise SystemExit(fused_ab(sys.argv[2:]))
     if sys.argv[1:2] == ["--smooth-ab"]:

@@ -502,6 +502,222 @@ fused_update_kernel(const Args a, const __grid_constant__ CUtensorMap grav_map,
     }
 }
 
+// -- the split route (n above 65536) -----------------------------------
+//
+// A row of m = k * 2048 points does not fit one cluster (16 CTAs of
+// 2048-point FFTs at most), so the four-step split goes through device
+// memory in two launches, with no cluster:
+//
+// * Pass A, the columns. CTA (row, blk) takes columns j1 = blk*cols ..
+//   of its row. Its threads first stage x[j1 + k*j2] * window for all
+//   of its columns (a thread's `cols` loads of a j2 fall in one 32-byte
+//   sector, so the stride-k read of the audio costs one sector a j2,
+//   not `cols`), then, a column at a time, run the 2048-point Stockham
+//   FFT in float64 (the one-cluster kernel's passes), scale bin f2 by
+//   W_m^(j1*f2) and write Y[row, j1, f2] (double2) to the scratch
+//   tensor the wrapper allocates.
+// * Pass B, the k-point stage and the epilogue. CTA (row, blk) owns
+//   `run` consecutive f2 = blk*run + col: it reads Y[row, :, f2] (runs
+//   of `run` complex doubles), takes the k-point DFTs over j1 of all
+//   its columns at once as batched Stockham passes (radix 8 and 4,
+//   twiddles W_k^t from the table), and runs the epilogue on bins
+//   f1*2048 + f2 straight against device memory: gravity read and
+//   written, the row's ring slot written, the other F - 1 slots read in
+//   f order for the age-weighted average.
+//
+// What bounds it: bytes. The scratch round trip (16 bytes a complex
+// bin, written once and read once) doubles the ~40 bytes a bin the
+// function itself must move at F 6; the k-point stage's twiddles and
+// the column FFTs' stay in shared memory. Offsets are size_t: B*F*n
+// passes 2^31 (B 128, F 6, n 2^22).
+
+constexpr int kMaxSplitCols = 4;   // ops/fused.py SPLIT_COLS
+
+__global__ void __launch_bounds__(kThreads)
+split_columns_kernel(const float* __restrict__ pcm,
+                     const float* __restrict__ window,
+                     const double2* __restrict__ twiddle,
+                     double2* __restrict__ Y, int n, int k, int m2,
+                     int nstages, int radix_code, int cols)
+{
+    extern __shared__ __align__(16) unsigned char smem[];
+    double2* buf0 = (double2*)smem;
+    double2* buf1 = buf0 + m2;
+    double2* tw = buf1 + m2;                 // W_m2^t
+    float2* stage = (float2*)(tw + m2);      // cols x m2 windowed pairs
+    const int blocks = (k + cols - 1) / cols;
+    const int row = blockIdx.x / blocks;
+    const int j0 = (blockIdx.x % blocks) * cols;
+    const int ncol = min(cols, k - j0);
+
+    for (int t = threadIdx.x; t < m2; t += kThreads) tw[t] = twiddle[t];
+    const float2* pcm2 = (const float2*)(pcm + (size_t)row * n);
+    const float2* win2 = (const float2*)window;
+    for (int j2 = threadIdx.x; j2 < m2; j2 += kThreads) {
+        const size_t g = (size_t)j0 + (size_t)k * j2;
+#pragma unroll
+        for (int c = 0; c < kMaxSplitCols; ++c) {
+            if (c < ncol) {
+                const float2 x = __ldg(pcm2 + g + c), w = __ldg(win2 + g + c);
+                stage[c * m2 + j2] = make_float2(x.x * w.x, x.y * w.y);
+            }
+        }
+    }
+    for (int c = 0; c < ncol; ++c) {
+        __syncthreads();   // the stage is in; the last column's bins read
+        for (int j2 = threadIdx.x; j2 < m2; j2 += kThreads) {
+            const float2 v = stage[c * m2 + j2];
+            buf0[j2] = make_double2(v.x, v.y);
+        }
+        __syncthreads();
+        double2* in = buf0;
+        double2* out = buf1;
+        int Ns = 1;
+        for (int s = 0; s < nstages; ++s) {
+            const int lr = (radix_code >> (2 * s)) & 3;
+            fft_pass<false>(lr, in, out, tw, m2, Ns, nullptr, nullptr, 0, 0);
+            __syncthreads();
+            double2* t = in;
+            in = out;
+            out = t;
+            Ns <<= lr;
+        }
+        const int j1 = j0 + c;
+        const double2* post = twiddle + m2 + (size_t)j1 * m2;
+        double2* y = Y + ((size_t)row * k + j1) * m2;
+        for (int f2 = threadIdx.x; f2 < m2; f2 += kThreads)
+            y[f2] = cmul(in[f2], __ldg(post + f2));
+    }
+}
+
+// One Stockham pass of radix R of the k-point DFT over the 2^lrun
+// columns of a stage CTA at once: element (j, col) at j*2^lrun + col
+template <int R>
+__device__ __forceinline__ void stage_pass(const double2* in, double2* out,
+                                           const double2* tw, int k, int Ns,
+                                           int lrun)
+{
+    const int Q = k / R;
+    const int step = k / (Ns * R);
+    const int total = Q << lrun;
+    const int cmask = (1 << lrun) - 1;
+    for (int q = threadIdx.x; q < total; q += kThreads) {
+        const int j = q >> lrun, col = q & cmask;
+        double2 v[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) v[r] = in[((j + r * Q) << lrun) + col];
+        const int jm = j & (Ns - 1);
+#pragma unroll
+        for (int r = 1; r < R; ++r) v[r] = cmul(v[r], tw[jm * r * step]);
+        dft<R>(v);
+        const int d = (j - jm) * R + jm;
+#pragma unroll
+        for (int r = 0; r < R; ++r) out[((d + r * Ns) << lrun) + col] = v[r];
+    }
+}
+
+struct SplitArgs {
+    const double2* Y;         // (B, k, m2) scaled column bins
+    const double2* twiddle;   // the plan's table; W_k^t at m2 + m
+    const float* age_w;
+    const int* slot;
+    const float* fft_scale;
+    const float* fft_cutoff;
+    const float* gravity_g;
+    float* grav;
+    float* hist;
+    float* avg;
+    int n, F, k, m2, kstages, kradix_code, run;
+};
+
+__global__ void __launch_bounds__(kThreads)
+split_stage_kernel(const SplitArgs a)
+{
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int k = a.k, m2 = a.m2, run = a.run, F = a.F;
+    const int lrun = __ffs(run) - 1;
+    const int P = k * run;
+    const size_t m = (size_t)k * m2;
+    const size_t plane = 2 * m;
+    double2* buf0 = (double2*)smem;
+    double2* buf1 = buf0 + P;
+    double2* tw = buf1 + P;                  // W_k^t
+    float* ws = (float*)(tw + k);            // the F age weights
+    const int blocks = m2 / run;
+    const int row = blockIdx.x / blocks;
+    const int f20 = (blockIdx.x % blocks) * run;
+
+    int sl = a.slot[row] % F;
+    if (sl < 0) sl += F;
+    const float fs = a.fft_scale[row];
+    const float base = 1.0f - a.fft_cutoff[row];
+    const float g = a.gravity_g[row];
+    for (int f = threadIdx.x; f < F; f += kThreads) ws[f] = a.age_w[f];
+    const double2* ktw = a.twiddle + m2 + m;
+    for (int t = threadIdx.x; t < k; t += kThreads) tw[t] = ktw[t];
+    const double2* y = a.Y + (size_t)row * m + f20;
+    for (int q = threadIdx.x; q < P; q += kThreads)
+        buf0[q] = y[(size_t)(q >> lrun) * m2 + (q & (run - 1))];
+    __syncthreads();
+
+    double2* in = buf0;
+    double2* out = buf1;
+    int Ns = 1;
+    for (int s = 0; s < a.kstages; ++s) {
+        const int lr = (a.kradix_code >> (2 * s)) & 3;
+        if (lr == 3)
+            stage_pass<8>(in, out, tw, k, Ns, lrun);
+        else
+            stage_pass<4>(in, out, tw, k, Ns, lrun);
+        __syncthreads();
+        double2* t = in;
+        in = out;
+        out = t;
+        Ns <<= lr;
+    }
+
+    // the epilogue of bins f1*m2 + f20 + col, held at in[f1*run + col]
+    float* grav = a.grav + (size_t)row * plane;
+    float* hist = a.hist + (size_t)row * F * plane;
+    float* avg = a.avg + (size_t)row * plane;
+    for (int i = threadIdx.x; i < 2 * P; i += kThreads) {
+        const int c = i >= P, l = i - c * P;
+        const size_t bin = (size_t)(l >> lrun) * m2 + f20 + (l & (run - 1));
+        const double2 X = in[l];
+        const float v = (float)(c ? X.y : X.x);
+        // n is a power of two: times 1/n is exactly the division by n
+        const float jn = (float)(2 * bin + c) * (1.0f / (float)a.n);
+        float spec = logf(fabsf(v) + 1.0f) / 3.0f;
+        spec = spec * fmaxf(jn * fs + base, 1.0f);
+        spec = fminf(fmaxf(spec, 0.0f), 1.0f);
+        const size_t at = (size_t)c * m + bin;
+        float gval = fmaxf(grav[at], spec) - g;
+        gval = fminf(fmaxf(gval, 0.0f), 1.0f);
+        grav[at] = gval;
+        hist[(size_t)sl * plane + at] = gval;
+        float acc = 0.0f;
+        for (int f = 0; f < F; ++f) {
+            int age = sl - f;
+            if (age < 0) age += F;
+            acc += ws[age] * (f == sl ? gval : hist[(size_t)f * plane + at]);
+        }
+        avg[at] = fminf(fmaxf(acc, 0.0f), 1.0f);
+    }
+}
+
+// log2 radices in 2-bit fields -> the points they multiply to, or 0 if a
+// pass is not radix 8 or 4
+int stage_points(int nstages, int radix_code)
+{
+    int points = 1;
+    for (int s = 0; s < nstages; ++s) {
+        const int lr = (radix_code >> (2 * s)) & 3;
+        if (lr < 2) return 0;
+        points <<= lr;
+    }
+    return points;
+}
+
 // cuTensorMapEncodeTiled, from the driver through the runtime (no link
 // against libcuda)
 typedef CUresult (*EncodeTiled)(
@@ -563,14 +779,8 @@ extern "C" int glava_fused_update(
         || m % k)
         return (int)cudaErrorInvalidValue;
     const int m2 = m / k;
-    int points = 1;
-    for (int s = 0; s < nstages; ++s) {
-        const int lr = (radix_code >> (2 * s)) & 3;
-        if (lr < 2) return (int)cudaErrorInvalidValue;   // radix 8 or 4
-        points <<= lr;
-    }
     // runs of m2/k >= 4 floats keep every copy's rows 16-byte multiples
-    if (points != m2 || 2 * m2 < kThreads || 2 * m2 > kMaxPer * kThreads
+    if (stage_points(nstages, radix_code) != m2 || 2 * m2 < kThreads || 2 * m2 > kMaxPer * kThreads
         || (k & (k - 1)) || m2 / k < 4)
         return (int)cudaErrorInvalidValue;
     // a cluster of 16 has one instance: 2048-point CTA FFTs (n 65536)
@@ -621,5 +831,60 @@ extern "C" int glava_fused_update(
     cfg.numAttrs = 1;
     err = cudaLaunchKernelEx(&cfg, kernel, a, grav_map, hist_map);
     if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+}
+
+
+// The split route (n above 65536), two launches on `stream`; returns a
+// CUDA error code (0 on success), a refused shared-memory request or
+// launch returned, never retried. The caller validates as for
+// glava_fused_update, allocates `scratch` (B x m complex doubles) on
+// the rows' device, and passes the plan of ops/fused.py fft_plan(n)
+// (its split_args): k column CTAs' worth of columns a row, the m/k =
+// 2048-point column FFT's passes, the k-point stage's passes, the
+// columns a column CTA takes, the f2 a stage CTA owns and the two
+// CTAs' dynamic shared memory in bytes.
+extern "C" int glava_fused_update_split(
+    const void* pcm, const void* window, const void* twiddle,
+    const void* age_w, const void* slot, const void* fft_scale,
+    const void* fft_cutoff, const void* gravity_g,
+    void* grav, void* hist, void* avg, void* scratch,
+    int B, int n, int F, int k, int nstages, int radix_code, int kstages,
+    int kradix_code, int cols, int run, int smem_a, int smem_b,
+    void* stream)
+{
+    const int m = n >> 1;
+    if (B < 1 || F < 1 || k < 16 || (k & (k - 1)) || m % k || cols < 1
+        || cols > kMaxSplitCols || run < 1 || (run & (run - 1)))
+        return (int)cudaErrorInvalidValue;
+    const int m2 = m / k;
+    if (stage_points(nstages, radix_code) != m2
+        || stage_points(kstages, kradix_code) != k || m2 % run)
+        return (int)cudaErrorInvalidValue;
+    const long long grid_a = (long long)B * ((k + cols - 1) / cols);
+    const long long grid_b = (long long)B * (m2 / run);
+    if (grid_a > 0x7fffffff || grid_b > 0x7fffffff)
+        return (int)cudaErrorInvalidValue;
+    // the opt-in applies to the current device: asked at every launch
+    cudaError_t err = cudaFuncSetAttribute(
+        split_columns_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_a);
+    if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(
+            split_stage_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            smem_b);
+    if (err != cudaSuccess) return (int)err;
+    const cudaStream_t s = (cudaStream_t)stream;
+    split_columns_kernel<<<(unsigned)grid_a, kThreads, smem_a, s>>>(
+        (const float*)pcm, (const float*)window, (const double2*)twiddle,
+        (double2*)scratch, n, k, m2, nstages, radix_code, cols);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const SplitArgs a = {
+        (const double2*)scratch, (const double2*)twiddle, (const float*)age_w,
+        (const int*)slot, (const float*)fft_scale, (const float*)fft_cutoff,
+        (const float*)gravity_g, (float*)grav, (float*)hist, (float*)avg,
+        n, F, k, m2, kstages, kradix_code, run};
+    split_stage_kernel<<<(unsigned)grid_b, kThreads, smem_b, s>>>(a);
     return (int)cudaGetLastError();
 }

@@ -50,6 +50,7 @@ namespace {
 constexpr int kThreads = 512;
 constexpr int kUnroll = 4;                     // points a thread has in flight
 constexpr int kMaxC = 4;
+constexpr int kMaxDevices = 64;                 // per-device opt-ins
 
 struct Args {
     const float* tab[kMaxC];
@@ -264,20 +265,23 @@ cudaError_t launch(const int* idx, const Args& a, int N, int T, int P,
                                                               i_fast, band);
         return cudaGetLastError();
     }
-    // above 48 KB needs the opt-in: to the card's most, once
-    static bool opted_in = false;
-    if (!opted_in) {
-        int dev = 0, most = 0;
-        cudaError_t err = cudaGetDevice(&dev);
-        if (err == cudaSuccess)
-            err = cudaDeviceGetAttribute(
-                &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    // above 48 KB needs the opt-in, which holds for the current device
+    // only: to the card's most, once a device
+    static bool opted_in[kMaxDevices] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+    if (!opted_in[dev]) {
+        int most = 0;
+        err = cudaDeviceGetAttribute(
+            &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
         if (err == cudaSuccess)
             err = cudaFuncSetAttribute(
                 rowwise_staged_kernel<C, S>,
                 cudaFuncAttributeMaxDynamicSharedMemorySize, most);
         if (err != cudaSuccess) return err;
-        opted_in = true;
+        opted_in[dev] = true;
     }
     rowwise_staged_kernel<C, S><<<strips, kThreads, smem, s>>>(idx, a, N, T, P,
                                                               i_fast);

@@ -54,6 +54,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kEntryBytes = 24;   // one prefix entry: a double and 4 ints
+constexpr int kMaxDevices = 64;   // per-device shared-memory opt-ins
 
 // the statistics of a run of entries
 struct Stat {
@@ -234,14 +235,21 @@ extern "C" int glava_smooth_scan(const void* x, const void* bounds, void* out,
     if (rows < 1 || sz < 1 || asz < 0 || asz > sz || (!staged && !scratch))
         return (int)cudaErrorInvalidValue;
     const size_t smem = staged ? (size_t)(sz + asz + 2) * kEntryBytes : 0;
-    // the opt-in above 48 KB, raised once to the largest size asked for
-    static size_t opted = 48 * 1024;
-    if (smem > opted) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            smooth_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
+    // the opt-in above 48 KB holds for the current device only: raised
+    // on each device to the largest size asked for there
+    static size_t opted[kMaxDevices] = {};
+    if (smem > 48 * 1024) {
+        int dev = 0;
+        cudaError_t e = cudaGetDevice(&dev);
         if (e != cudaSuccess) return (int)e;
-        opted = smem;
+        if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+        if (smem > opted[dev]) {
+            e = cudaFuncSetAttribute(
+                smooth_scan_kernel,
+                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+            if (e != cudaSuccess) return (int)e;
+            opted[dev] = smem;
+        }
     }
     smooth_scan_kernel<<<rows, kThreads, smem, (cudaStream_t)stream>>>(
         (const float*)x, (const int2*)bounds, (float*)out, (char*)scratch, sz,

@@ -22,11 +22,15 @@ tensors; it never falls back from one to the other. Bufsizes below
 the kernel's run :func:`chain_update` on any device, chosen from the
 shape alone (:func:`update_route`).
 
-The kernel runs each row on a cluster of ``k`` CTAs that split its
-m-point FFT four-step wise; :func:`fft_plan` picks ``k``, the CTAs'
-FFT radices and (``FFTPlan.slots``) how much history fits in shared
-memory, and :func:`twiddle_table` builds the float64 table the kernel
-copies in. The CPU tests read both to check the split's index mapping.
+Up to n = MAX_N (65536) the kernel runs each row on a cluster of ``k``
+CTAs that split its m-point FFT four-step wise; :func:`fft_plan` picks
+``k``, the CTAs' FFT radices and (``FFTPlan.slots``) how much history
+fits in shared memory, and :func:`twiddle_table` builds the float64
+table the kernel copies in. Above MAX_N the plan is a split one
+(``FFTPlan.split``): two launches through a float64 scratch tensor, the
+column FFTs first, then the k-point stage and the epilogue
+(:data:`split_launches` counts them). The CPU tests read the plans to
+check both splits' index mappings.
 """
 
 from __future__ import annotations
@@ -41,13 +45,20 @@ import torch
 from glava_tpu_torch.ops import fft
 from glava_tpu_torch.ops._build import SMEM_LIMIT
 
-# kernel launches made by fused_update (CUDA tensors only)
+# kernel launches made by fused_update (CUDA tensors only): the
+# one-cluster kernel (n up to MAX_N), and the split route above it
 launches = 0
+split_launches = 0
 
 PORTABLE_CLUSTER = 8     # CTAs a cluster may hold on any card
 MAX_CLUSTER = 16         # ... on an H100, with the non-portable opt-in
 MAX_CTA_POINTS = 2048    # one CTA's FFT: 88 bytes of shared memory a point
+# the one-cluster plans' sizes; above MAX_N the split plans, up to
+# MAX_SPLIT_N, where the k-point stage's 4096 columns fill a CTA
 MIN_N, MAX_N = 256, 2 * MAX_CLUSTER * MAX_CTA_POINTS
+MAX_SPLIT_N = 1 << 24
+SPLIT_COLS = 4           # consecutive columns j1 one column CTA takes,
+SPLIT_CTAS = 512         # ... where the rows give this many CTAs or more
 
 _TWIDDLES: dict[tuple[int, torch.device], torch.Tensor] = {}
 
@@ -65,6 +76,16 @@ class FFTPlan:
     ``f1*m2 + f2`` (f1 < k) as the k-point DFTs
     ``sum_j1 W_k^(j1*f1) * Y_j1[f2]`` and runs the epilogue (gravity,
     history, average) of those k runs of ``run`` bins.
+
+    A split plan (n above MAX_N, :attr:`split`) takes no cluster: k =
+    m / 2048 column CTAs a row, SPLIT_COLS columns j1 each, run the
+    same 2048-point FFT, scale by ``W_m^(j1*f2)`` and write
+    ``Y[row, j1, f2]`` to a float64 scratch tensor; then a stage CTA
+    owns ``split_run`` consecutive f2 of one row, reads ``Y[row, :,
+    f2]``, takes the k-point DFTs over j1 as Stockham passes of
+    :attr:`stage_radices` on all its columns at once, and runs the
+    epilogue on bins ``f1*m2 + f2``, the history read from device
+    memory.
     """
     n: int
     k: int
@@ -79,8 +100,41 @@ class FFTPlan:
     def radix_code(self) -> int:
         """The radices as the kernel reads them: log2 of stage s in
         bits 2s, 2s+1."""
-        return sum((int(r).bit_length() - 1) << (2 * s)
-                   for s, r in enumerate(self.radices))
+        return _radix_code(self.radices)
+
+    @property
+    def split(self) -> bool:
+        """Two launches through device memory instead of one cluster."""
+        return self.n > MAX_N
+
+    @property
+    def stage_radices(self) -> tuple[int, ...]:
+        """The split's k-point DFT as Stockham passes of radix 8 and 4."""
+        return _radices(self.k)
+
+    @property
+    def split_run(self) -> int:
+        """Consecutive f2 a stage CTA owns: 2048 points of k-point
+        columns where k <= 512 (runs of 16 bytes and more), 4096 above,
+        one column at k 4096."""
+        return max(1, min(max(2048, 4 * self.k), 4096) // self.k)
+
+    def split_cols(self, B: int) -> int:
+        """Columns a column CTA takes at B rows: SPLIT_COLS, so that a
+        thread's loads of one j2 share a 32-byte sector of the audio,
+        where that still leaves SPLIT_CTAS CTAs; else 1, for latency at
+        a few rows."""
+        return SPLIT_COLS if B * self.k >= SPLIT_CTAS * SPLIT_COLS else 1
+
+    def split_smem(self, F: int, cols: int) -> tuple[int, int]:
+        """Dynamic shared memory of a split plan's two CTAs. Column CTA:
+        two FFT buffers and the m2-point twiddles (complex doubles), then
+        ``cols`` staged columns of windowed float pairs. Stage CTA: two
+        buffers of ``k * split_run`` complex doubles, the k-point
+        twiddles and the F age weights."""
+        points = self.k * self.split_run
+        return (48 * self.m2 + 8 * cols * self.m2,
+                32 * points + 16 * self.k + 4 * F)
 
     def smem_bytes(self, F: int) -> int:
         """Dynamic shared memory of one CTA for a ring of F slots: two
@@ -100,6 +154,19 @@ class FFTPlan:
         return min(F, free // (8 * self.m2))
 
 
+def _radices(points: int) -> tuple[int, ...]:
+    """A power of two >= 16 as radix-8 passes with one or two radix-4
+    passes where its log2 is not a multiple of 3."""
+    p = points.bit_length() - 1
+    return {0: (8,) * (p // 3), 1: (8,) * ((p - 4) // 3) + (4, 4),
+            2: (8,) * ((p - 2) // 3) + (4,)}[p % 3]
+
+
+def _radix_code(radices) -> int:
+    return sum((int(r).bit_length() - 1) << (2 * s)
+               for s, r in enumerate(radices))
+
+
 @functools.lru_cache(maxsize=None)
 def fft_plan(n: int) -> FFTPlan:
     """The kernel's plan for bufsize ``n``: a cluster of k = m/256 CTAs
@@ -107,30 +174,32 @@ def fft_plan(n: int) -> FFTPlan:
     to 2048-point FFT; at n 65536, where 8 CTAs would each need 4096
     points, 16 CTAs of 2048. The FFT runs in radix-8 passes with one or
     two radix-4 passes where log2(m2) is not a multiple of 3; each CTA
-    owns runs of m2/k >= 32 bins."""
-    if n < MIN_N or n > MAX_N or n & (n - 1):
+    owns runs of m2/k >= 32 bins. Above MAX_N (65536) a split plan of
+    k = m/2048 column CTAs a row and no cluster, up to MAX_SPLIT_N."""
+    if n < MIN_N or n > MAX_SPLIT_N or n & (n - 1):
         raise ValueError(f"fused_update: n must be a power of two in "
-                         f"[{MIN_N}, {MAX_N}], got {n}")
+                         f"[{MIN_N}, {MAX_SPLIT_N}], got {n}")
     m = n // 2
     k = min(PORTABLE_CLUSTER, max(1, m // 256))
-    if m // k > MAX_CTA_POINTS:
+    if m // k > MAX_CTA_POINTS:     # 65536, and every split plan
         k = m // MAX_CTA_POINTS
     m2 = m // k
-    p = m2.bit_length() - 1
-    radices = {0: (8,) * (p // 3), 1: (8,) * ((p - 4) // 3) + (4, 4),
-               2: (8,) * ((p - 2) // 3) + (4,)}[p % 3]
-    return FFTPlan(n, k, m2, radices)
+    return FFTPlan(n, k, m2, _radices(m2))
 
 
 def twiddle_table(plan: FFTPlan) -> np.ndarray:
     """complex128 (m2 + m,): ``W_m2^t`` for t < m2 (the CTAs' FFT
     passes), then ``W_m^(j1*f2)`` at m2 + j1*m2 + f2 (CTA j1's scaling
-    of its bins)."""
+    of its bins); a split plan appends ``W_k^t`` for t < k (its k-point
+    stage)."""
     m, m2 = plan.m, plan.m2
     inner = np.exp(-2j * np.pi * np.arange(m2) / m2)
     j1, f2 = np.meshgrid(np.arange(plan.k), np.arange(m2), indexing="ij")
     outer = np.exp(-2j * np.pi * (j1 * f2 % m) / m).reshape(-1)
-    return np.concatenate([inner, outer])
+    parts = [inner, outer]
+    if plan.split:
+        parts.append(np.exp(-2j * np.pi * np.arange(plan.k) / plan.k))
+    return np.concatenate(parts)
 
 
 def age_weights(avg_weights) -> np.ndarray:
@@ -189,19 +258,16 @@ def check_length(n: int) -> None:
 
 
 def update_route(n: int) -> str:
-    """How an update at bufsize ``n`` runs: ``"kernel"`` where the
-    kernel takes n (a power of two in [MIN_N, MAX_N]); ``"chain"``
-    (:func:`chain_update`) below MIN_N, sizes under any TPU kernel's too
-    (the JAX package's ``_fused_supported`` wants n >= 512 and takes
-    its XLA chain below). Raises ``ValueError`` unless n is a power of
-    two >= 4, the packed FFT's lengths (glava_tpu/ops/fft.py
-    ``plan_packed_fft``), and ``NotImplementedError`` above MAX_N, where
-    the kernel's one-cluster split runs out of shared memory."""
+    """How an update at bufsize ``n`` runs: ``"kernel"`` from MIN_N up
+    (the one-cluster kernel to MAX_N, the split route above it, as the
+    JAX package's ``_fused_supported`` sets no upper limit);
+    ``"chain"`` (:func:`chain_update`) below MIN_N, sizes under any TPU
+    kernel's too (the JAX package's ``_fused_supported`` wants n >= 512
+    and takes its XLA chain below). Raises ``ValueError`` unless n is a
+    power of two >= 4, the packed FFT's lengths (glava_tpu/ops/fft.py
+    ``plan_packed_fft``). A launch above MAX_SPLIT_N (2^24) raises
+    ``ValueError`` from :func:`fft_plan` on the card."""
     check_length(n)
-    if n > MAX_N:
-        raise NotImplementedError(
-            f"bufsize {n}: the fused kernel takes at most {MAX_N} "
-            "(ROADMAP queue 2)")
     return "kernel" if n >= MIN_N else "chain"
 
 
@@ -278,26 +344,42 @@ def _plan_args(n: int, F: int) -> tuple[int, ...]:
             plan.smem_bytes(F))
 
 
-_FN = None
+@functools.lru_cache(maxsize=None)
+def _split_args(n: int, F: int, B: int) -> tuple[int, ...]:
+    """A split plan as its C entry takes it: k, the column FFT's pass
+    count and radix code, the k-point stage's, the columns a column CTA
+    takes, the f2 a stage CTA owns, and the two CTAs' shared memory."""
+    plan = fft_plan(n)
+    cols = plan.split_cols(B)
+    return (plan.k, len(plan.radices), plan.radix_code,
+            len(plan.stage_radices), _radix_code(plan.stage_radices),
+            cols, plan.split_run, *plan.split_smem(F, cols))
 
 
-def _kernel():
-    """The built kernel's C entry point, resolved once."""
-    global _FN
-    if _FN is None:
+_FN: dict[str, object] = {}
+
+
+def _kernel(entry: str = "glava_fused_update"):
+    """A C entry point of the built kernel, resolved once: the
+    one-cluster kernel, or ``glava_fused_update_split``."""
+    if entry not in _FN:
         from glava_tpu_torch.ops import _build
 
-        fn = _build.load("fused_update").lib.glava_fused_update
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
-                       + [ctypes.c_void_p])
+        fn = getattr(_build.load("fused_update").lib, entry)
+        if entry == "glava_fused_update":
+            fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+                           + [ctypes.c_void_p])
+        else:
+            fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 12
+                           + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+        _FN[entry] = fn
+    return _FN[entry]
 
 
 def _launch(pcm, grav, hist, slot, fft_scale, fft_cutoff, g, window,
             age_weights):
-    global launches
+    global launches, split_launches
     if pcm.ndim != 2 or hist.ndim != 4:
         raise ValueError("fused_update: pcm must be (B, n), hist (B, F, 2, m)")
     B, n = pcm.shape
@@ -321,17 +403,29 @@ def _launch(pcm, grav, hist, slot, fft_scale, fft_cutoff, g, window,
                             ("pcm", pcm, 8), ("window", window, 8)):
         _check_aligned(name, t, nbytes)
 
-    fn = _kernel()
     tw = _twiddles(plan, dev)
     avg = torch.empty((B, 2, m), dtype=f32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(pcm.data_ptr(), window.data_ptr(), tw.data_ptr(),
-                 age_weights.data_ptr(), slot.data_ptr(), fft_scale.data_ptr(),
-                 fft_cutoff.data_ptr(), g.data_ptr(), grav.data_ptr(),
-                 hist.data_ptr(), avg.data_ptr(), B, n, F,
-                 *_plan_args(n, F), stream)
+    ptrs = (pcm.data_ptr(), window.data_ptr(), tw.data_ptr(),
+            age_weights.data_ptr(), slot.data_ptr(), fft_scale.data_ptr(),
+            fft_cutoff.data_ptr(), g.data_ptr(), grav.data_ptr(),
+            hist.data_ptr(), avg.data_ptr())
+    if plan.split:
+        fn = _kernel("glava_fused_update_split")
+        # Y[row, j1, f2], the column FFTs' scaled bins, as complex doubles
+        scratch = torch.empty((B, m, 2), dtype=torch.float64, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(*ptrs, scratch.data_ptr(), B, n, F, *_split_args(n, F, B),
+                     stream)
+    else:
+        fn = _kernel()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(*ptrs, B, n, F, *_plan_args(n, F), stream)
     if err != 0:
         raise RuntimeError(f"fused_update kernel launch failed: CUDA error {err}")
-    launches += 1
+    if plan.split:
+        split_launches += 1
+    else:
+        launches += 1
     return grav, hist, avg

@@ -27,8 +27,12 @@ gated advance (glava_tpu/parallel/batch.py:76-88). Per-stream scalars
 (S, ...)) have a leading stream axis; the ``modified`` mask is read on
 the host.
 
-There is no ``sharded_step``/``shard_state``: one card (mesh sharding
-waits for more than one GPU, ROADMAP).
+:class:`ShardedRenderer` is the counterpart of the JAX
+``BatchedRenderer.sharded_step``/``shard_state`` and
+``MixedBatchedRenderer.shard_state`` (glava_tpu/parallel/batch.py:127-163,
+306-310): one renderer a stream shard of a ``parallel.mesh.Mesh``, on
+that shard's device, over its block of streams. Its state stays per
+shard and is never gathered.
 """
 
 from __future__ import annotations
@@ -255,6 +259,72 @@ class MixedBatchedRenderer:
         if self._inv is not None:
             frames = frames[self._inv]
         return RenderState(chains, key_start, key_end), frames
+
+
+class ShardedRenderer:
+    """A fleet over the stream shards of ``mesh``
+    (``parallel.mesh.stream_slices``): shard i renders streams
+    ``slices[i]`` on ``devices[i]``, a :class:`BatchedRenderer` of
+    ``loadeds[0]`` when the fleet runs one variant, else a
+    :class:`MixedBatchedRenderer` of the variants its slice of
+    ``assign`` uses (only those are built). A mesh whose rows extent is
+    above 1 raises ``NotImplementedError``."""
+
+    def __init__(self, loadeds: list[LoadedConfig], assign: list[int], mesh,
+                 screen: tuple[int, int] | None = None):
+        from glava_tpu_torch.parallel.mesh import stream_shards, stream_slices
+
+        if not loadeds:
+            raise ValueError("need at least one module variant")
+        if any(not 0 <= a < len(loadeds) for a in assign):
+            raise ValueError("stream assignment out of range")
+        self.devices = stream_shards(mesh)
+        self.slices = stream_slices(mesh, len(assign))
+        self.n_streams = len(assign)
+        self.shards = []
+        for sl, dev in zip(self.slices, self.devices):
+            sub = list(assign[sl])
+            if len(loadeds) == 1:
+                self.shards.append(BatchedRenderer(loadeds[0], len(sub),
+                                                   screen, device=dev))
+                continue
+            used = sorted(set(sub))
+            self.shards.append(MixedBatchedRenderer(
+                [loadeds[k] for k in used], [used.index(a) for a in sub],
+                screen, device=dev))
+        self.cfg = self.shards[0].cfg
+        self.screen = self.shards[0].screen
+        if any(sh.screen != self.screen for sh in self.shards):
+            raise ValueError("variants must share the frame geometry")
+
+    def init_state(self) -> list[RenderState]:
+        """One state a shard, each on its shard's device."""
+        return [sh.init_state() for sh in self.shards]
+
+    def step(self, states: list[RenderState], audio, modified, time,
+             interp_mod, gravity_g, pipe: dict | None = None,
+             quantize: bool = False):
+        """:meth:`BatchedRenderer.step` of every shard, back to back on
+        each device's current stream with no host synchronisation
+        between them: ``audio`` (S, 2, bufsize) on the host (one copy to
+        each shard's device of its block); the per-stream inputs and
+        pipe rows are sliced per shard. Returns the new per-shard states
+        and the per-shard (S_i, H, W, 4) frames, each on its shard's
+        device."""
+        modified, time = _host(modified), _host(time)
+        interp_mod, gravity_g = _host(interp_mod), _host(gravity_g)
+        pipe = _pipe_rows(pipe)
+        out_states, frames = [], []
+        for sh, sl, st in zip(self.shards, self.slices, states):
+            a = torch.as_tensor(audio[sl], dtype=torch.float32).to(
+                sh.device, non_blocking=True)
+            st, fr = sh.step(st, a, modified[sl], time[sl], interp_mod[sl],
+                             gravity_g[sl],
+                             {k: v[sl] for k, v in pipe.items()} if pipe
+                             else None, quantize)
+            out_states.append(st)
+            frames.append(fr)
+        return out_states, frames
 
 
 def example_batch(br, rng_seed: int = 0) -> dict:

@@ -29,8 +29,10 @@ The update's route (``AudioPipeline.route``) follows from the
 configuration alone:
 
 * ``"kernel"``: the accel path (``setaccelfft true``, the default) at a
-  scaled bufsize that is a power of two in 256..65536, the kernel's
-  sizes;
+  scaled bufsize that is a power of two from 256 up, as the JAX
+  package's ``_fused_supported`` sets no upper limit: 256..65536 on the
+  kernel's one-cluster route, above 65536 on its split route (two
+  launches through a float64 scratch tensor, ``ops.fused.fft_plan``);
 * ``"chain"``: the same function in plain torch on the rows' own device
   (``ops.fused.chain_update``): the accel path at 4..128, where the
   JAX package takes its XLA chain too (``_fused_supported``,
@@ -41,9 +43,9 @@ configuration alone:
   package never takes its Pallas kernel on the CPU path, so no kernel
   is ported for it.
 
-Other bufsizes raise ``ValueError``, and accel-path bufsizes above
-65536, which the kernel's one-cluster split does not hold (ROADMAP
-queue 2), ``NotImplementedError``.
+Other bufsizes raise ``ValueError``. Above 2^24 the split plan's
+k-point stage no longer fits a CTA, and a launch there raises
+``ValueError`` on the card.
 """
 
 from __future__ import annotations

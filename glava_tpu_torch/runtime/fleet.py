@@ -17,7 +17,11 @@ audio clocks behave as separate engines would. Pipe values
 (``StreamSpec.pipe``, e.g. ``fg``/``bg`` colours) are per stream and
 change live with :meth:`FleetEngine.set_pipe`, with no rebuild.
 
-No ``mesh``: one card (ROADMAP).
+With ``mesh`` (``parallel.mesh.make_mesh``) the fleet is sharded over
+the mesh's stream shards (``parallel.batch.ShardedRenderer``): a frame
+makes one host-to-device copy a shard of its block of snapshots, one
+step a shard, launched back to back, and one pinned (S, H, W, 4) host
+buffer that every shard's frames are copied into at their rows.
 """
 
 from __future__ import annotations
@@ -30,7 +34,9 @@ import numpy as np
 import torch
 
 from glava_tpu_torch.config.loader import LoadedConfig
-from glava_tpu_torch.parallel.batch import BatchedRenderer, MixedBatchedRenderer
+from glava_tpu_torch.parallel.batch import (
+    BatchedRenderer, MixedBatchedRenderer, ShardedRenderer,
+)
 from glava_tpu_torch.runtime import audio as audio_mod
 from glava_tpu_torch.runtime.sinks import FrameSink, make_sink
 
@@ -90,10 +96,12 @@ class FleetDynamics:
 
 class FleetEngine:
     """Multi-stream serving engine on one device (``"cuda"`` unless the
-    caller asks for ``"cpu"``)."""
+    caller asks for ``"cpu"``), or sharded over the stream shards of
+    ``mesh`` (then ``device`` is not read)."""
 
     def __init__(self, loaded: LoadedConfig, streams: list[StreamSpec],
-                 screen: tuple[int, int] | None = None, device="cuda"):
+                 screen: tuple[int, int] | None = None, device="cuda",
+                 mesh=None):
         if not streams:
             raise ValueError("fleet needs at least one stream")
         self.loaded = loaded
@@ -108,13 +116,17 @@ class FleetEngine:
                 variants.append(lc)
                 k = len(variants) - 1
             assign.append(k)
-        if len(variants) == 1:
+        self.mesh = mesh
+        if mesh is not None:
+            self.br = ShardedRenderer(variants, assign, mesh, screen=screen)
+        elif len(variants) == 1:
             self.br = BatchedRenderer(loaded, n_streams=len(streams),
                                       screen=screen, device=device)
         else:
             self.br = MixedBatchedRenderer(variants, assign, screen=screen,
                                            device=device)
-        self.device = self.br.device
+        # the device of an unsharded fleet (a mesh's are br.devices)
+        self.device = None if mesh is not None else self.br.device
         cfg = loaded.cfg
         self.sinks: list[FrameSink] = [
             s.sink if isinstance(s.sink, FrameSink) else make_sink(s.sink)
@@ -159,12 +171,14 @@ class FleetEngine:
         self._pipe_host[name][stream] = np.asarray(value, np.float32)
 
     def step(self, snaps: np.ndarray, mods: np.ndarray, tnow: float,
-             interp: np.ndarray, gravity_g: np.ndarray) -> torch.Tensor:
+             interp: np.ndarray, gravity_g: np.ndarray):
         """One fleet frame from host snapshots (S, 2, bufsize): the
-        snapshots go to the device in one copy; returns the (S, H, W, 4)
-        uint8 frames on the device."""
+        snapshots go to the device in one copy (one a shard); returns the
+        (S, H, W, 4) uint8 frames on the device (on a mesh, a list of
+        each shard's (S_i, H, W, 4) frames on its device)."""
         S = len(self.streams)
-        audio = torch.from_numpy(snaps).to(self.device)
+        audio = snaps if self.mesh is not None else \
+            torch.from_numpy(snaps).to(self.device)
         self.state, frames = self.br.step(
             self.state, audio, mods, np.full((S,), tnow, np.float32), interp,
             gravity_g, self._pipe_host, quantize=True)
@@ -217,20 +231,26 @@ class FleetEngine:
             for s in self.sinks:
                 s.close()
 
-    def fetch(self, frames: torch.Tensor) -> np.ndarray:
-        """The (S, H, W, 4) uint8 frames on the host in one transfer: on
-        CUDA into a fresh pinned tensor (``non_blocking``, then one
-        synchronize), so the copy runs at the link's rate instead of a
+    def fetch(self, frames) -> np.ndarray:
+        """The (S, H, W, 4) uint8 frames on the host: on CUDA copied into
+        ONE fresh pinned tensor (``non_blocking``, then one synchronize a
+        device), so the copy runs at the link's rate instead of a
         pageable copy's; no frame stays in flight, as in the JAX fleet.
-        A failed pinned allocation or copy raises."""
-        if frames.device.type != "cuda":
-            return frames.numpy()
-        host = torch.empty(frames.shape, dtype=frames.dtype, pin_memory=True)
-        host.copy_(frames, non_blocking=True)
-        torch.cuda.current_stream(frames.device).synchronize()
+        ``frames`` is one tensor or, on a mesh, a list of each shard's
+        frames, copied into its rows. A failed pinned allocation or copy
+        raises."""
+        parts = frames if isinstance(frames, (list, tuple)) else [frames]
+        rows = getattr(self.br, "slices", [slice(0, len(self.streams))])
+        cuda = [f.device for f in parts if f.device.type == "cuda"]
+        shape = (len(self.streams),) + tuple(parts[0].shape[1:])
+        host = torch.empty(shape, dtype=parts[0].dtype, pin_memory=bool(cuda))
+        for f, sl in zip(parts, rows):
+            host[sl].copy_(f, non_blocking=f.device.type == "cuda")
+        for dev in dict.fromkeys(cuda):
+            torch.cuda.current_stream(dev).synchronize()
         return host.numpy()
 
-    def _distribute(self, frames: torch.Tensor, tnow: float) -> None:
+    def _distribute(self, frames, tnow: float) -> None:
         host = self.fetch(frames)
         for i, sink in enumerate(self.sinks):
             sink.submit(host[i], tnow)

@@ -208,7 +208,7 @@ def test_single_stream_pipe_colours_match_jax(tmp_path):
     assert drawn.size and drawn[:, :3].mean(axis=0).argmax() == 0   # red
 
 
-def test_pipe_values_of_unbatched_modules_are_refused(tmp_path):
+def test_circle_fleet_pipe_rows_match_jax(tmp_path):
     """(Pipe values are taken by every module now.) circle's fleet
     with pipe rows meets the JAX fleet: its one colour, OUTLINE, is
     built from the load's values in both packages."""

@@ -189,7 +189,7 @@ def _split_fft_model(x, plan):
     return X
 
 
-NS = [256 << i for i in range(9)]   # every bufsize the kernel takes
+NS = [256 << i for i in range(9)]   # every bufsize of the one-cluster plans
 
 
 @pytest.mark.parametrize("n", NS)
@@ -264,6 +264,115 @@ def test_plan_args_as_the_kernel_takes_them(n, F):
     assert plan.k <= fused.PORTABLE_CLUSTER or n == fused.MAX_N == 65536
 
 
+def _stockham(a, radices, table):
+    """The kernels' Stockham passes along axis 0 of ``a`` (points,
+    columns), twiddles ``table[t] = W_points^t``: pass s of radix R
+    reads ``a[j + r*Q]``, scales by ``W^(jm*r*points/(Ns*R))`` and
+    writes ``(j - jm)*R + jm + r*Ns``, jm = j mod Ns."""
+    points = a.shape[0]
+    Ns = 1
+    for R in radices:
+        Q = points // R
+        j = np.arange(Q)
+        jm = j % Ns
+        r = np.arange(R)[:, None]
+        v = a[j + r * Q] * table[jm * r * (points // (Ns * R))][..., None]
+        v = np.fft.fft(v, axis=0)              # the R-point butterfly
+        a = np.empty_like(a)
+        a[((j - jm) * R + jm + r * Ns).reshape(-1)] = v.reshape(R * Q, -1)
+        Ns *= R
+    return a
+
+
+def _split_route_model(x, plan, cols):
+    """csrc/fused_update.cu's split route on one row in numpy float64,
+    read from ``plan``: column CTA blk stages ``x[j1 + k*j2]`` for its
+    ``cols`` columns j1 = blk*cols + c, runs the m2-point Stockham FFT
+    of each and writes ``Y[j1, f2] = FFT * W_m^(j1*f2)``; stage CTA blk
+    reads ``Y[:, blk*run + col]``, runs the k-point Stockham passes on
+    all its columns, and element i of its epilogue (plane c, local l)
+    is bin ``(l // run)*m2 + blk*run + l % run``."""
+    k, m2, run = plan.k, plan.m2, plan.split_run
+    tw = fused.twiddle_table(plan)
+    inner, outer = tw[:m2], tw[m2:m2 + plan.m].reshape(k, m2)
+    ktw = tw[m2 + plan.m:]
+    Y = np.empty((k, m2), np.complex128)
+    for blk in range(-(-k // cols)):
+        j1 = blk * cols + np.arange(min(cols, k - blk * cols))
+        stage = x[j1[None, :] + k * np.arange(m2)[:, None]]     # (m2, cols)
+        Y[j1] = (_stockham(stage, plan.radices, inner) * outer[j1].T).T
+    X = np.empty(plan.m, np.complex128)
+    P = k * run
+    for blk in range(m2 // run):
+        z = _stockham(Y[:, blk * run:(blk + 1) * run], plan.stage_radices,
+                      ktw).reshape(-1)                          # [f1*run + col]
+        l = np.arange(P)
+        X[(l // run) * m2 + blk * run + l % run] = z[l]
+    return X
+
+
+SPLIT_NS = [1 << p for p in range(17, 23)]
+
+
+@pytest.mark.parametrize("n", SPLIT_NS)
+def test_split_route_model_matches_numpy(n):
+    """Above 65536 the plan is the split route: k = m/2048 column FFTs
+    of 2048 points (the one-cluster kernel's passes), the k-point stage
+    in radix-8/4 passes, no cluster; its index mapping, read from
+    fused.fft_plan(n), is the m-point DFT to 1e-12 of the spectrum's
+    largest magnitude, with one column a column CTA and with
+    SPLIT_COLS."""
+    plan = fused.fft_plan(n)
+    assert plan.split and plan.m2 == fused.MAX_CTA_POINTS
+    assert plan.k * plan.m2 == plan.m and plan.k >= 32
+    assert int(np.prod(plan.stage_radices)) == plan.k
+    assert all(r in (4, 8) for r in plan.radices + plan.stage_radices)
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal(plan.m) + 1j * rng.standard_normal(plan.m)
+    want = np.fft.fft(x)
+    for cols in (1, fused.SPLIT_COLS):
+        got = _split_route_model(x, plan, cols)
+        assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("F", [1, 6, 64])
+@pytest.mark.parametrize("n", SPLIT_NS + [1 << 23, 1 << 24])
+def test_split_args_as_the_kernel_takes_them(n, F):
+    """The split C entry's plan arguments: the 2048-point column FFT's
+    and the k-point stage's 2-bit log2 radices, columns a column CTA
+    takes (SPLIT_COLS only where the rows still give SPLIT_CTAS CTAs),
+    a power-of-two run of f2 dividing m2 with runs of 16 bytes or more
+    up to k 1024, and both CTAs' shared memory under the H100's 227 KB
+    for any ring (the stage CTA reads the history from device memory);
+    the plan stops at MAX_SPLIT_N."""
+    plan = fused.fft_plan(n)
+    for B in (1, 2, 128):
+        (k, nstages, code, kstages, kcode, cols, run, smem_a,
+         smem_b) = fused._split_args(n, F, B)
+        assert (k, code) == (plan.k, plan.radix_code)
+        assert 2 ** sum((code >> (2 * s)) & 3 for s in range(nstages)) == plan.m2
+        fields = [(kcode >> (2 * s)) & 3 for s in range(kstages)]
+        assert all(f in (2, 3) for f in fields) and 2 ** sum(fields) == k
+        assert cols == (fused.SPLIT_COLS
+                        if B * k >= fused.SPLIT_CTAS * fused.SPLIT_COLS else 1)
+        assert run & (run - 1) == 0 and plan.m2 % run == 0
+        assert run >= 4 if k <= 1024 else run >= 1
+        assert (smem_a, smem_b) == plan.split_smem(F, cols)
+        assert max(smem_a, smem_b) <= fused.SMEM_LIMIT
+    with pytest.raises(ValueError, match="power of two"):
+        fused.fft_plan(fused.MAX_SPLIT_N * 2)
+
+
+def test_split_twiddles_append_the_stage_table():
+    plan = fused.fft_plan(1 << 18)
+    tw = fused.twiddle_table(plan)
+    assert tw.shape == (plan.m2 + plan.m + plan.k,)
+    np.testing.assert_allclose(tw[plan.m2 + plan.m + 3],
+                               np.exp(-6j * np.pi / plan.k), rtol=0, atol=1e-15)
+    assert fused.twiddle_table(fused.fft_plan(1 << 16)).shape == (
+        fused.fft_plan(1 << 16).m2 + (1 << 15),)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -272,7 +381,8 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [256, 1024, 4096, 16384, 32768, 65536])
+@pytest.mark.parametrize("n", [256, 1024, 4096, 16384, 32768, 65536, 131072,
+                               262144])
 @pytest.mark.parametrize("B", [2, 64])
 def test_kernel_matches_plain_on_card(cuda, n, B):
     F = 6
@@ -313,3 +423,16 @@ def test_kernel_counts_launches(cuda):
                        z(B) + 10.2, z(B) + 0.3, z(B) + 0.05, window, w_age)
     torch.cuda.synchronize()
     assert fused.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_split_route_counts_launches(cuda):
+    n, F, B = 1 << 17, 6, 2
+    window, w_age = _plain_args(n, F, cuda)
+    z = lambda *s: torch.zeros(s, device=cuda)  # noqa: E731
+    before = (fused.launches, fused.split_launches)
+    fused.fused_update(z(B, n), z(B, 2, n // 2), z(B, F, 2, n // 2),
+                       torch.zeros(B, dtype=torch.int32, device=cuda),
+                       z(B) + 10.2, z(B) + 0.3, z(B) + 0.05, window, w_age)
+    torch.cuda.synchronize()
+    assert (fused.launches, fused.split_launches) == (before[0], before[1] + 1)

@@ -282,13 +282,14 @@ def test_stateless_chain_textures_match_jax(uniforms):
 
 
 @pytest.mark.parametrize("case", ["cpu_path", "chain", "smooth", "bufsize131072"])
-def test_unported_configurations_raise(case):
-    """Of the configurations this test once saw refused, only the accel
-    path above the fused kernel's one-cluster split (fused.MAX_N) still
-    raises; the CPU path takes the chain route at any bufsize (131072
-    too), an fft chain holding ``smooth`` takes the fft update, and a
-    stateless ``smooth`` chain keeps no state (their values are held
-    against the JAX package in tests/test_torch_cpu_path.py)."""
+def test_configuration_routes(case):
+    """The update route of configurations the port once refused: the
+    CPU path takes the chain route at any bufsize (131072 too), an fft
+    chain holding ``smooth`` takes the fft update, a stateless
+    ``smooth`` chain keeps no state (their values are held against the
+    JAX package in tests/test_torch_cpu_path.py), and the accel path
+    above the one-cluster kernel's 65536 takes the kernel route, the
+    split plan on the card (its values in ``CHAIN_CASES`` below)."""
     cfg = RenderConfig(bufsize=1024)
     uniforms = [UniformSpec(*u) for u in BARS]
     if case == "cpu_path":
@@ -308,21 +309,24 @@ def test_unported_configurations_raise(case):
         p = AudioPipeline(cfg, uniforms, device="cpu")
         assert p.route is None and p.init_state().count.numel() == 0
     else:
-        with pytest.raises(NotImplementedError):
-            AudioPipeline(dataclasses.replace(cfg, bufsize=131072), uniforms,
-                          device="cpu")
+        from glava_tpu_torch.ops import fused
+
+        p = AudioPipeline(dataclasses.replace(cfg, bufsize=131072,
+                                              smooth_pass=False),
+                          uniforms, device="cpu")
+        assert p.route == "kernel" and fused.fft_plan(p.sz).split
 
 
 # ---------------------------------------------------------------------------
 # bufsizes off the shipped 4096: the plain chain below 256, the kernel's
-# largest sizes above 16384
+# largest sizes above 16384 (its split plans above 65536)
 # ---------------------------------------------------------------------------
 
 # (requests, smooth pass, updates, route): scaled bufsizes outside
 # 256..16384. At 4 and 16 the smooth pass maps every texel to 0 (its
 # log-curve spans hold no texel), so those cases compare the averaged
-# spectrum itself; at 32768 and 65536 its dense resample matrix would
-# take 4 and 17 GB a package, so they compare the average too (the
+# spectrum itself; from 32768 up its dense resample matrix would
+# take 4 GB a package and more, so they compare the average too (the
 # smooth pass is held at 64, 128 and 4096 / bufscale 32 here, and at
 # 32768 through Renderer by chip_smoke.py on the card).
 CHAIN_CASES = {
@@ -334,6 +338,8 @@ CHAIN_CASES = {
                                "chain"),
     "bufsize32768": (("setbufsize 32768",), False, 4, "kernel"),
     "bufsize65536": (("setbufsize 65536",), False, 3, "kernel"),
+    "bufsize131072": (("setbufsize 131072",), False, 3, "kernel"),
+    "bufsize262144": (("setbufsize 262144",), False, 2, "kernel"),
 }
 
 
@@ -385,12 +391,14 @@ def _chain_model64(cfg, audio, presmooth):
 @pytest.mark.parametrize("case", sorted(CHAIN_CASES))
 def test_chain_route_textures_match_jax(case):
     """Every power-of-two bufsize below the kernel's runs the plain
-    chain (``route == "chain"``), the kernel's two largest its route (on
-    the CPU, the kernel's plain version); each gives the JAX pipeline's
+    chain (``route == "chain"``), the one-cluster kernel's two largest
+    and the split route's two smallest the kernel route (on the CPU, the
+    kernel's plain version); each gives the JAX pipeline's
     textures within 2e-5 after every update. Where the JAX float32 chain
     itself lies farther than 2e-5 from a float64 numpy model of the
-    chain, the tolerance is that measured distance instead (at these
-    sizes it stays under 1e-6, so 2e-5 holds)."""
+    chain, the tolerance is that measured distance instead (it grows
+    with the bufsize, from about 1e-7 at 128 and below to under 1e-5 at
+    32768 and 65536 and about 1.9e-5 at 131072, so 2e-5 holds)."""
     from glava_tpu_torch.ops import fused
 
     reqs, smooth, updates, route = CHAIN_CASES[case]
@@ -425,14 +433,16 @@ def test_chain_route_textures_match_jax(case):
 
 
 def test_update_route_follows_the_shape():
-    """The chain below the kernel's bufsizes, the kernel from 256 to
-    65536, nothing else: above, NotImplementedError."""
+    """The chain below the kernel's bufsizes, the kernel from 256 up
+    (the one-cluster plans to 65536, the split plans above), as the JAX
+    package's ``_fused_supported`` sets no upper limit; lengths that are
+    not a power of two raise ``ValueError``."""
     from glava_tpu_torch.ops import fused
 
-    assert [fused.update_route(1 << k) for k in range(2, 17)] == (
-        ["chain"] * 6 + ["kernel"] * 9)
-    with pytest.raises(NotImplementedError, match="at most 65536"):
-        fused.update_route(1 << 17)
+    assert [fused.update_route(1 << k) for k in range(2, 23)] == (
+        ["chain"] * 6 + ["kernel"] * 15)
+    assert [fused.fft_plan(1 << k).split for k in range(8, 23)] == (
+        [False] * 9 + [True] * 6)
     for n in (0, 1, 2, 3, 96, 1000, 4097):
         with pytest.raises(ValueError, match="power of two"):
             fused.update_route(n)

@@ -137,6 +137,36 @@ def test_state_carries_over_from_jax(module, modified):
     assert golden_fraction(got.numpy(), np.asarray(want)) < 0.002
 
 
+@pytest.mark.parametrize("bufsize", [131072, 262144])
+def test_split_bufsizes_meet_live_jax_frame(bufsize, tmp_path):
+    """Accel-path bufsizes above the one-cluster kernel's 65536, smooth
+    pass off (its dense matrix would take tens of GB in both packages;
+    a user ``smooth_parameters.glsl`` turns it off, since the shipped
+    one, read after the command line's requests, turns it on): the
+    port's Renderer takes the kernel route (its plain version on the
+    CPU) and its bars frame after a few updates meets the JAX
+    Renderer's under the golden rule."""
+    (tmp_path / "smooth_parameters.glsl").write_text(
+        "#request setsmoothpass false\n")
+    reqs = _requests(BARS, False) + (f"setbufsize {bufsize}",)
+    lc, jlc = (load(cli_requests=reqs, force_module="bars",
+                    user_dir=str(tmp_path))
+               for load in (loader.load, jloader.load))
+    assert not lc.cfg.smooth_pass and not jlc.cfg.smooth_pass
+    r, jr = Renderer(lc, device="cpu"), JaxRenderer(jlc)
+    assert r.pipeline.route == "kernel" and r.pipeline.sz == bufsize
+    cfg = lc.cfg
+    g = np.float32(cfg.gravity_step / cfg.nominal_ups)
+    step = jr.jit_step(quantize=True)
+    state, jstate = r.init_state(), jr.init_state()
+    for snap in _snapshots(cfg, 3):
+        state, got = r.step_u8(state, snap, True, 0.25, 1.0, float(g))
+        jstate, want = step(jstate, jnp.asarray(snap), True, np.float32(0.25),
+                            np.float32(1.0), g, {})
+    assert (got[..., 3] > 0).any()
+    assert golden_fraction(got.numpy(), np.asarray(want)) < 0.002
+
+
 @pytest.mark.parametrize("module", ["bars", "wave"])
 def test_state_round_trips_through_numpy(module):
     lc = loader.load(cli_requests=_requests(TINY_SCREEN, True), force_module=module)
