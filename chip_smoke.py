@@ -46,11 +46,15 @@ code is non-zero and no result line is printed):
                through a MIRROR_YX view (rows 1920, columns 1080, read
                transposed), both outline branches, per-stream and shared
                colour tables. smooth_scan at sz 4096 and 65536 (the
-               prefix tables in device memory), ratio 4 and 1, distance
-               0.01 and 0.5, on rows with about 20% exact zeros and an
-               empty first window: one launch a call, the zero
-               positions (NaN -> 0 and the input's zeros) identical and
-               the values within 1e-5 of the plain version.
+               tables in device memory), ratio 4 and 1, distance 0.01
+               and 0.5, on rows with about 20% exact zeros and an empty
+               first window, each on its fast walk and again with every
+               row on its exact walk from bin 1, then at sz 4096 on
+               ``SMOOTH_BRANCHES`` rows (an exact cancellation, +inf,
+               -inf, a NaN, a silent row, distance 0): one launch a
+               call, the zero positions (NaN -> 0 and the input's zeros)
+               identical, the values within 1e-5 of the plain version,
+               and the rows each walk finished as the case requires.
 4. main path — ``Engine`` with the synth backend and a null sink, the
                kernel counts set to 0 just before each run and read
                just after: bars (the shipped rc.glsl) at 800x600 and
@@ -97,6 +101,11 @@ code is non-zero and no result line is printed):
                with the smooth pass off (a user smooth_parameters.glsl)
                on the split route, one split launch an update; each
                cuda frame meets the cpu frame under the golden rule.
+               One ``AudioPipeline`` update at bufsize 2^25 (above the
+               split plans) on the chain route, no fused or split
+               launch, its textures within 5e-5 of the cpu update's.
+               The smoothy runs print the rows each smooth_scan walk
+               finished.
                Sharded fleets (``phase_sharded``, ``SHARDED_FLEETS``: 64
                bars streams and a mixed bars/radial/wave fleet of 24)
                through ``FleetEngine(mesh=...)`` over ``[cuda:0]``,
@@ -875,34 +884,173 @@ def smooth_rows(sz: int, rows: int, seed: int) -> np.ndarray:
     return x
 
 
+def smooth_live_rows(sz: int, n: int) -> list[np.ndarray]:
+    """n (1, sz) inputs, row 1 of ``smooth_rows(sz, 2, seed)`` for seed
+    0, 1, ..., passing over a row whose bin 1 window [1, 2] holds two
+    zeros: so every smoothed bin is finite and walked as on the main
+    path (an empty first window, as row 0's, is NaN, and every later
+    window holds the bin before it: the whole row NaN, then 0).
+    ``_check_live`` holds the outputs to that."""
+    rows = []
+    seed = 0
+    while len(rows) < n:
+        x = smooth_rows(sz, 2, seed)[1:]
+        if x[0, 1] != 0 or x[0, 2] != 0:
+            rows.append(x)
+        seed += 1
+    return rows
+
+
+def _check_live(out: torch.Tensor, asz: int, what: str) -> None:
+    """Every smoothed bin of ``out`` nonzero: no window came out empty
+    or NaN (both give 0), so a time taken on its input is one of finite
+    means."""
+    dead = int((out[..., 1:asz] == 0).sum())
+    if dead:
+        raise AssertionError(f"{what}: {dead} of the {asz - 1} smoothed bins "
+                             "came out 0 (a NaN or empty window): not a "
+                             "live row")
+
+
+# row 1 of a 2-row sz 4096 input (ratio 4, d 0.01) forcing one branch of
+# the kernel's walks, row 0 as smooth_rows makes it (its empty first
+# window makes it all NaN, then 0): case -> the rows the exact walk must
+# finish (tests/test_torch_cpu_path.py holds the same cases in its numpy
+# model of the walks)
+SMOOTH_BRANCHES = {
+    "cancellation": 1,      # bin 1's window [1, 2] sums to 0
+    "posinf": 1,            # the windows from one holding x[600] = +inf
+    "neginf": 1,
+    "nan": 0,               # a NaN input poisons its windows, fast walk
+    "silent": 0,            # an all-zero row (both rows): every bin 0
+    "distance0": 2,         # d 0: lo jumps by 2, both rows walk exactly
+}
+# where those cases put their input +-inf or NaN in row 1
+SMOOTH_BRANCH_AT = {"posinf": 600, "neginf": 600, "nan": 300}
+
+
+def smooth_branch_rows(case: str) -> np.ndarray:
+    x = smooth_rows(4096, 2, 41)
+    if case == "cancellation":
+        x[1, 1], x[1, 2] = 0.5, -0.5
+    elif case in SMOOTH_BRANCH_AT:
+        x[1, SMOOTH_BRANCH_AT[case]] = {"posinf": np.inf, "neginf": -np.inf,
+                                        "nan": np.nan}[case]
+    elif case == "silent":
+        x[:] = 0.0
+    return x
+
+
+def _branch_effect(case: str, got: torch.Tensor, d: float) -> None:
+    """What the branch must do to row 1 beyond matching the plain
+    version: an input +-inf gives that inf from the first window holding
+    it to the last smoothed bin (each window holds the bin before it)
+    and finite bins before; a NaN gives a run of 0 there; a cancellation
+    gives bin 1 exactly 0; a silent row all 0."""
+    from glava_tpu_torch.ops import smooth
+
+    row = got[1].cpu()
+    b = smooth.smooth_bounds(row.shape[-1], 4.0, d)
+    if case in SMOOTH_BRANCH_AT:
+        t0 = int(np.flatnonzero(b[:, 1] >= SMOOTH_BRANCH_AT[case])[0])
+        tail, head = row[t0:len(b)], row[1:t0]
+        want = {"posinf": float("inf"), "neginf": float("-inf"), "nan": 0.0}
+        ok = bool((tail == want[case]).all()) and bool(
+            (torch.isfinite(head) & (head != 0)).all())
+    elif case == "cancellation":
+        ok = float(row[1]) == 0.0 and bool(torch.isfinite(row[:len(b)]).all())
+    elif case == "silent":
+        ok = bool((got == 0).all())
+    else:
+        ok = True
+    if not ok:
+        raise AssertionError(f"smooth_scan {case}: row 1 lacks the branch's "
+                             "mark (inf run, zero run or bin 1 = 0)")
+
+
+def _smooth_check(label: str, x: torch.Tensor, ratio: float, d: float,
+                  exact_rows: int, exact_from=None) -> float:
+    """One launch of the kernel on ``x`` against the plain version (zero
+    positions identical, values within SMOOTH_TOL) whose exact walk
+    must finish ``exact_rows`` rows, through the wrapper (or, given
+    ``exact_from``, every row handed to the exact walk from that bin);
+    returns the max abs error over the finite values and the output."""
+    from glava_tpu_torch.ops import smooth
+
+    smooth.reset_rows_by_walk()
+    n0 = smooth.launches
+    got = smooth.smooth_transform(x, ratio, d) if exact_from is None \
+        else smooth._launch(x, ratio, d, exact_from)
+    torch.cuda.synchronize()
+    want = smooth.smooth_transform_plain(x, ratio, d)
+    torch.cuda.synchronize()
+    # +-inf pass through: the same infs, the finite values within the
+    # tolerance
+    fin = torch.isfinite(want)
+    same_inf = torch.equal(torch.isfinite(got), fin) and torch.equal(
+        got[~fin], want[~fin])
+    err = (got[fin] - want[fin]).abs().max().item() if fin.any() else 0.0
+    walks = smooth.rows_by_walk()
+    rows = x.numel() // x.shape[-1]
+    if smooth.launches != n0 + 1 or not torch.equal(got == 0, want == 0) \
+            or not same_inf or not err <= SMOOTH_TOL \
+            or walks != {"fast": rows - exact_rows, "exact": exact_rows}:
+        raise AssertionError(f"smooth_scan {label}: {smooth.launches - n0} "
+                             f"launches, zeros equal "
+                             f"{torch.equal(got == 0, want == 0)}, infs equal "
+                             f"{same_inf}, max abs err {err} (tolerance "
+                             f"{SMOOTH_TOL}), rows by walk {walks}, "
+                             f"{exact_rows} exact expected")
+    return err, got
+
+
 def phase_smooth() -> float:
     """smooth_scan vs its plain version on the card, one launch a call:
     the zero positions (NaN -> 0 and the input's zeros) identical, the
-    values within SMOOTH_TOL."""
-    from glava_tpu_torch.ops import smooth
+    values within SMOOTH_TOL, at every SMOOTH_CASES shape on the fast
+    walk and again with every row on the exact walk from bin 1; then
+    each SMOOTH_BRANCHES case, whose rows must take the walk it names.
+    The wrapper's table size must be the kernel's own."""
+    import ctypes
 
+    from glava_tpu_torch.ops import _build, smooth
+
+    nbytes = _build.load("smooth_scan").lib.glava_smooth_scan_bytes
+    nbytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    nbytes.restype = ctypes.c_longlong
+    for sz, ratio, _ in SMOOTH_CASES + ((300, 3.0, 0.2), (1, 1.0, 0.01)):
+        asz = -(-sz // int(ratio))
+        if nbytes(sz, asz) != smooth.table_bytes(sz, asz):
+            raise AssertionError(f"smooth_scan tables at sz {sz}, asz {asz}: "
+                                 f"kernel {nbytes(sz, asz)} bytes, wrapper "
+                                 f"{smooth.table_bytes(sz, asz)}")
     worst = 0.0
     lines = []
     for sz, ratio, d in SMOOTH_CASES:
         x = torch.as_tensor(smooth_rows(sz, 2, sz + int(ratio)), device="cuda")
-        n0 = smooth.launches
-        got = smooth.smooth_transform(x, ratio, d)
-        torch.cuda.synchronize()
-        want = smooth.smooth_transform_plain(x, ratio, d)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        if smooth.launches != n0 + 1 or not torch.equal(got == 0, want == 0) \
-                or not err <= SMOOTH_TOL:
-            raise AssertionError(f"smooth_scan sz {sz} ratio {ratio} d {d}: "
-                                 f"{smooth.launches - n0} launches, zeros equal "
-                                 f"{torch.equal(got == 0, want == 0)}, max abs "
-                                 f"err {err} (tolerance {SMOOTH_TOL})")
-        worst = max(worst, err)
-        lines.append(f"sz {sz} r {ratio:g} d {d:g}: {err:.2e}, "
-                     f"{int((want[:, :-(-sz // int(ratio))] == 0).sum())} zeros")
+        label = f"sz {sz} r {ratio:g} d {d:g}"
+        fast = _smooth_check(label, x, ratio, d, 0)[0]
+        exact = _smooth_check(f"{label}, exact from bin 1", x, ratio, d, 2,
+                              1)[0]
+        worst = max(worst, fast, exact)
+        lines.append(f"{label}: fast {fast:.2e}, exact {exact:.2e}")
     print(f"[3 kernel] smooth_scan vs plain, 2 rows, one launch a call, zero "
-          f"positions equal; max abs err: {'; '.join(lines)} (tolerance "
-          f"{SMOOTH_TOL}; prefix tables of rows of 65536 in device memory)")
+          f"positions equal; max abs err on the fast walk (both rows) and "
+          f"the exact walk from bin 1 (both rows): {'; '.join(lines)} "
+          f"(tolerance {SMOOTH_TOL}; tables of rows of 65536 in device "
+          f"memory)")
+    lines = []
+    for case, exact in SMOOTH_BRANCHES.items():
+        x = torch.as_tensor(smooth_branch_rows(case), device="cuda")
+        d = 0.0 if case == "distance0" else 0.01
+        err, got = _smooth_check(case, x, 4.0, d, exact)
+        _branch_effect(case, got, d)
+        worst = max(worst, err)
+        lines.append(f"{case}: {err:.2e}, rows fast {2 - exact} exact {exact}")
+    print(f"[3 kernel] smooth_scan branches in row 1, sz 4096 r 4 d 0.01, "
+          f"2 rows, zero positions and infs equal, row 1's inf or zero run "
+          f"where the case puts it, rows by walk as expected: "
+          f"{'; '.join(lines)}")
     return worst
 
 
@@ -974,6 +1122,7 @@ def _zero_counts() -> None:
 
     fused.launches = fused.split_launches = 0
     lookup.launches = raster.launches = smooth.launches = 0
+    smooth.reset_rows_by_walk()
     lookup.rowwise_launches = dict.fromkeys(lookup.rowwise_launches, 0)
     lookup.rowwise_routes = dict.fromkeys(lookup.rowwise_routes, 0)
     latch.launches = dict.fromkeys(latch.launches, 0)
@@ -985,7 +1134,7 @@ def _engine_run(frames: int, screen=None, module=None, user_dir=None,
     and read just after it. fused_update launches once an audio update
     of a module with an fft uniform, never on the CPU path (its route
     the chain) nor for a module without one (``NO_FFT``)."""
-    from glava_tpu_torch.ops import lookup
+    from glava_tpu_torch.ops import lookup, smooth
     from glava_tpu_torch.runtime.engine import Engine, EngineOptions
     from glava_tpu_torch.runtime.sinks import NullSink
 
@@ -1023,10 +1172,18 @@ def _engine_run(frames: int, screen=None, module=None, user_dir=None,
         raise AssertionError(f"{name} {w}x{h}: launches {counts}, routes "
                              f"{routes}, expected {want} ({eng.updates} updates)")
     extra = f" ({', '.join(requests)})" if requests else ""
+    walks = ""
+    if counts["smooth_scan"]:
+        # one row a launch (a stateless uniform of one channel)
+        walks = smooth.rows_by_walk()
+        if sum(walks.values()) != counts["smooth_scan"]:
+            raise AssertionError(f"{name} {w}x{h}: smooth_scan rows by walk "
+                                 f"{walks} for {counts['smooth_scan']} launches")
+        walks = f", smooth_scan rows by walk {walks}"
     print(f"[4 main path] {name} {w}x{h}{extra}: {frames} frames, {eng.updates} "
           f"updates, update route {eng.renderer.pipeline.route}, launches "
-          f"{counts}{f', row-wise routes {routes}' if staged else ''}, "
-          f"{frames / dt:.1f} fps host clock")
+          f"{counts}{f', row-wise routes {routes}' if staged else ''}"
+          f"{walks}, {frames / dt:.1f} fps host clock")
     return counts
 
 
@@ -1228,6 +1385,48 @@ BUFSIZE_REQUESTS = (("bars", ("setbufsize 32768",), "kernel"),
                     ("bars", ("setbufsize 131072", "setsmoothpass false"),
                      "kernel"))
 NO_SMOOTH_PASS = "#request setsmoothpass false\n"
+# above the fused kernel's largest split plan (2^24): the chain route on
+# the card, as the JAX package takes its XLA chain (smooth pass off)
+HUGE_BUFSIZE = 1 << 25
+TEX_TOL = 5e-5       # textures (the JAX suite's fused-vs-unfused tolerance)
+
+
+def _huge_update(device: str):
+    """One bars-chain update at HUGE_BUFSIZE on ``device`` (fixed noise,
+    smooth pass off): (route, textures on the host)."""
+    from glava_tpu_torch.config.state import RenderConfig
+    from glava_tpu_torch.pipeline import AudioPipeline, UniformSpec
+
+    chain = ("window", "fft", "gravity", "avg")
+    p = AudioPipeline(RenderConfig(bufsize=HUGE_BUFSIZE, smooth_pass=False),
+                      [UniformSpec("audio_l", "audio_l", chain),
+                       UniformSpec("audio_r", "audio_r", chain)],
+                      device=device)
+    rng = np.random.default_rng(25)
+    al, ar = (torch.as_tensor((rng.standard_normal(HUGE_BUFSIZE) * 0.4)
+                              .astype(np.float32), device=device)
+              for _ in range(2))
+    _, tex = p.update(p.init_state(), al, ar)
+    return p.route, {k: v.cpu() for k, v in tex.items()}
+
+
+def phase_huge_bufsize() -> str:
+    """An update at HUGE_BUFSIZE takes the chain on the card, no fused
+    or split launch, its textures within TEX_TOL of the cpu update's."""
+    _zero_counts()
+    route, gpu = _huge_update("cuda")
+    torch.cuda.synchronize()
+    counts = _counts()
+    _, cpu = _huge_update("cpu")
+    err = max((gpu[k] - cpu[k]).abs().max().item() for k in gpu)
+    if route != "chain" or counts["fused_update"] or \
+            counts["fused_update split"] or not err <= TEX_TOL:
+        raise AssertionError(f"bufsize {HUGE_BUFSIZE}: route {route}, "
+                             f"launches {counts}, cuda vs cpu {err}")
+    return (f"AudioPipeline bufsize {HUGE_BUFSIZE} (smooth pass off): route "
+            f"chain, fused launches {counts['fused_update']}, split "
+            f"{counts['fused_update split']}; textures cuda vs cpu max abs "
+            f"err {err:.2e} (tolerance {TEX_TOL})")
 
 # (streams, screen, frames, kind): the fleet's main-path runs
 FLEET_RUNS = ((64, None, 30, "bars"), (64, (1920, 1080), 8, "bars"),
@@ -1418,6 +1617,7 @@ def phase_main_path(user_dir: str) -> dict:
         print(f"[4 main path] {label}: update route {route}"
               f"{' (split)' if split else ''} through Renderer, 24 updates, "
               f"launches {counts}; cuda vs cpu {frac:.4%} px > 2 LSB")
+    print(f"[4 main path] {phase_huge_bufsize()}")
     for line in phase_sharded(user_dir, totals):
         print(f"[4 main path] {line}")
     if not all(totals.values()):
@@ -1999,12 +2199,15 @@ def _serving(built, name: str = "fused_update"):
     finds its kernel, return ``built`` for a while."""
     from glava_tpu_torch.ops import _build
 
-    saved = _build._LOADED[name]
+    saved = _build._LOADED.get(name)
     _build._LOADED[name] = built
     try:
         yield
     finally:
-        _build._LOADED[name] = saved
+        if saved is None:
+            del _build._LOADED[name]
+        else:
+            _build._LOADED[name] = saved
 
 
 def fused_ab(dirs: list[str]) -> int:
@@ -2056,7 +2259,8 @@ def smooth_ab(dirs: list[str]) -> int:
     tree's ``glava_tpu_torch/ops/smooth.py`` and ``csrc/smooth_scan.cu``)
     beside this checkout's, in one process on one card, at the main
     path's shape (1 row, sz 4096, ratio 4, d 0.01) and the other
-    ``SMOOTH_CASES``: CUDA-event time on 8 input sets in turn, each
+    ``SMOOTH_CASES``: CUDA-event time on 8 live rows
+    (``smooth_live_rows``, every output bin checked nonzero) in turn, each
     variant twice, in the order given and then reversed. Every
     variant's first call is held against the plain version (zeros
     equal, ``SMOOTH_TOL``), so a mix-up of kernels fails the run."""
@@ -2067,8 +2271,8 @@ def smooth_ab(dirs: list[str]) -> int:
                 *_tree_variants(dirs, "smooth.py", "smooth_scan.cu")]
     for sz, ratio, d in ((4096, 4.0, 0.01),) + tuple(
             c for c in SMOOTH_CASES if c != (4096, 4.0, 0.01)):
-        sets = [torch.as_tensor(smooth_rows(sz, 1, seed), device="cuda")
-                for seed in range(8)]
+        sets = [torch.as_tensor(x, device="cuda")
+                for x in smooth_live_rows(sz, 8)]
         want = smooth.smooth_transform_plain(sets[0], ratio, d)
         asz = -(-sz // int(ratio))
         for r, (name, mod, built) in enumerate(variants + variants[::-1]):
@@ -2081,6 +2285,9 @@ def smooth_ab(dirs: list[str]) -> int:
                         or not torch.equal(got == 0, want == 0):
                     raise AssertionError(f"{name} smooth sz {sz} ratio "
                                          f"{ratio} d {d}: err {err}")
+                for i, x in enumerate(sets):
+                    _check_live(mod.smooth_transform(x, ratio, d), asz,
+                                f"{name} sz {sz} ratio {ratio} d {d} set {i}")
                 ms = event_ms(lambda i: mod.smooth_transform(
                     sets[i % 8], ratio, d), 20 if sz > 4096 else 100)
                 mod._FN = None
@@ -2514,7 +2721,8 @@ def _raster_times(S: int, H: int, W: int):
 def _smooth_times(card: str) -> dict:
     """smooth_scan at the main path's shape (a shader module's one
     stateless uniform at bufsize 4096: 1 row, sz 4096, the default
-    ratio 4 and distance 0.01) by CUDA events on 8 input sets in turn,
+    ratio 4 and distance 0.01) by CUDA events on 8 live rows in turn
+    (``smooth_live_rows``: every smoothed bin finite and nonzero),
     its plain version beside it; the kernel alone at the other checked
     shapes. Bound: bytes, each row read once and written once, and the
     window table."""
@@ -2523,9 +2731,12 @@ def _smooth_times(card: str) -> dict:
     out = None
     for sz, ratio, d in ((4096, 4.0, 0.01),) + tuple(
             c for c in SMOOTH_CASES if c != (4096, 4.0, 0.01)):
-        sets = [torch.as_tensor(smooth_rows(sz, 1, seed), device="cuda")
-                for seed in range(8)]
+        sets = [torch.as_tensor(x, device="cuda")
+                for x in smooth_live_rows(sz, 8)]
         asz = -(-sz // int(ratio))
+        for i, x in enumerate(sets):
+            _check_live(smooth.smooth_transform(x, ratio, d), asz,
+                        f"smooth_scan sz {sz} ratio {ratio} d {d} set {i}")
         nbytes = 2 * sz * 4 + asz * 8
         ms = event_ms(lambda i: smooth.smooth_transform(sets[i % 8], ratio, d),
                       20 if sz > 4096 else 100)

@@ -19,8 +19,9 @@ tensors on the rows' device.
 kernel (``csrc/fused_update.cu``, replacing the TPU kernel
 ``glava_tpu/ops/pallas/fused.py:build_fused_update_inc``) for CUDA
 tensors; it never falls back from one to the other. Bufsizes below
-the kernel's run :func:`chain_update` on any device, chosen from the
-shape alone (:func:`update_route`).
+the kernel's, and above its largest split plan (MAX_SPLIT_N), run
+:func:`chain_update` on any device, chosen from the shape alone
+(:func:`update_route`).
 
 Up to n = MAX_N (65536) the kernel runs each row on a cluster of ``k``
 CTAs that split its m-point FFT four-step wise; :func:`fft_plan` picks
@@ -258,17 +259,17 @@ def check_length(n: int) -> None:
 
 
 def update_route(n: int) -> str:
-    """How an update at bufsize ``n`` runs: ``"kernel"`` from MIN_N up
-    (the one-cluster kernel to MAX_N, the split route above it, as the
-    JAX package's ``_fused_supported`` sets no upper limit);
-    ``"chain"`` (:func:`chain_update`) below MIN_N, sizes under any TPU
-    kernel's too (the JAX package's ``_fused_supported`` wants n >= 512
-    and takes its XLA chain below). Raises ``ValueError`` unless n is a
-    power of two >= 4, the packed FFT's lengths (glava_tpu/ops/fft.py
-    ``plan_packed_fft``). A launch above MAX_SPLIT_N (2^24) raises
-    ``ValueError`` from :func:`fft_plan` on the card."""
+    """How an update at bufsize ``n`` runs: ``"kernel"`` from MIN_N to
+    MAX_SPLIT_N (2^24; the one-cluster kernel to MAX_N, the split route
+    above it); ``"chain"`` (:func:`chain_update`) below MIN_N, sizes
+    under any TPU kernel's too (the JAX package's ``_fused_supported``
+    wants n >= 512 and takes its XLA chain below), and above
+    MAX_SPLIT_N, where no split plan fits a CTA and the JAX package,
+    which sets no upper limit, runs its XLA chain
+    (glava_tpu/ops/fft.py ``plan_packed_fft``). Raises ``ValueError``
+    unless n is a power of two >= 4, the packed FFT's lengths."""
     check_length(n)
-    return "kernel" if n >= MIN_N else "chain"
+    return "kernel" if MIN_N <= n <= MAX_SPLIT_N else "chain"
 
 
 def chain_update(pcm, grav, hist, slot, fft_scale, fft_cutoff, g, window,

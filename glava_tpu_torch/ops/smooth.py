@@ -16,7 +16,11 @@ always does); at the end NaN maps to 0 and +-inf pass through.
   ``step`` over each bin's window with ``where``-masking;
 * :func:`smooth_transform` takes it for CPU tensors and launches the
   CUDA kernel (``csrc/smooth_scan.cu``) for CUDA tensors; it never falls
-  back from one to the other.
+  back from one to the other. The kernel walks a row on its fast walk
+  (each window's count and divisor found before the walk) until a bin
+  comes out exactly 0 or a window holds an input +-inf, and the rest of
+  the row on its exact walk; :func:`rows_by_walk` counts the rows each
+  walk finished.
 
 The kernel is not the port of a Pallas kernel: it is the counterpart of
 the ``lax.scan`` at ``glava_tpu/ops/transforms.py:145``, which runs on
@@ -38,13 +42,43 @@ from glava_tpu_torch.ops._build import SMEM_LIMIT
 launches = 0
 
 MAX_ROWS = 2 ** 31 - 1          # the kernel's grid
-ENTRY_BYTES = 24                # one prefix entry of the kernel's tables
-# bytes of the kernel's prefix tables in shared memory, the kernel's own
-# static shared memory (its block scan) left aside; larger tables live
-# in a device scratch buffer
+# bytes of the kernel's tables in shared memory, the kernel's own static
+# shared memory (its block scan) left aside; larger tables live in a
+# device scratch buffer
 STAGED_MAX = SMEM_LIMIT - 1024
 
-_BOUNDS: dict[tuple, torch.Tensor] = {}
+_BOUNDS: dict[tuple, tuple[torch.Tensor, bool]] = {}
+# per device: int64 (2,), the rows the kernel's fast walk finished and
+# those its exact walk finished, added to on the device
+_ROWS: dict[torch.device, torch.Tensor] = {}
+
+
+def table_bytes(sz: int, asz: int) -> int:
+    """Bytes of one row's tables (the kernel's
+    ``glava_smooth_scan_bytes``, a multiple of 16): the smoothed bins in
+    float32, then the larger of the fast walk's tables (32 bytes of
+    operands a bin, the input's prefix, over which the chain's values
+    and their prefix lie later) and the exact walk's prefix statistics
+    (24 bytes an entry, sz + asz + 2)."""
+    bins = -(-4 * asz // 16) * 16
+    fast = 32 * asz + 16 * (sz + 1)
+    return -(-(bins + max(fast, 24 * (sz + asz + 2))) // 16) * 16
+
+
+def rows_by_walk() -> dict[str, int]:
+    """The rows the kernel's fast walk and its exact walk finished since
+    :func:`reset_rows_by_walk`, over every device (reads the device
+    counters: one synchronize each)."""
+    fast = exact = 0
+    for counts in _ROWS.values():
+        f, e = counts.tolist()
+        fast, exact = fast + f, exact + e
+    return {"fast": fast, "exact": exact}
+
+
+def reset_rows_by_walk() -> None:
+    for counts in _ROWS.values():
+        counts.zero_()
 
 
 @functools.lru_cache(maxsize=None)
@@ -94,9 +128,13 @@ def smooth_transform(x: torch.Tensor, ratio: float,
     return _launch(x, float(ratio), float(distance))
 
 
-def _bounds(sz: int, ratio: float, distance: float, device) -> torch.Tensor:
+def _bounds(sz: int, ratio: float, distance: float,
+            device) -> tuple[torch.Tensor, bool]:
     """:func:`smooth_bounds` on ``device``, checked once: the kernel
-    takes each bin's window as ``0 <= lo <= t <= hi < sz``."""
+    takes each bin's window as ``0 <= lo <= t <= hi < sz``; and whether
+    its fast walk may take them: lo grows by 0 or 1 a bin (it drops
+    each bin from its running window sum once, in order), which holds
+    for every distance above ~1e-15."""
     key = (sz, ratio, distance, device)
     if key not in _BOUNDS:
         b = smooth_bounds(sz, ratio, distance)
@@ -106,7 +144,9 @@ def _bounds(sz: int, ratio: float, distance: float, device) -> torch.Tensor:
             raise ValueError(f"smooth_transform: windows of sz {sz}, ratio "
                              f"{ratio}, distance {distance} do not hold their "
                              "bins")
-        _BOUNDS[key] = torch.as_tensor(b, device=device)
+        step = np.diff(lo)
+        _BOUNDS[key] = (torch.as_tensor(b, device=device),
+                        bool(np.all((step == 0) | (step == 1))))
     return _BOUNDS[key]
 
 
@@ -120,14 +160,18 @@ def _kernel():
         from glava_tpu_torch.ops import _build
 
         fn = _build.load("smooth_scan").lib.glava_smooth_scan
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
 
 
-def _launch(x: torch.Tensor, ratio: float, distance: float) -> torch.Tensor:
+def _launch(x: torch.Tensor, ratio: float, distance: float,
+            exact_from: int | None = None) -> torch.Tensor:
+    """The kernel on ``x``; ``exact_from`` hands every row to the exact
+    walk at that bin at the latest (chip_smoke.py holds both walks
+    against the plain version with it)."""
     global launches
     if x.dtype != torch.float32:
         raise TypeError(f"smooth_transform: input must be float32, got {x.dtype}")
@@ -137,7 +181,7 @@ def _launch(x: torch.Tensor, ratio: float, distance: float) -> torch.Tensor:
     sz = x.shape[-1]
     if not ratio > 0:
         raise ValueError(f"smooth_transform: ratio must be positive, got {ratio}")
-    bounds = _bounds(sz, ratio, distance, x.device)
+    bounds, fast = _bounds(sz, ratio, distance, x.device)
     if bounds.shape[0] > sz:
         raise ValueError(f"smooth_transform: ratio {ratio} leaves "
                          f"{bounds.shape[0]} bins to smooth in a row of {sz}")
@@ -149,16 +193,20 @@ def _launch(x: torch.Tensor, ratio: float, distance: float) -> torch.Tensor:
     if rows == 0:
         return out
     asz = bounds.shape[0]
-    table = (sz + asz + 2) * ENTRY_BYTES
+    table = table_bytes(sz, asz)
     staged = int(table <= STAGED_MAX)
     scratch = None if staged else torch.empty(
         rows * table, dtype=torch.uint8, device=x.device)
+    if x.device not in _ROWS:
+        _ROWS[x.device] = torch.zeros(2, dtype=torch.int64, device=x.device)
     fn = _kernel()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), bounds.data_ptr(), out.data_ptr(),
-                 None if staged else scratch.data_ptr(), rows, sz, asz,
-                 staged, stream)
+                 None if staged else scratch.data_ptr(),
+                 _ROWS[x.device].data_ptr(), rows, sz, asz, staged,
+                 (asz if fast else 1) if exact_from is None else int(exact_from),
+                 stream)
     if err != 0:
         raise RuntimeError(f"smooth_scan kernel launch failed: CUDA error {err}")
     launches += 1

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 # what a sharded fleet cannot take yet, named by its raise
-ROWS_ITEM = "ROADMAP queue 4, item 1: the mesh's rows axis"
+ROWS_ITEM = "ROADMAP queue 1, item 1: the mesh's rows axis"
 
 
 @dataclass(frozen=True, eq=False)

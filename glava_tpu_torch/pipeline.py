@@ -29,14 +29,14 @@ The update's route (``AudioPipeline.route``) follows from the
 configuration alone:
 
 * ``"kernel"``: the accel path (``setaccelfft true``, the default) at a
-  scaled bufsize that is a power of two from 256 up, as the JAX
-  package's ``_fused_supported`` sets no upper limit: 256..65536 on the
-  kernel's one-cluster route, above 65536 on its split route (two
+  scaled bufsize that is a power of two from 256 to 2^24: 256..65536 on
+  the kernel's one-cluster route, above 65536 on its split route (two
   launches through a float64 scratch tensor, ``ops.fused.fft_plan``);
 * ``"chain"``: the same function in plain torch on the rows' own device
-  (``ops.fused.chain_update``): the accel path at 4..128, where the
-  JAX package takes its XLA chain too (``_fused_supported``,
-  glava_tpu/pipeline.py:126-137), and the CPU path (``setaccelfft
+  (``ops.fused.chain_update``): the accel path at 4..128 and above
+  2^24, where the JAX package takes its XLA chain too
+  (``_fused_supported``, glava_tpu/pipeline.py:126-137, sets a lower
+  limit and no upper one), and the CPU path (``setaccelfft
   false``) at every bufsize, unclamped: the spectrum and the gravity
   store run without the accel path's GL_R16 clamps and the average
   clamps only at the texture (glava_tpu/pipeline.py:310-313). The JAX
@@ -44,8 +44,7 @@ configuration alone:
   is ported for it.
 
 Other bufsizes raise ``ValueError``. Above 2^24 the split plan's
-k-point stage no longer fits a CTA, and a launch there raises
-``ValueError`` on the card.
+k-point stage no longer fits a CTA, so those sizes take the chain.
 """
 
 from __future__ import annotations

@@ -11,6 +11,7 @@ the golden rule (under 0.2% of pixels more than 2 LSB apart).
 from __future__ import annotations
 
 import functools
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -315,51 +316,224 @@ def _mean(c) -> np.float32:
     return np.float32(c[0]) / np.float32(c[1])
 
 
-def smooth_scan_model(x: np.ndarray, ratio: float, distance: float) -> np.ndarray:
-    """numpy transcription of csrc/smooth_scan.cu: P, the prefix
-    statistics of the input row, summed as the kernel's block scan sums
-    them (256 chunks, each chunk's entries in turn after its exclusive
-    start); S, those of the smoothed bins, one entry a bin; bin t's
-    window is (S[t] - S[lo]) + (P[hi + 1] - P[t]), its mean in float32."""
+def _chunk_prefix(st: np.ndarray) -> np.ndarray:
+    """(n + 1, 5): the prefix of ``st``'s rows as the kernel's block
+    scan sums them (256 chunks, each chunk's entries in turn after its
+    exclusive start)."""
+    n = len(st)
+    per = max(-(-n // 256), 1)
+    chunks = [st[c * per:(c + 1) * per] for c in range(256)]
+    P = np.zeros((n + 1, 5))
+    start = np.zeros(5)
+    for c, ch in enumerate(chunks):
+        run = start.copy()
+        for i, e in enumerate(ch):
+            P[c * per + i] = run
+            run = run + e
+        if len(ch) and c * per + len(ch) == n:
+            P[n] = run
+        start = start + ch.sum(0)
+    return P
+
+
+def _fma(a: float, b: float, c: float) -> float:
+    """a * b + c rounded once to float64, as the card's fma."""
+    return float(Fraction(a) * Fraction(b) + Fraction(c))
+
+
+def _fmaf(a, b, c) -> np.float32:
+    """The card's float32 fma of float32 operands (rounded through
+    float64: the same but for rare ties)."""
+    return np.float32(_fma(float(np.float32(a)), float(np.float32(b)),
+                           float(np.float32(c))))
+
+
+def smooth_scan_model(x: np.ndarray, ratio: float, distance: float,
+                      exact_from: int | None = None):
+    """numpy transcription of csrc/smooth_scan.cu; returns the output
+    and, per row, the bin from which its exact walk ran (asz: none).
+
+    The fast walk: from P, the prefix statistics of the input row, each
+    bin's count c = (t - lo) + nonzero inputs in [t, hi], its original
+    sum R and its NaN class; its window sum is a1 v_{t-1} + a2 v_{t-2} +
+    T + R, a1 = [lo <= t - 1], a2 = [lo <= t - 2], T the float64 sum of
+    the bins [lo, t - 3] (gaining bin t - 3 and dropping bin lo_{t-1} as
+    the window moves), and v_t = fmaf(v_{t-1}, a1 / c, fmaf(v_{t-2},
+    a2 / c, float32((T + R) / c))) in float32; NaN bins poison through
+    the last NaN bin (their chain value 0). After the walk, the first
+    bin whose window sum (S[t] - S[lo]) + R in float64 is 0 (S the
+    prefix of the chain's values), or whose value is 0 (not NaN), gives
+    0, and the exact walk takes
+    the rest of the row from the bin after it, or from the first window
+    that holds an input +-inf, or from bin 1 where lo jumps by 2
+    (distance 0): S rebuilt as prefix statistics of the bins done, each
+    window (S[t] - S[lo]) + (P[hi + 1] - P[t]), its mean a float32
+    division."""
     sz = x.shape[-1]
     b = smooth.smooth_bounds(sz, ratio, distance)
+    asz = len(b)
     out = np.array(x, np.float32).copy()
-    per = -(-sz // 256)
+    handoffs = []
     for row in out.reshape(-1, sz):
-        st = _stats(row)
-        starts = np.zeros((256, 5))
-        chunks = [st[c * per:(c + 1) * per] for c in range(256)]
-        for c in range(1, 256):
-            starts[c] = starts[c - 1] + chunks[c - 1].sum(0)
-        P = np.zeros((sz + 1, 5))
-        for c, ch in enumerate(chunks):
-            run = starts[c].copy()
-            for i, e in enumerate(ch):
-                P[c * per + i] = run
-                run = run + e
-            if len(ch) and c * per + len(ch) == sz:
-                P[sz] = run
-        S = np.zeros((len(b) + 1, 5))
-        row[0] = np.nan
-        S[1] = _stats(row[:1])[0]
-        for t in range(1, len(b)):
+        P = _chunk_prefix(_stats(row))
+        ys = np.zeros(asz, np.float32)
+        ys[0] = np.nan
+        inf = np.flatnonzero(np.isinf(row[1:]))
+        first_inf = 1 + inf[0] if len(inf) else sz
+        past = np.flatnonzero(b[1:, 1] >= first_inf)
+        if exact_from is None:
+            # the fast walk where lo grows by 0 or 1 a bin
+            step = np.diff(b[1:, 0])
+            exact_from = asz if np.all((step == 0) | (step == 1)) else 1
+        end = min(1 + past[0] if len(past) else asz, max(exact_from, 1))
+        vs = np.zeros(asz, np.float32)   # the chain's values (0: NaN)
+        T = 0.0                           # the window's bins [lo, t - 3]
+        lastnan = 0
+        for t in range(1, end):
             lo, hi = b[t]
-            row[t] = _mean((S[t] - S[lo]) + (P[hi + 1] - P[t]))
-            S[t + 1] = S[t] + _stats(row[t:t + 1])[0]
-    return np.nan_to_num(out, nan=0.0, posinf=np.inf, neginf=-np.inf)
+            c = (t - lo) + P[hi + 1, 1] - P[t, 1]
+            r = P[hi + 1, 0] - P[t, 0]
+            iv = 1.0 / c if c > 0 else 0.0
+            poisoned = P[hi + 1, 2] > P[t, 2] or c == 0 or lastnan >= lo
+            # T gains bin t - 3 and drops bin lo_{t-1} as the window moves
+            lop = b[t - 1, 0]
+            T += (float(vs[t - 3]) if lo <= t - 3 else 0.0) - (
+                float(vs[lop]) if t >= 2 and lop < lo and lop <= t - 4 else 0.0)
+            ivf = np.float32(0.0 if poisoned else iv)
+            gf = np.float32(0.0 if poisoned else (T + r) * iv)
+            inner = _fmaf(vs[t - 2] if t >= 2 else 0.0,
+                          ivf if lo <= t - 2 else 0.0, gf)
+            v = _fmaf(vs[t - 1], ivf if lo <= t - 1 else 0.0, inner)
+            ys[t] = np.nan if poisoned else v
+            vs[t] = v
+            lastnan = t if poisoned else lastnan
+        # the first bin whose exact window sum is 0 or whose value is 0
+        S = np.concatenate([[0.0], np.cumsum(vs[:end], dtype=np.float64)])
+        zero = asz
+        for t in range(1, end):
+            lo = b[t, 0]
+            w = (S[t] - S[lo]) + (P[b[t, 1] + 1, 0] - P[t, 0])
+            if not np.isnan(ys[t]) and (w == 0 or ys[t] == 0):
+                zero = t
+                ys[t] = 0.0
+                break
+        h = min(end, zero + 1)
+        if h < asz:
+            SS = np.zeros((asz + 1, 5))
+            SS[:h + 1] = _chunk_prefix(_stats(ys[:h]))
+            for t in range(h, asz):
+                lo, hi = b[t]
+                ys[t] = _mean((SS[t] - SS[lo]) + (P[hi + 1] - P[t]))
+                SS[t + 1] = SS[t] + _stats(ys[t:t + 1])[0]
+        handoffs.append(h)
+        row[:asz] = ys
+    return (np.nan_to_num(out, nan=0.0, posinf=np.inf, neginf=-np.inf),
+            np.array(handoffs))
 
 
 @pytest.mark.parametrize("sz,ratio,distance", SMOOTH_CASES)
 def test_smooth_kernel_walk_matches_plain(sz, ratio, distance):
-    """The kernel's arithmetic (its prefix-statistics walk, transcribed
-    in numpy) against the plain version: within 1e-5, zeros equal; with an
-    inf in a row too."""
+    """The kernel's arithmetic (its two walks, transcribed in numpy)
+    against the plain version: within 1e-5, zeros equal; with an inf in
+    a row too (that row's exact walk from its first window holding the
+    inf), and with every row on the exact walk from bin 1."""
     x = _smooth_rows(sz, 28)
     x[2, 5] = np.inf
-    got = smooth_scan_model(x, ratio, distance)
     want = smooth.smooth_transform_plain(torch.as_tensor(x), ratio, distance).numpy()
+    asz = smooth.smooth_bounds(sz, ratio, distance).shape[0]
+    for exact_from in (None, 1):
+        got, handoffs = smooth_scan_model(x, ratio, distance, exact_from)
+        np.testing.assert_allclose(got, want, atol=1e-5)
+        assert np.array_equal(got == 0, want == 0)
+        if exact_from is None:
+            assert handoffs[0] == handoffs[1] == asz and handoffs[2] <= 5
+        else:
+            assert (handoffs == 1).all()
+
+
+# rows of 512 (ratio 4, d 0.01: 128 bins) per case, row 0 forcing one of
+# the kernel's branches, row 1 as _smooth_rows makes it: case -> the bin
+# row 0's exact walk starts from (None: none)
+SMOOTH_BRANCHES = {
+    # bin 1's window [1, 2] sums to 0; bin 2's [1, 3] holds a smoothed 0
+    "cancellation": 2,
+    "posinf": "inf",
+    "neginf": "inf",
+    "nan": None,
+    "silent": None,
+    # distance 0: lo jumps by 2 somewhere, so both rows walk exactly
+    "distance0": 1,
+}
+
+
+def _branch_row(case: str) -> np.ndarray:
+    x = _smooth_rows(512, 33, rows=2)
+    if case == "cancellation":
+        x[0, 1], x[0, 2] = 0.5, -0.5
+    elif case == "posinf":
+        x[0, 60] = np.inf
+    elif case == "neginf":
+        x[0, 60] = -np.inf
+    elif case == "nan":
+        x[0, 30] = np.nan
+    elif case == "silent":
+        x[:] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("case", list(SMOOTH_BRANCHES))
+def test_smooth_kernel_walk_branches(case):
+    """Each branch of the kernel's walks, transcribed: an exact
+    cancellation hands the row to the exact walk after the zero bin, an
+    input +-inf at the first window that holds it, a NaN input stays on
+    the fast walk (poisoning its windows), a silent row gives all 0, and
+    at distance 0 (lo jumps by 2) every row walks exactly from bin 1;
+    within 1e-5 of the plain version, zeros equal."""
+    x = _branch_row(case)
+    d = 0.0 if case == "distance0" else 0.01
+    got, handoffs = smooth_scan_model(x, 4.0, d)
+    want = smooth.smooth_transform_plain(torch.as_tensor(x), 4.0, d).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5)
     assert np.array_equal(got == 0, want == 0)
+    b = smooth.smooth_bounds(512, 4.0, d)
+    expect = SMOOTH_BRANCHES[case]
+    if expect == "inf":
+        # the inf from the first window holding it to the last bin (each
+        # window holds the bin before it)
+        expect = int(np.flatnonzero(b[:, 1] >= 60)[0])
+        assert (got[0, expect:len(b)] == x[0, 60]).all()
+        assert np.isfinite(got[0, :expect]).all()
+    assert handoffs[0] == (len(b) if expect is None else expect)
+    assert handoffs[1] == (1 if case == "distance0" else len(b))
+    if case == "cancellation":
+        assert got[0, 1] == 0 and want[0, 1] == 0
+    if case == "silent":
+        assert (got == 0).all()
+    if case == "nan":
+        # NaN -> 0 from the first window holding x[30] to the last bin
+        t0 = int(np.flatnonzero(b[:, 1] >= 30)[0])
+        assert (got[0, t0:len(b)] == 0).all() and (got[0, 1:t0] != 0).all()
+
+
+@pytest.mark.parametrize("distance,fast", [(0.01, True), (0.5, True),
+                                            (0.0, False)])
+def test_smooth_fast_walk_takes_windows_whose_lo_grows_by_one(distance, fast):
+    """The kernel's fast walk drops each bin from its running window sum
+    once, in order, so it needs lo to grow by 0 or 1 a bin; at distance
+    0 (lo = t up to rounding) it jumps by 2, and every row walks exactly
+    (``_bounds``'s flag, the kernel's exact_from 1)."""
+    bounds, got = smooth._bounds(4096, 4.0, distance, torch.device("cpu"))
+    step = np.diff(bounds.numpy()[1:, 0])
+    assert got == fast == bool(np.all((step == 0) | (step == 1)))
+
+
+@pytest.mark.parametrize("ratio", [4.0, 1.0])
+def test_smooth_tables_fit_shared_memory_at_4096(ratio):
+    """The shipped bufsize's tables (either walk's) lie in shared memory
+    at any ratio; sz 65536's take the device scratch route."""
+    asz = smooth.smooth_bounds(4096, ratio, 0.01).shape[0]
+    assert smooth.table_bytes(4096, asz) <= smooth.STAGED_MAX
+    assert smooth.table_bytes(65536, -(-65536 // int(ratio))) > smooth.STAGED_MAX
 
 
 def test_smooth_bounds_are_the_jax_mask():
@@ -425,6 +599,28 @@ def test_smooth_shader_module_matches_jax(tmp_path):
                          np.float32(1.0), np.float32(0.05), {})
         assert golden_fraction(got.numpy(), want) < 0.002
     assert (got[..., 3] > 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SMOOTH_BRANCHES))
+def test_smooth_kernel_branches_on_the_card(case):
+    """Each branch case through csrc/smooth_scan.cu against its plain
+    version on the card: within 1e-5, zeros equal, row 0 on the walk the
+    numpy model takes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    x = _branch_row(case)
+    d = 0.0 if case == "distance0" else 0.01
+    _, handoffs = smooth_scan_model(x, 4.0, d)
+    asz = smooth.smooth_bounds(512, 4.0, d).shape[0]
+    smooth.reset_rows_by_walk()
+    got = smooth.smooth_transform(torch.as_tensor(x, device="cuda"), 4.0, d)
+    want = smooth.smooth_transform_plain(torch.as_tensor(x), 4.0, d)
+    assert torch.equal(got.cpu() == 0, want == 0)
+    # the same +-inf, the finite values within 1e-5
+    torch.testing.assert_close(got.cpu(), want, rtol=0.0, atol=1e-5)
+    exact = int((handoffs < asz).sum())
+    assert smooth.rows_by_walk() == {"fast": 2 - exact, "exact": exact}
 
 
 @pytest.mark.cuda

@@ -222,7 +222,7 @@ def test_rows_axis_is_not_taken_by_a_fleet(tmp_path):
     lc, _ = _loads("bars", tmp_path)
     mesh = make_mesh(["cpu"] * 4, rows=2)
     assert mesh.shape == {"streams": 2, "rows": 2}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 4"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 1"):
         ShardedRenderer([lc], [0] * 4, mesh)
     with pytest.raises(NotImplementedError, match="rows=2"):
         FleetEngine(lc, [StreamSpec(f"s{i}") for i in range(4)],

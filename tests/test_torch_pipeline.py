@@ -281,7 +281,8 @@ def test_stateless_chain_textures_match_jax(uniforms):
         (torch.as_tensor(al) + 1.0) / 2.0, 0.0, 1.0))
 
 
-@pytest.mark.parametrize("case", ["cpu_path", "chain", "smooth", "bufsize131072"])
+@pytest.mark.parametrize("case", ["cpu_path", "chain", "smooth", "bufsize131072",
+                                  "bufsize33554432"])
 def test_configuration_routes(case):
     """The update route of configurations the port once refused: the
     CPU path takes the chain route at any bufsize (131072 too), an fft
@@ -289,7 +290,9 @@ def test_configuration_routes(case):
     ``smooth`` chain keeps no state (their values are held against the
     JAX package in tests/test_torch_cpu_path.py), and the accel path
     above the one-cluster kernel's 65536 takes the kernel route, the
-    split plan on the card (its values in ``CHAIN_CASES`` below)."""
+    split plan on the card (its values in ``CHAIN_CASES`` below), up
+    to 2^24; above that, where no split plan fits, the chain, as the
+    JAX package takes its XLA chain."""
     cfg = RenderConfig(bufsize=1024)
     uniforms = [UniformSpec(*u) for u in BARS]
     if case == "cpu_path":
@@ -308,13 +311,20 @@ def test_configuration_routes(case):
         uniforms = [UniformSpec("audio_l", "audio_l", ("wrange", "smooth"))]
         p = AudioPipeline(cfg, uniforms, device="cpu")
         assert p.route is None and p.init_state().count.numel() == 0
-    else:
+    elif case == "bufsize131072":
         from glava_tpu_torch.ops import fused
 
         p = AudioPipeline(dataclasses.replace(cfg, bufsize=131072,
                                               smooth_pass=False),
                           uniforms, device="cpu")
         assert p.route == "kernel" and fused.fft_plan(p.sz).split
+    else:
+        from glava_tpu_torch.ops import fused
+
+        p = AudioPipeline(dataclasses.replace(cfg, bufsize=1 << 25,
+                                              smooth_pass=False),
+                          uniforms, device="cpu")
+        assert p.sz > fused.MAX_SPLIT_N and p.route == "chain"
 
 
 # ---------------------------------------------------------------------------
@@ -446,6 +456,20 @@ def test_update_route_follows_the_shape():
     for n in (0, 1, 2, 3, 96, 1000, 4097):
         with pytest.raises(ValueError, match="power of two"):
             fused.update_route(n)
+
+
+def test_update_route_takes_the_chain_above_the_split_plans():
+    """The kernel up to MAX_SPLIT_N (2^24), the largest split plan; the
+    chain at 2x and 4x that, chosen from n before any launch, while a
+    direct ``fft_plan`` call there still raises."""
+    from glava_tpu_torch.ops import fused
+
+    top = fused.MAX_SPLIT_N
+    assert fused.fft_plan(top).split
+    assert [fused.update_route(n) for n in (top, 2 * top, 4 * top)] == [
+        "kernel", "chain", "chain"]
+    with pytest.raises(ValueError, match="power of two in"):
+        fused.fft_plan(2 * top)
 
 
 @pytest.mark.parametrize("bufsize", [3, 96])
