@@ -18,10 +18,12 @@ code is non-zero and no result line is printed):
                slots; gravity, average and the written history slot
                within 2e-5, the other history slots bit-identical. Its
                split route (``SPLIT_CASES``: n 131072 and 262144 at B 2
-               and 128, n 524288 at B 2, F 6; column FFTs, then the
-               k-point stage and the epilogue): 4 updates each, one
-               split launch an update, within 2e-5 or, where larger,
-               the plain version's own distance from a float64 model.
+               and 128, n 524288, 2^21 and 2^22 at B 2, 2^24 at B 1,
+               F 6, and n 131072 B 2 at F 1, 16 and 32: every class of
+               split plan; column FFTs, then the k-point stage and the
+               epilogue): 4 updates each, one split launch an update,
+               within 2e-5 or, where larger, the plain version's own
+               distance from a float64 model.
                table_lookup BIT-IDENTICAL (torch.equal) on: radial's
                162-entry table at its 1920x1080 id plane, an 8192-entry
                table at circle's three 1920x1080 site planes, a
@@ -147,7 +149,8 @@ code is non-zero and no result line is printed):
                the main path's shapes, and of one PyTorch call computing
                the same function where there is one: fused_update
                (``FUSED_TIMED``: n 4096 to 262144 at B 2 and 128, n
-               524288 at B 2; the split route above 65536; bound the
+               524288 at B 2; the split route above 65536, with each of
+               its two kernels' profiler time; bound the
                larger of bytes and float64 FFT operations), latch_scan and
                torch.cummax at (1081, 1920) (the latch also at (601,
                800)), bars_raster (S = 64 at 800x600 and 1920x1080) and
@@ -196,8 +199,8 @@ kernels on every card, in a process of its own package.
     python3 chip_smoke.py --fused-ab DIR [DIR ...]
 
 times the fused update of other trees beside this checkout's instead
-(``fused_ab``): each DIR holds a tree's ``ops/fused.py`` and
-``csrc/fused_update.cu``.
+(``fused_ab``), on the one-cluster route and the split route: each DIR
+holds a tree's ``ops/fused.py`` and ``csrc/fused_update.cu``.
 
     python3 chip_smoke.py --smooth-ab DIR [DIR ...]
 
@@ -494,16 +497,17 @@ def phase_build():
 
 
 def _plain_to_model(pcm, grav, hist, slot, scale, cutoff, g, window, w_age,
-                    pg, pavg, rows=(0, 1)) -> float:
+                    pg, pavg) -> float:
     """How far the plain version's gravity and average lie from a float64
-    numpy model of the update on ``rows``: where that exceeds TOL, the
-    plain float32 chain itself drifts further than the tolerance."""
+    numpy model of the update on its first two rows: where that exceeds
+    TOL, the plain float32 chain itself drifts further than the
+    tolerance."""
     n = pcm.shape[1]
     m = n // 2
     F = hist.shape[1]
     h = lambda t: t.detach().cpu().numpy().astype(np.float64)  # noqa: E731
     worst = 0.0
-    for r in rows:
+    for r in range(min(2, pcm.shape[0])):
         x = h(pcm[r]) * h(window)
         spec = np.fft.fft(x[0::2] + 1j * x[1::2])
         inter = np.stack([spec.real, spec.imag], axis=-1).reshape(n)
@@ -520,6 +524,18 @@ def _plain_to_model(pcm, grav, hist, slot, scale, cutoff, g, window, w_age,
         worst = max(worst, float(np.abs(h(pg[r]) - gv).max()),
                     float(np.abs(h(pavg[r]) - avg).max()))
     return worst
+
+
+def _tolerance(args, pg, pavg) -> float:
+    """The fused update's tolerance on inputs ``args`` (as
+    ``fused_update`` takes them) whose plain gravity and average are
+    ``pg``, ``pavg``: TOL, or on the split route the plain version's own
+    distance from a float64 model where that is larger."""
+    from glava_tpu_torch.ops import fused
+
+    if not fused.fft_plan(args[0].shape[1]).split:
+        return TOL
+    return max(TOL, _plain_to_model(*args, pg, pavg))
 
 
 def _case(n: int, B: int, F: int, rng, updates: int = 8) -> float:
@@ -539,7 +555,6 @@ def _case(n: int, B: int, F: int, rng, updates: int = 8) -> float:
     hist = t(rng.uniform(0, 1, (B, F, 2, m)))
     count = np.arange(B) % F                  # staggered per-row slots
     worst = 0.0
-    split = fused.fft_plan(n).split
     for _ in range(updates):
         pcm = t(rng.standard_normal((B, n)) * 0.3)
         scale = t(rng.uniform(5.0, 20.0, B))
@@ -561,8 +576,8 @@ def _case(n: int, B: int, F: int, rng, updates: int = 8) -> float:
         }
         if not torch.equal(kh[~written], hist[~written]):
             raise AssertionError(f"n={n} B={B}: unwritten history slots changed")
-        tol = TOL if not split else max(TOL, _plain_to_model(
-            pcm, grav, hist, slot, scale, cutoff, g, window, w_age, pg, pavg))
+        tol = _tolerance((pcm, grav, hist, slot, scale, cutoff, g, window,
+                          w_age), pg, pavg)
         if not all(np.isfinite(v) and v <= tol for v in errs.values()):
             raise AssertionError(f"n={n} B={B}: kernel vs plain {errs} > {tol}")
         worst = max(worst, *errs.values())
@@ -582,13 +597,22 @@ FUSED_CASES = tuple((256 << i, B, F) for i in range(9) for B in (1, 2, 128)
 
 
 # (n, B, F) of the split route's checks (n above 65536: column FFTs, then
-# the k-point stage and the epilogue, two launches through device memory)
+# the k-point stage and the epilogue, two launches through device memory):
+# one case of each class of split plan (fused.FFTPlan.split_points,
+# split_copy and split_slots): k 32-128, 1024-point stage CTAs, history
+# by tensor copy, one box a slot; k 512, 2048 points, two boxes a slot;
+# k 1024, 4096 points, runs of 4 floats, the ring streamed through 2
+# slots; k 4096, runs of 1 float by cp.async, the k-point twiddles read
+# from device memory; and at k 32 rings of 1 and 16 slots, resident, and
+# of 32, streamed through 23
 SPLIT_CASES = ((131072, 2, 6), (131072, 128, 6), (262144, 2, 6),
-               (262144, 128, 6), (524288, 2, 6))
+               (262144, 128, 6), (524288, 2, 6), (1 << 21, 2, 6),
+               (1 << 22, 2, 6), (1 << 24, 1, 6), (131072, 2, 1),
+               (131072, 2, 16), (131072, 2, 32))
 
 
-def phase_kernel() -> tuple[float, float]:
-    """The one-cluster route's worst error, and the split route's."""
+def phase_kernel() -> float:
+    """The one-cluster route's worst error."""
     from glava_tpu_torch.ops import fused
 
     rng = np.random.default_rng(0)
@@ -603,21 +627,32 @@ def phase_kernel() -> tuple[float, float]:
           f"history slots torch.equal; max abs err by n: "
           f"{', '.join(f'{k} {v:.2e}' for k, v in worst.items())} "
           f"(tolerance {TOL})")
+    return max(worst.values())
+
+
+def phase_split() -> float:
+    """The split route's worst error over ``SPLIT_CASES``."""
+    from glava_tpu_torch.ops import fused
+
+    rng = np.random.default_rng(0)
     split = {}
     for n, B, F in SPLIT_CASES:
         before = fused.split_launches
-        split[n, B] = _case(n, B, F, rng, updates=4)
+        plan = fused.fft_plan(n)
+        key = (f"n{n} B{B} F{F} (k {plan.k}, run {plan.split_run}, "
+               f"{plan.split_copy}, {plan.split_slots(F)} slots resident)")
+        split[key] = _case(n, B, F, rng, updates=4)
         if fused.split_launches != before + 4:
             raise AssertionError(f"split n{n} B{B}: {fused.split_launches - before} "
                                  "split launches for 4 updates")
     print(f"[3 kernel] fused_update split route (k = n/4096 column FFTs of "
           f"2048 points, then the k-point stage and the epilogue) vs plain, "
-          f"F 6, 4 updates of fresh audio each, one split launch an update, "
+          f"4 updates of fresh audio each, one split launch an update, "
           f"untouched history slots torch.equal; max abs err: "
-          f"{', '.join(f'n{n} B{B} (k {fused.fft_plan(n).k}) {v:.2e}' for (n, B), v in split.items())} "
+          f"{', '.join(f'{k} {v:.2e}' for k, v in split.items())} "
           f"(tolerance {TOL}, or the plain version's distance from a "
           f"float64 model where larger)")
-    return max(worst.values()), max(split.values())
+    return max(split.values())
 
 
 def _module_lookup(module: str, screen, reqs=()):
@@ -2126,7 +2161,8 @@ def _update_sets(n: int, B: int, F: int = 6) -> list:
 def _update_times(n: int, B: int):
     """fused_update at bufsize n and B rows: event times of the kernel
     and its plain version, each call on fresh inputs, the profiler's
-    device time of the kernel on one warm input set and the bytes."""
+    device time of the kernel on one warm input set (on the split route
+    also each of its two kernels', else an empty dict) and the bytes."""
     from glava_tpu_torch.ops import fused
 
     sets = _update_sets(n, B)
@@ -2134,7 +2170,9 @@ def _update_times(n: int, B: int):
     kernel = event_ms(lambda i: fused.fused_update(*sets[i % K]), 200)
     plain = event_ms(lambda i: fused.fused_update_plain(*sets[i % K]), 10)
     profiled = device_ms(lambda: fused.fused_update(*sets[0]))
-    return kernel, plain, profiled, _update_bytes(n, B, 6), K
+    each = (kernel_ms(lambda: fused.fused_update(*sets[0]), SPLIT_KERNELS, 20)
+            if fused.fft_plan(n).split else {})
+    return kernel, plain, profiled, each, _update_bytes(n, B, 6), K
 
 
 def host_us(fn, iters: int = 1000, repeats: int = 5) -> float:
@@ -2210,46 +2248,68 @@ def _serving(built, name: str = "fused_update"):
             _build._LOADED[name] = saved
 
 
+# (n, B) of the split route's shapes in ``--fused-ab``
+SPLIT_AB = ((131072, 2), (262144, 2), (524288, 2), (131072, 128),
+            (262144, 128))
+SPLIT_KERNELS = ("split_columns_kernel", "split_stage_kernel")
+
+
 def fused_ab(dirs: list[str]) -> int:
     """``--fused-ab DIR ...``: the fused update of each DIR (a tree's
     ``glava_tpu_torch/ops/fused.py`` and ``csrc/fused_update.cu``, for
     example from ``git show <commit>:<path>``) beside this checkout's,
     in one process on one card. At n in {512, ..., 16384} (k = 1, 2, 4,
-    8 and 8 with 1024-point CTA FFTs) and B in {2, 128}: CUDA-event time
-    on fresh inputs and the profiler's warm time, each variant twice, in
-    the order given and then reversed. Every variant's first call is
-    held against the plain version, so a mix-up of kernels fails the
-    run. Then the host time of one call at n 4096, B 2 (``_host_ab``)."""
+    8 and 8 with 1024-point CTA FFTs) and B in {2, 128}, and on the
+    split route at ``SPLIT_AB``: CUDA-event time on fresh inputs and the
+    profiler's warm time (on the split route also each of its two
+    kernels' own), each variant twice, in the order given and then
+    reversed. Every variant's first call is held against the plain
+    version (``_tolerance``) and must count one launch (on the split
+    route one split launch), so a mix-up of kernels fails the run. Then
+    the host time of one call at n 4096, B 2 (``_host_ab``)."""
     from glava_tpu_torch.ops import _build, fused
 
     card = phase_device()
     variants = [("this", fused, _build.load("fused_update")),
                 *_tree_variants(dirs)]
-    for n in (512, 1024, 2048, 4096, 16384):
-        for B in (2, 128):
-            sets = _update_sets(n, B)
-            K = len(sets)
-            order = variants + variants[::-1]
-            for r, (name, mod, built) in enumerate(order):
-                # the timed calls update the sets' state in place
-                pg, _, pavg = fused.fused_update_plain(*sets[0])
-                with _serving(built):
-                    before = mod.launches
-                    args = [a.clone() for a in sets[0][:3]] + list(sets[0][3:])
-                    kg, kh, kavg = mod.fused_update(*args)
-                    err = max((kg - pg).abs().max().item(),
-                              (kavg - pavg).abs().max().item())
-                    if mod.launches != before + 1 or not err <= TOL:
-                        raise AssertionError(f"{name} n{n} B{B}: launches "
-                                             f"{mod.launches - before}, err {err}")
-                    ev = event_ms(lambda i: mod.fused_update(*sets[i % K]), 200)
-                    warm = device_ms(lambda: mod.fused_update(*sets[0]))
-                print(f"[ab] fused n{n} B{B} {name}: events {ev * 1e3:.2f} us, "
-                      f"warm {warm * 1e3:.2f} us, err {err:.2e}, round "
-                      f"{r // len(variants)} ({card})")
-            print(f"[ab] fused n{n} B{B}: bound "
-                  f"{bound_ms(_update_bytes(n, B, 6)) * 1e3:.3f} us (bytes), "
-                  f"{K} input sets in turn")
+    shapes = tuple((n, B) for n in (512, 1024, 2048, 4096, 16384)
+                   for B in (2, 128)) + SPLIT_AB
+    for n, B in shapes:
+        split = fused.fft_plan(n).split
+        sets = _update_sets(n, B)
+        K = len(sets)
+        order = variants + variants[::-1]
+        for r, (name, mod, built) in enumerate(order):
+            # the timed calls update the sets' state in place
+            pg, _, pavg = fused.fused_update_plain(*sets[0])
+            tol = _tolerance(sets[0], pg, pavg)
+            with _serving(built):
+                count = "split_launches" if split else "launches"
+                before = getattr(mod, count)
+                args = [a.clone() for a in sets[0][:3]] + list(sets[0][3:])
+                kg, _, kavg = mod.fused_update(*args)
+                err = max((kg - pg).abs().max().item(),
+                          (kavg - pavg).abs().max().item())
+                if getattr(mod, count) != before + 1 or not err <= tol:
+                    raise AssertionError(f"{name} n{n} B{B}: {count} "
+                                         f"{getattr(mod, count) - before}, "
+                                         f"err {err} (tolerance {tol})")
+                ev = event_ms(lambda i: mod.fused_update(*sets[i % K]),
+                              50 if B * n > 2 ** 22 else 200)
+                warm = device_ms(lambda: mod.fused_update(*sets[0]))
+                parts = ""
+                if split:
+                    each = kernel_ms(lambda: mod.fused_update(*sets[0]),
+                                     SPLIT_KERNELS)
+                    parts = ", " + ", ".join(f"{k} {v * 1e3:.2f} us"
+                                             for k, v in each.items())
+            print(f"[ab] fused n{n} B{B} {name}: events {ev * 1e3:.2f} us, "
+                  f"warm {warm * 1e3:.2f} us{parts}, err {err:.2e} "
+                  f"(tolerance {tol:.2e}), round {r // len(variants)} "
+                  f"({card})")
+        print(f"[ab] fused n{n} B{B}: bound "
+              f"{bound_ms(_update_bytes(n, B, 6)) * 1e3:.3f} us (bytes), "
+              f"{K} input sets in turn")
     _host_ab(variants, card)
     return 0
 
@@ -2489,6 +2549,30 @@ def device_ms(fn, iters: int = 100, tries: int = 3) -> float:
     print(f"[5 times] torch.profiler recorded no device time in {tries} "
           f"profiles: {ms * 1e3:.2f} us a call by CUDA events instead")
     return ms
+
+
+def kernel_ms(fn, names, iters: int = 100, tries: int = 3) -> dict:
+    """Device milliseconds a call of ``fn`` spent in each kernel whose
+    name holds one of ``names``: torch.profiler's ``key_averages`` by
+    kernel name, on warm inputs. Fails if a profile never records one of
+    them (no fallback: a time per kernel has no other source)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        out = {name: sum(e.self_device_time_total for e in events
+                         if name in e.key) / 1e3 / iters for name in names}
+        if all(v > 0 for v in out.values()):
+            return out
+    raise AssertionError(f"kernel_ms: no device time recorded for {names} in "
+                         f"{tries} profiles")
 
 
 # (n, B) of the fused update's timed shapes: the one-cluster route at
@@ -2889,11 +2973,14 @@ def phase_times(card: str, user_dir: str) -> dict:
 
     times = {}
     for n, B in FUSED_TIMED:
-        dk, dp, prof, nbytes, K = _update_times(n, B)
+        dk, dp, prof, each, nbytes, K = _update_times(n, B)
         bound, by, ops_ms = fused_bound(n, B, nbytes)
         times[n, B] = {"ms": dk, "plain_ms": dp, "library_ms": None,
                        "bound_ms": bound, "bound_by": by}
         route = " (split route)" if n > 65536 else ""
+        if each:
+            route += " (" + ", ".join(f"{k} {v * 1e3:.2f} us" for k, v in
+                                      each.items()) + " on one warm set)"
         print(f"[5 times] fused update n{n} B{B}{route}: kernel "
               f"{dk * 1e3:.2f} us, plain {dp * 1e3:.2f} us (CUDA events, back "
               f"to back, {K} input sets in turn), bound {bound * 1e3:.3f} us "
@@ -3101,8 +3188,8 @@ REPLACES = {
 def main() -> int:
     card = phase_device()
     phase_build()
-    cluster_err, split_err = phase_kernel()
-    errs = {"fused_update": cluster_err, "fused_update split": split_err,
+    errs = {"fused_update": phase_kernel(),
+            "fused_update split": phase_split(),
             "table_lookup": phase_lookup(),
             "latch_scan": phase_latch(), "rowwise_lookup": phase_rowwise(),
             "bars_raster": phase_raster(), "smooth_scan": phase_smooth()}

@@ -508,68 +508,153 @@ fused_update_kernel(const Args a, const __grid_constant__ CUtensorMap grav_map,
 // 2048-point FFTs at most), so the four-step split goes through device
 // memory in two launches, with no cluster:
 //
-// * Pass A, the columns. CTA (row, blk) takes columns j1 = blk*cols ..
-//   of its row. Its threads first stage x[j1 + k*j2] * window for all
-//   of its columns (a thread's `cols` loads of a j2 fall in one 32-byte
-//   sector, so the stride-k read of the audio costs one sector a j2,
-//   not `cols`), then, a column at a time, run the 2048-point Stockham
-//   FFT in float64 (the one-cluster kernel's passes), scale bin f2 by
+// * Pass A, the columns. CTA (row, blk) takes `cols` columns j1 =
+//   blk*cols .. of its row (1, or SPLIT_COLS at many rows), and lets
+//   pass B launch at once. One thread asks for the m2-point twiddles by
+//   bulk copy (cp.async.bulk on an mbarrier) and, with several columns,
+//   for each column's W_m^(j1*f2) row while the column before it runs
+//   its FFT. Its threads stage x[j1 + k*j2] * window for all of its
+//   columns, the loads of several j2 issued before their stores (a
+//   thread's `cols` loads of a j2 fall in one 32-byte sector, so the
+//   stride-k read of the audio costs one sector a j2, not `cols`),
+//   then, a column at a time, run the 2048-point Stockham FFT in
+//   float64 (the one-cluster kernel's passes), scale bin f2 by
 //   W_m^(j1*f2) and write Y[row, j1, f2] (double2) to the scratch
 //   tensor the wrapper allocates.
 // * Pass B, the k-point stage and the epilogue. CTA (row, blk) owns
-//   `run` consecutive f2 = blk*run + col: it reads Y[row, :, f2] (runs
-//   of `run` complex doubles), takes the k-point DFTs over j1 of all
-//   its columns at once as batched Stockham passes (radix 8 and 4,
-//   twiddles W_k^t from the table), and runs the epilogue on bins
-//   f1*2048 + f2 straight against device memory: gravity read and
-//   written, the row's ring slot written, the other F - 1 slots read in
-//   f order for the age-weighted average.
+//   `run` consecutive f2 = blk*run + col. It is launched as pass A's
+//   programmatic dependent (cudaLaunchAttributeProgrammaticStreamSerial-
+//   ization), and pass A lets it start at once, so pass B's CTAs start
+//   while pass A runs: before waiting for pass A (griddepcontrol.wait)
+//   a CTA asks for everything pass A never writes, into shared memory:
+//   the k-point twiddles (bulk copy), its share of the gravity row and
+//   of every history slot but the row's own (2 planes x k runs of `run`
+//   floats each). Runs of 4 floats and more come by tensor copy
+//   (cp.async.bulk.tensor over the (m2, k, planes) view, boxes of (run,
+//   min(k, 256), 1)); runs of 2 and 1 float (k 2048, 4096), below the
+//   copies' 16 bytes, by cp.async of 4 bytes, every thread its share.
+//   Then it reads Y[row, :, f2] (runs of `run` complex doubles), takes
+//   the k-point DFTs over j1 of all its columns at once as batched
+//   Stockham passes (radix 8 and 4), and runs the epilogue on bins
+//   f1*2048 + f2 against shared memory: gravity and the row's ring slot
+//   written, the average summed in f order over the slots in shared
+//   memory. Where F slots do not fit beside the stage's buffers, the
+//   ring streams through G slots in groups, as in the one-cluster
+//   kernel, the running sums parked in the stage's dead buffer.
 //
-// What bounds it: bytes. The scratch round trip (16 bytes a complex
-// bin, written once and read once) doubles the ~40 bytes a bin the
-// function itself must move at F 6; the k-point stage's twiddles and
-// the column FFTs' stay in shared memory. Offsets are size_t: B*F*n
-// passes 2^31 (B 128, F 6, n 2^22).
+// What bounds it: bytes at many rows, latency at a few. The scratch
+// round trip (16 bytes a complex bin, written once and read once)
+// doubles the ~40 bytes a bin the function itself must move at F 6. At
+// a few rows the time is a chain: pass A's FFT, then pass B's read of
+// Y, its stage passes and its epilogue; the history's reads, which
+// made the epilogue a chain of device-memory round trips, now land
+// while pass A runs. Offsets are size_t: B*F*n passes 2^31 (B 128,
+// F 6, n 2^22).
 
 constexpr int kMaxSplitCols = 4;   // ops/fused.py SPLIT_COLS
+constexpr int kSplitPoints = 2048; // a column's FFT (ops/fused.py MAX_CTA_POINTS)
+constexpr int kMaxBox = 256;       // a tensor copy's box: at most 256 a dimension
 
+// griddepcontrol (sm_90): let the dependent grid launch; wait until the
+// grids this one depends on have completed and their writes are visible
+__device__ __forceinline__ void launch_dependents()
+{
+    asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+__device__ __forceinline__ void grid_dependency_wait()
+{
+    asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// 4 bytes global -> shared, completing at cp.async.wait_all
+__device__ __forceinline__ void copy4(float* dst, const float* src)
+{
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+                 :: "r"(smem_u32(dst)), "l"(__cvta_generic_to_global(src))
+                 : "memory");
+}
+
+// kCols columns a CTA (1 or SPLIT_COLS; k is a multiple of both, so
+// every CTA takes all kCols). With more than one column the W_m^(j1*f2)
+// row of each comes into shared memory by bulk copy while the column
+// before it runs its FFT; with one, where the CTA's 112 KB leave room
+// for a second CTA an SM, it is read from device memory at the stores
+template <int kCols>
 __global__ void __launch_bounds__(kThreads)
 split_columns_kernel(const float* __restrict__ pcm,
                      const float* __restrict__ window,
                      const double2* __restrict__ twiddle,
-                     double2* __restrict__ Y, int n, int k, int m2,
-                     int nstages, int radix_code, int cols)
+                     double2* __restrict__ Y, int n, int k, int nstages,
+                     int radix_code)
 {
-    extern __shared__ __align__(16) unsigned char smem[];
-    double2* buf0 = (double2*)smem;
+    constexpr int m2 = kSplitPoints;
+    constexpr int kPost = kCols > 1 ? m2 : 0;   // shared post row
+    extern __shared__ __align__(128) unsigned char smem[];
+    // pass B may start now: it reads only what this pass never writes
+    // until its griddepcontrol.wait, which waits for this whole grid
+    launch_dependents();
+    uint64_t* bars = (uint64_t*)smem;        // [0] W_m2; [1] the post row
+    double2* buf0 = (double2*)(smem + 128);
     double2* buf1 = buf0 + m2;
     double2* tw = buf1 + m2;                 // W_m2^t
-    float2* stage = (float2*)(tw + m2);      // cols x m2 windowed pairs
-    const int blocks = (k + cols - 1) / cols;
+    double2* post = tw + m2;                 // W_m^(j1*f2), the column at work
+    float2* stage = (float2*)(post + kPost); // kCols x m2 windowed pairs
+    const int blocks = k / kCols;
     const int row = blockIdx.x / blocks;
-    const int j0 = (blockIdx.x % blocks) * cols;
-    const int ncol = min(cols, k - j0);
+    const int j0 = (blockIdx.x % blocks) * kCols;
+    constexpr uint32_t table = (uint32_t)m2 * sizeof(double2);
 
-    for (int t = threadIdx.x; t < m2; t += kThreads) tw[t] = twiddle[t];
-    const float2* pcm2 = (const float2*)(pcm + (size_t)row * n);
-    const float2* win2 = (const float2*)window;
-    for (int j2 = threadIdx.x; j2 < m2; j2 += kThreads) {
-        const size_t g = (size_t)j0 + (size_t)k * j2;
-#pragma unroll
-        for (int c = 0; c < kMaxSplitCols; ++c) {
-            if (c < ncol) {
-                const float2 x = __ldg(pcm2 + g + c), w = __ldg(win2 + g + c);
-                stage[c * m2 + j2] = make_float2(x.x * w.x, x.y * w.y);
-            }
+    if (threadIdx.x == 0) {
+        mbar_init(&bars[0]);
+        mbar_init(&bars[1]);
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+        mbar_expect(&bars[0], table);
+        bulk_copy(tw, twiddle, table, &bars[0]);
+        if (kCols > 1) {
+            mbar_expect(&bars[1], table);
+            bulk_copy(post, twiddle + m2 + (size_t)j0 * m2, table, &bars[1]);
         }
     }
-    for (int c = 0; c < ncol; ++c) {
+    // x[j1 + k*j2] * window for the kCols columns j1 of each j2 =
+    // threadIdx.x + r*kThreads: a batch of j2's loads issued before its
+    // stores, so the loads' round trips overlap
+    const float2* pcm2 = (const float2*)(pcm + (size_t)row * n);
+    const float2* win2 = (const float2*)window;
+    constexpr int kBatch = kCols == 1 ? 8 : 2;
+#pragma unroll
+    for (int r0 = 0; r0 < m2 / kThreads; r0 += kBatch) {
+        float2 x[kBatch][kCols], w[kBatch][kCols];
+#pragma unroll
+        for (int r = 0; r < kBatch; ++r) {
+            const size_t g = (size_t)j0
+                             + (size_t)k * (threadIdx.x + (r0 + r) * kThreads);
+#pragma unroll
+            for (int c = 0; c < kCols; ++c) {
+                x[r][c] = __ldg(pcm2 + g + c);
+                w[r][c] = __ldg(win2 + g + c);
+            }
+        }
+#pragma unroll
+        for (int r = 0; r < kBatch; ++r)
+#pragma unroll
+            for (int c = 0; c < kCols; ++c)
+                stage[c * m2 + threadIdx.x + (r0 + r) * kThreads] =
+                    make_float2(x[r][c].x * w[r][c].x, x[r][c].y * w[r][c].y);
+    }
+    for (int c = 0; c < kCols; ++c) {
         __syncthreads();   // the stage is in; the last column's bins read
+        if (kCols > 1 && c > 0 && threadIdx.x == 0) {   // this column's post row
+            asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+            mbar_expect(&bars[1], table);
+            bulk_copy(post, twiddle + m2 + (size_t)(j0 + c) * m2, table,
+                      &bars[1]);
+        }
         for (int j2 = threadIdx.x; j2 < m2; j2 += kThreads) {
             const float2 v = stage[c * m2 + j2];
             buf0[j2] = make_double2(v.x, v.y);
         }
         __syncthreads();
+        if (c == 0) mbar_wait(&bars[0], 0);
         double2* in = buf0;
         double2* out = buf1;
         int Ns = 1;
@@ -583,11 +668,17 @@ split_columns_kernel(const float* __restrict__ pcm,
             Ns <<= lr;
         }
         const int j1 = j0 + c;
-        const double2* post = twiddle + m2 + (size_t)j1 * m2;
         double2* y = Y + ((size_t)row * k + j1) * m2;
-        for (int f2 = threadIdx.x; f2 < m2; f2 += kThreads)
-            y[f2] = cmul(in[f2], __ldg(post + f2));
-    }
+        if constexpr (kCols > 1) {
+            mbar_wait(&bars[1], c & 1);
+            for (int f2 = threadIdx.x; f2 < m2; f2 += kThreads)
+                y[f2] = cmul(in[f2], post[f2]);
+        } else {
+            const double2* postg = twiddle + m2 + (size_t)j1 * m2;
+            for (int f2 = threadIdx.x; f2 < m2; f2 += kThreads)
+                y[f2] = cmul(in[f2], __ldg(postg + f2));
+        }
+    }   // the columns
 }
 
 // One Stockham pass of radix R of the k-point DFT over the 2^lrun
@@ -627,38 +718,143 @@ struct SplitArgs {
     float* grav;
     float* hist;
     float* avg;
-    int n, F, k, m2, kstages, kradix_code, run;
+    int n, F, k, m2, kstages, kradix_code, run, G;
 };
 
-__global__ void __launch_bounds__(kThreads)
-split_stage_kernel(const SplitArgs a)
+// Group `grp` of the history ring (slots grp*G .., not the row's own
+// slot, whose old value nothing reads) and, for group 0, the gravity
+// share into shared memory: element i = c*P + f1*run + u of a share is
+// plane c's bin f1*m2 + f20 + u, the epilogue's order. kTensor: one
+// thread's tensor copies on `bar`, a box of (run, min(k, 256), 1) each
+// (the plane, and a quarter of the k runs at k 1024); else every
+// thread's 4-byte cp.async copies.
+template <bool kTensor>
+__device__ void issue_split_history(const SplitArgs& a,
+                                    const CUtensorMap* grav_map,
+                                    const CUtensorMap* hist_map, int row,
+                                    int f20, int sl, int grp, float* gs,
+                                    float* hs, uint64_t* bar)
 {
-    extern __shared__ __align__(16) unsigned char smem[];
+    const int F = a.F, k = a.k, run = a.run, P = k * run;
+    const int f0 = grp * a.G;
+    const int f1 = min(F, f0 + a.G);
+    if constexpr (kTensor) {
+        if (threadIdx.x != 0) return;
+        const int kbox = min(k, kMaxBox);
+        int slots = grp == 0;
+        for (int f = f0; f < f1; ++f) slots += f != sl;
+        mbar_expect(bar, (uint32_t)slots * 2 * P * sizeof(float));
+        for (int c = 0; c < 2; ++c)
+            for (int y0 = 0; y0 < k; y0 += kbox) {
+                const int at = c * P + y0 * run;
+                if (grp == 0)
+                    tensor_copy(gs + at, grav_map, f20, y0, 2 * row + c, bar);
+                for (int f = f0; f < f1; ++f)
+                    if (f != sl)
+                        tensor_copy(hs + (size_t)(f - f0) * 2 * P + at, hist_map,
+                                    f20, y0, 2 * (row * F + f) + c, bar);
+            }
+    } else {
+        const size_t m = (size_t)k * a.m2, plane = 2 * m;
+        const int lrun = __ffs(run) - 1;
+        for (int i = threadIdx.x; i < 2 * P; i += kThreads) {
+            const int c = i >= P, l = i - c * P;
+            const size_t at = c * m + (size_t)(l >> lrun) * a.m2 + f20
+                              + (l & (run - 1));
+            if (grp == 0) copy4(gs + i, a.grav + row * plane + at);
+            for (int f = f0; f < f1; ++f)
+                if (f != sl)
+                    copy4(hs + (size_t)(f - f0) * 2 * P + i,
+                          a.hist + ((size_t)row * F + f) * plane + at);
+        }
+        asm volatile("cp.async.commit_group;" ::: "memory");
+    }
+}
+
+// the history group issued last has landed, for every thread
+template <bool kTensor>
+__device__ __forceinline__ void wait_history(uint64_t* bars, int grp)
+{
+    if constexpr (kTensor) {
+        mbar_wait(&bars[1], grp & 1);
+    } else {
+        asm volatile("cp.async.wait_all;" ::: "memory");
+        __syncthreads();
+    }
+}
+
+// kTensor: the history by tensor copy (runs of 4 floats and more), else
+// by cp.async. kPoints = k * run (FFTPlan.split_points): 1024 to k 256,
+// 2048 at k 512, the k-point twiddles copied into shared memory; 4096
+// at k >= 1024, whose stage buffers leave no room for them: read from
+// device memory through L1
+template <bool kTensor, int kPoints>
+__global__ void __launch_bounds__(kThreads)
+split_stage_kernel(const SplitArgs a,
+                   const __grid_constant__ CUtensorMap grav_map,
+                   const __grid_constant__ CUtensorMap hist_map)
+{
+    constexpr bool kTwShared = kPoints <= kSplitPoints;
+    constexpr int kPer = 2 * kPoints / kThreads;   // epilogue elements a thread
+    constexpr int P = kPoints;
+    extern __shared__ __align__(128) unsigned char smem[];
     const int k = a.k, m2 = a.m2, run = a.run, F = a.F;
     const int lrun = __ffs(run) - 1;
-    const int P = k * run;
     const size_t m = (size_t)k * m2;
     const size_t plane = 2 * m;
-    double2* buf0 = (double2*)smem;
+    uint64_t* bars = (uint64_t*)smem;   // [0] twiddles; [1] history
+    double2* buf0 = (double2*)(smem + 128);
     double2* buf1 = buf0 + P;
-    double2* tw = buf1 + P;                  // W_k^t
-    float* ws = (float*)(tw + k);            // the F age weights
+    double2* tws = buf1 + P;                            // W_k^t
+    float* gs = (float*)(tws + (kTwShared ? k : 0));    // gravity share
+    float* hs = gs + 2 * P;                             // G history shares
+    float* ws = hs + (size_t)a.G * 2 * P;               // the F age weights
     const int blocks = m2 / run;
     const int row = blockIdx.x / blocks;
     const int f20 = (blockIdx.x % blocks) * run;
 
+    // the row's parameters and the prefetch, none of it written by pass A
     int sl = a.slot[row] % F;
     if (sl < 0) sl += F;
     const float fs = a.fft_scale[row];
     const float base = 1.0f - a.fft_cutoff[row];
     const float g = a.gravity_g[row];
     for (int f = threadIdx.x; f < F; f += kThreads) ws[f] = a.age_w[f];
-    const double2* ktw = a.twiddle + m2 + m;
-    for (int t = threadIdx.x; t < k; t += kThreads) tw[t] = ktw[t];
-    const double2* y = a.Y + (size_t)row * m + f20;
-    for (int q = threadIdx.x; q < P; q += kThreads)
-        buf0[q] = y[(size_t)(q >> lrun) * m2 + (q & (run - 1))];
-    __syncthreads();
+    const double2* __restrict__ ktw = a.twiddle + m2 + m;
+    if (threadIdx.x == 0) {
+        mbar_init(&bars[0]);
+        mbar_init(&bars[1]);
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+        if constexpr (kTwShared) {
+            const uint32_t bytes = (uint32_t)k * sizeof(double2);
+            mbar_expect(&bars[0], bytes);
+            bulk_copy(tws, ktw, bytes, &bars[0]);
+        }
+    }
+    __syncthreads();   // the barriers are initialised
+    issue_split_history<kTensor>(a, &grav_map, &hist_map, row, f20, sl, 0,
+                                 gs, hs, &bars[1]);
+    grid_dependency_wait();   // pass A's Y is complete and visible
+
+    // Y[row, j1, f20 + col] -> buf0[j1*run + col], every thread 4 or 8
+    // loads at once
+    constexpr int kLoads = P / kThreads < 8 ? P / kThreads : 8;
+    const double2* __restrict__ y = a.Y + (size_t)row * m + f20;
+#pragma unroll
+    for (int q0 = 0; q0 < P; q0 += kLoads * kThreads) {
+        double2 v[kLoads];
+#pragma unroll
+        for (int r = 0; r < kLoads; ++r) {
+            const int q = q0 + r * kThreads + threadIdx.x;
+            v[r] = __ldcg(y + (size_t)(q >> lrun) * m2 + (q & (run - 1)));
+        }
+#pragma unroll
+        for (int r = 0; r < kLoads; ++r)
+            buf0[q0 + r * kThreads + threadIdx.x] = v[r];
+    }
+    __syncthreads();   // Y is in
+    if constexpr (kTwShared) mbar_wait(&bars[0], 0);
+    const double2* tw = kTwShared ? tws : ktw;
 
     double2* in = buf0;
     double2* out = buf1;
@@ -676,13 +872,22 @@ split_stage_kernel(const SplitArgs a)
         Ns <<= lr;
     }
 
-    // the epilogue of bins f1*m2 + f20 + col, held at in[f1*run + col]
-    float* grav = a.grav + (size_t)row * plane;
-    float* hist = a.hist + (size_t)row * F * plane;
-    float* avg = a.avg + (size_t)row * plane;
-    for (int i = threadIdx.x; i < 2 * P; i += kThreads) {
-        const int c = i >= P, l = i - c * P;
-        const size_t bin = (size_t)(l >> lrun) * m2 + f20 + (l & (run - 1));
+    // the epilogue of bins f1*m2 + f20 + col, held at in[f1*run + col]:
+    // element i = threadIdx.x + p*kThreads of 2P, plane c = i / P, local
+    // l = i % P, its gravity value and running sum in registers, the
+    // ring summed in f order a group of resident slots at a time
+    float* __restrict__ grav = a.grav + (size_t)row * plane;
+    float* __restrict__ own = a.hist + ((size_t)row * F + sl) * plane;
+    float* __restrict__ avg = a.avg + (size_t)row * plane;
+    float gv[kPer], acc[kPer];
+    wait_history<kTensor>(bars, 0);
+#pragma unroll
+    for (int p = 0; p < kPer; ++p) {
+        const int i = threadIdx.x + p * kThreads;
+        const int c = i >= kPoints, l = i - c * kPoints;
+        // bins < 2^23: 2*bin + c converts to float exactly
+        const int bin = (l >> lrun) * m2 + f20 + (l & (run - 1));
+        const size_t at = (size_t)c * m + bin;
         const double2 X = in[l];
         const float v = (float)(c ? X.y : X.x);
         // n is a power of two: times 1/n is exactly the division by n
@@ -690,19 +895,40 @@ split_stage_kernel(const SplitArgs a)
         float spec = logf(fabsf(v) + 1.0f) / 3.0f;
         spec = spec * fmaxf(jn * fs + base, 1.0f);
         spec = fminf(fmaxf(spec, 0.0f), 1.0f);
-        const size_t at = (size_t)c * m + bin;
-        float gval = fmaxf(grav[at], spec) - g;
+        float gval = fmaxf(gs[i], spec) - g;
         gval = fminf(fmaxf(gval, 0.0f), 1.0f);
         grav[at] = gval;
-        hist[(size_t)sl * plane + at] = gval;
-        float acc = 0.0f;
-        for (int f = 0; f < F; ++f) {
+        own[at] = gval;
+        gv[p] = gval;
+        acc[p] = 0.0f;
+    }
+    for (int grp = 0, f0 = 0; f0 < F; ++grp, f0 += a.G) {
+        if (grp > 0) wait_history<kTensor>(bars, grp);
+        const int f1 = min(F, f0 + a.G);
+        for (int f = f0; f < f1; ++f) {
             int age = sl - f;
             if (age < 0) age += F;
-            acc += ws[age] * (f == sl ? gval : hist[(size_t)f * plane + at]);
+            const float w = ws[age];
+            const float* h = hs + (size_t)(f - f0) * 2 * kPoints;
+#pragma unroll
+            for (int p = 0; p < kPer; ++p)
+                acc[p] += w * (f == sl ? gv[p] : h[threadIdx.x + p * kThreads]);
         }
-        avg[at] = fminf(fmaxf(acc, 0.0f), 1.0f);
+        if (f1 < F) {   // the streamed route: refill the slots
+            __syncthreads();
+            if (kTensor && threadIdx.x == 0)
+                asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+            issue_split_history<kTensor>(a, &grav_map, &hist_map, row, f20,
+                                         sl, grp + 1, gs, hs, &bars[1]);
+        }
     }
+#pragma unroll
+    for (int p = 0; p < kPer; ++p) {
+        const int i = threadIdx.x + p * kThreads;
+        const int c = i >= kPoints, l = i - c * kPoints;
+        const size_t at = (size_t)c * m + (l >> lrun) * m2 + f20 + (l & (run - 1));
+        avg[at] = fminf(fmaxf(acc[p], 0.0f), 1.0f);
+    }   // the averages
 }
 
 // log2 radices in 2-bit fields -> the points they multiply to, or 0 if a
@@ -727,10 +953,11 @@ typedef CUresult (*EncodeTiled)(
     CUtensorMapFloatOOBfill);
 
 // `planes` float vectors of m = k*m2 as a 3-D tensor (m2, k, planes),
-// boxes of (m2/k, k, 2): one slot's (or the gravity row's) two planes,
-// the k runs of m2/k floats that one CTA owns
+// boxes of (run, kbox, zbox): the one-cluster route's (m2/k, k, 2), one
+// slot's (or the gravity row's) two planes, the k runs of m2/k floats
+// that one CTA owns; the split route's (run, min(k, 256), 1)
 cudaError_t plane_map(CUtensorMap* map, void* base, unsigned long long planes,
-                      int k, int m2)
+                      int k, int m2, int run, int kbox, int zbox)
 {
     static EncodeTiled encode = nullptr;
     if (!encode) {
@@ -746,7 +973,8 @@ cudaError_t plane_map(CUtensorMap* map, void* base, unsigned long long planes,
     const cuuint64_t dims[3] = {(cuuint64_t)m2, (cuuint64_t)k, planes};
     const cuuint64_t strides[2] = {(cuuint64_t)m2 * sizeof(float),
                                    (cuuint64_t)k * m2 * sizeof(float)};
-    const cuuint32_t box[3] = {(cuuint32_t)(m2 / k), (cuuint32_t)k, 2};
+    const cuuint32_t box[3] = {(cuuint32_t)run, (cuuint32_t)kbox,
+                               (cuuint32_t)zbox};
     const cuuint32_t unit[3] = {1, 1, 1};
     const CUresult r = encode(
         map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, base, dims, strides, box, unit,
@@ -787,9 +1015,9 @@ extern "C" int glava_fused_update(
     if (k > 8 && 2 * m2 != kMaxPer * kThreads)
         return (int)cudaErrorInvalidValue;
     CUtensorMap grav_map, hist_map;
-    cudaError_t err = plane_map(&grav_map, grav, 2ull * B, k, m2);
+    cudaError_t err = plane_map(&grav_map, grav, 2ull * B, k, m2, m2 / k, k, 2);
     if (err == cudaSuccess)
-        err = plane_map(&hist_map, hist, 2ull * B * F, k, m2);
+        err = plane_map(&hist_map, hist, 2ull * B * F, k, m2, m2 / k, k, 2);
     if (err != cudaSuccess) return (int)err;
 
     void (*kernel)(const Args, const CUtensorMap, const CUtensorMap);
@@ -836,55 +1064,94 @@ extern "C" int glava_fused_update(
 
 
 // The split route (n above 65536), two launches on `stream`; returns a
-// CUDA error code (0 on success), a refused shared-memory request or
-// launch returned, never retried. The caller validates as for
-// glava_fused_update, allocates `scratch` (B x m complex doubles) on
-// the rows' device, and passes the plan of ops/fused.py fft_plan(n)
-// (its split_args): k column CTAs' worth of columns a row, the m/k =
-// 2048-point column FFT's passes, the k-point stage's passes, the
-// columns a column CTA takes, the f2 a stage CTA owns and the two
-// CTAs' dynamic shared memory in bytes.
+// CUDA error code (0 on success): a refused shared-memory request,
+// tensor map or launch (pass B's programmatic dependent launch
+// included) is returned, never retried another way. The caller
+// validates as for glava_fused_update, allocates `scratch` (B x m
+// complex doubles) on the rows' device, and passes the plan of
+// ops/fused.py fft_plan(n) (its split_args): k column CTAs' worth of
+// columns a row, the m/k = 2048-point column FFT's passes, the k-point
+// stage's passes, the columns a column CTA takes, the f2 a stage CTA
+// owns, the history slots it holds at once, whether its history comes
+// by tensor copy, and the two CTAs' dynamic shared memory in bytes.
 extern "C" int glava_fused_update_split(
     const void* pcm, const void* window, const void* twiddle,
     const void* age_w, const void* slot, const void* fft_scale,
     const void* fft_cutoff, const void* gravity_g,
     void* grav, void* hist, void* avg, void* scratch,
     int B, int n, int F, int k, int nstages, int radix_code, int kstages,
-    int kradix_code, int cols, int run, int smem_a, int smem_b,
-    void* stream)
+    int kradix_code, int cols, int run, int G, int tensor, int smem_a,
+    int smem_b, void* stream)
 {
     const int m = n >> 1;
-    if (B < 1 || F < 1 || k < 16 || (k & (k - 1)) || m % k || cols < 1
-        || cols > kMaxSplitCols || run < 1 || (run & (run - 1)))
+    if (B < 1 || F < 1 || G < 1 || G > F || k < 16 || (k & (k - 1))
+        || m != k * kSplitPoints || (cols != 1 && cols != kMaxSplitCols)
+        || run < 1 || (run & (run - 1)) || (tensor && run < 4))
         return (int)cudaErrorInvalidValue;
-    const int m2 = m / k;
+    const int m2 = kSplitPoints;
+    const long long P = (long long)k * run;
     if (stage_points(nstages, radix_code) != m2
         || stage_points(kstages, kradix_code) != k || m2 % run)
         return (int)cudaErrorInvalidValue;
-    const long long grid_a = (long long)B * ((k + cols - 1) / cols);
+    // a stage CTA's points (FFTPlan.split_points): 1024 to k 256, 4k to
+    // k 1024, 4096 above; the cp.async copies only at 4096
+    const long long want = k <= 256 ? 1024 : (k <= 1024 ? 4LL * k : 4096);
+    if (P != want || (!tensor && P != 4096))
+        return (int)cudaErrorInvalidValue;
+    // the layouts the kernels carve (ops/fused.py FFTPlan.split_smem)
+    const long long need_a = 128 + 48LL * m2 + (cols > 1 ? 16LL * m2 : 0)
+                             + 8LL * cols * m2;
+    const long long need_b = 128 + 32 * P + (P <= kSplitPoints ? 16LL * k : 0)
+                             + 8 * P * (1 + G) + 4LL * F;
+    if (smem_a < need_a || smem_b < need_b)
+        return (int)cudaErrorInvalidValue;
+    const long long grid_a = (long long)B * (k / cols);
     const long long grid_b = (long long)B * (m2 / run);
     if (grid_a > 0x7fffffff || grid_b > 0x7fffffff)
         return (int)cudaErrorInvalidValue;
+    void (*stage)(const SplitArgs, const CUtensorMap, const CUtensorMap) =
+        !tensor     ? split_stage_kernel<false, 4096>
+        : P == 1024 ? split_stage_kernel<true, 1024>
+        : P == 2048 ? split_stage_kernel<true, 2048>
+                    : split_stage_kernel<true, 4096>;
+    void (*columns)(const float*, const float*, const double2*, double2*,
+                    int, int, int, int) =
+        cols == 1 ? split_columns_kernel<1> : split_columns_kernel<kMaxSplitCols>;
     // the opt-in applies to the current device: asked at every launch
     cudaError_t err = cudaFuncSetAttribute(
-        split_columns_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_a);
+        columns, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_a);
     if (err == cudaSuccess)
         err = cudaFuncSetAttribute(
-            split_stage_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            smem_b);
+            stage, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_b);
+    CUtensorMap grav_map = {}, hist_map = {};
+    const int kbox = k < kMaxBox ? k : kMaxBox;
+    if (err == cudaSuccess && tensor)
+        err = plane_map(&grav_map, grav, 2ull * B, k, m2, run, kbox, 1);
+    if (err == cudaSuccess && tensor)
+        err = plane_map(&hist_map, hist, 2ull * B * F, k, m2, run, kbox, 1);
     if (err != cudaSuccess) return (int)err;
     const cudaStream_t s = (cudaStream_t)stream;
-    split_columns_kernel<<<(unsigned)grid_a, kThreads, smem_a, s>>>(
+    columns<<<(unsigned)grid_a, kThreads, smem_a, s>>>(
         (const float*)pcm, (const float*)window, (const double2*)twiddle,
-        (double2*)scratch, n, k, m2, nstages, radix_code, cols);
+        (double2*)scratch, n, k, nstages, radix_code);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     const SplitArgs a = {
         (const double2*)scratch, (const double2*)twiddle, (const float*)age_w,
         (const int*)slot, (const float*)fft_scale, (const float*)fft_cutoff,
         (const float*)gravity_g, (float*)grav, (float*)hist, (float*)avg,
-        n, F, k, m2, kstages, kradix_code, run};
-    split_stage_kernel<<<(unsigned)grid_b, kThreads, smem_b, s>>>(a);
+        n, F, k, m2, kstages, kradix_code, run, G};
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)grid_b);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = (size_t)smem_b;
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, stage, a, grav_map, hist_map);
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }

@@ -29,9 +29,11 @@ CTAs that split its m-point FFT four-step wise; :func:`fft_plan` picks
 fits in shared memory, and :func:`twiddle_table` builds the float64
 table the kernel copies in. Above MAX_N the plan is a split one
 (``FFTPlan.split``): two launches through a float64 scratch tensor, the
-column FFTs first, then the k-point stage and the epilogue
-(:data:`split_launches` counts them). The CPU tests read the plans to
-check both splits' index mappings.
+column FFTs first, then, as their programmatic dependent, the k-point
+stage and the epilogue, whose history is copied into shared memory
+while the column FFTs run (:data:`split_launches` counts the pairs).
+The CPU tests read the plans to check both splits' index mappings and
+where the epilogue finds each prefetched float.
 """
 
 from __future__ import annotations
@@ -60,6 +62,7 @@ MIN_N, MAX_N = 256, 2 * MAX_CLUSTER * MAX_CTA_POINTS
 MAX_SPLIT_N = 1 << 24
 SPLIT_COLS = 4           # consecutive columns j1 one column CTA takes,
 SPLIT_CTAS = 512         # ... where the rows give this many CTAs or more
+SPLIT_BOX = 256          # the largest box dimension of a tensor copy
 
 _TWIDDLES: dict[tuple[int, torch.device], torch.Tensor] = {}
 
@@ -81,12 +84,14 @@ class FFTPlan:
     A split plan (n above MAX_N, :attr:`split`) takes no cluster: k =
     m / 2048 column CTAs a row, SPLIT_COLS columns j1 each, run the
     same 2048-point FFT, scale by ``W_m^(j1*f2)`` and write
-    ``Y[row, j1, f2]`` to a float64 scratch tensor; then a stage CTA
-    owns ``split_run`` consecutive f2 of one row, reads ``Y[row, :,
-    f2]``, takes the k-point DFTs over j1 as Stockham passes of
-    :attr:`stage_radices` on all its columns at once, and runs the
-    epilogue on bins ``f1*m2 + f2``, the history read from device
-    memory.
+    ``Y[row, j1, f2]`` to a float64 scratch tensor; then a stage CTA,
+    launched as the column pass's programmatic dependent, owns
+    ``split_run`` consecutive f2 of one row: it copies its gravity and
+    history shares into shared memory (:attr:`split_copy`,
+    :meth:`split_slots`) before it waits for the column pass, reads
+    ``Y[row, :, f2]``, takes the k-point DFTs over j1 as Stockham passes
+    of :attr:`stage_radices` on all its columns at once, and runs the
+    epilogue on bins ``f1*m2 + f2`` against shared memory.
     """
     n: int
     k: int
@@ -115,10 +120,11 @@ class FFTPlan:
 
     @property
     def split_run(self) -> int:
-        """Consecutive f2 a stage CTA owns: 2048 points of k-point
-        columns where k <= 512 (runs of 16 bytes and more), 4096 above,
-        one column at k 4096."""
-        return max(1, min(max(2048, 4 * self.k), 4096) // self.k)
+        """Consecutive f2 a stage CTA owns: 1024 points of k-point
+        columns where k <= 256, runs of 4 floats (16 bytes, a tensor
+        copy's least) to k 1024, 4096 points above, one column at k
+        4096."""
+        return max(1, min(max(1024, 4 * self.k), 4096) // self.k)
 
     def split_cols(self, B: int) -> int:
         """Columns a column CTA takes at B rows: SPLIT_COLS, so that a
@@ -127,15 +133,59 @@ class FFTPlan:
         a few rows."""
         return SPLIT_COLS if B * self.k >= SPLIT_CTAS * SPLIT_COLS else 1
 
+    @property
+    def split_points(self) -> int:
+        """Points of a stage CTA: ``k * split_run`` (1024 to k 256, 2048
+        at k 512, 4096 above)."""
+        return self.k * self.split_run
+
+    @property
+    def split_copy(self) -> str:
+        """How a stage CTA's gravity and history shares come into shared
+        memory: ``"tensor"`` copies where a run is 16 bytes or more (run
+        >= 4 floats, k <= 1024; boxes of (run, min(k, SPLIT_BOX), 1), 1
+        to 4 a plane), else ``"cp.async"`` (4 bytes each,
+        every thread its share: runs of 2 and 1 float at k 2048 and
+        4096)."""
+        return "tensor" if self.split_run >= 4 else "cp.async"
+
+    @property
+    def split_tw_shared(self) -> bool:
+        """The k-point twiddles copied into a stage CTA's shared memory
+        (k <= 512, where they take at most 8 KB); at 4096 points a CTA
+        (k >= 1024) they are read from device memory, so that two
+        history slots fit beside the stage's buffers."""
+        return self.split_points <= MAX_CTA_POINTS
+
+    def _split_fixed(self, F: int) -> int:
+        """A stage CTA's shared memory but its history slots: two
+        mbarriers padded to 128 bytes, the stage's two buffers
+        (``split_points`` complex doubles each), the k-point twiddles
+        where shared, the gravity share (2 planes of ``split_points``
+        floats) and the F age weights."""
+        P = self.split_points
+        return (128 + 32 * P + (16 * self.k if self.split_tw_shared else 0)
+                + 8 * P + 4 * F)
+
+    def split_slots(self, F: int) -> int:
+        """History slots a stage CTA holds at once (8 * split_points bytes
+        each): F, copied in while pass A runs, where they fit (to F 22
+        or 23 at k <= 256, 8 at k 512); else fewer, and the ring streams
+        through them in groups (2 at k >= 1024)."""
+        free = SMEM_LIMIT - self._split_fixed(F)
+        return min(F, free // (8 * self.split_points))
+
     def split_smem(self, F: int, cols: int) -> tuple[int, int]:
-        """Dynamic shared memory of a split plan's two CTAs. Column CTA:
-        two FFT buffers and the m2-point twiddles (complex doubles), then
-        ``cols`` staged columns of windowed float pairs. Stage CTA: two
-        buffers of ``k * split_run`` complex doubles, the k-point
-        twiddles and the F age weights."""
-        points = self.k * self.split_run
-        return (48 * self.m2 + 8 * cols * self.m2,
-                32 * points + 16 * self.k + 4 * F)
+        """Dynamic shared memory of a split plan's two CTAs, as
+        csrc/fused_update.cu carves it. Column CTA: two mbarriers padded
+        to 128 bytes, two FFT buffers, the m2-point twiddles and, with
+        more than one column, the W_m^(j1*f2) row of the column at work
+        (complex doubles), then ``cols`` staged columns of windowed float
+        pairs (112 KB at one column, two CTAs an SM; 192 KB at 4). Stage
+        CTA: ``_split_fixed`` and ``split_slots(F)`` history shares."""
+        post = 16 * self.m2 if cols > 1 else 0
+        return (128 + 48 * self.m2 + post + 8 * cols * self.m2,
+                self._split_fixed(F) + 8 * self.split_points * self.split_slots(F))
 
     def smem_bytes(self, F: int) -> int:
         """Dynamic shared memory of one CTA for a ring of F slots: two
@@ -349,12 +399,15 @@ def _plan_args(n: int, F: int) -> tuple[int, ...]:
 def _split_args(n: int, F: int, B: int) -> tuple[int, ...]:
     """A split plan as its C entry takes it: k, the column FFT's pass
     count and radix code, the k-point stage's, the columns a column CTA
-    takes, the f2 a stage CTA owns, and the two CTAs' shared memory."""
+    takes, the f2 a stage CTA owns, the history slots it holds at once,
+    whether its history comes by tensor copy, and the two CTAs' shared
+    memory."""
     plan = fft_plan(n)
     cols = plan.split_cols(B)
     return (plan.k, len(plan.radices), plan.radix_code,
             len(plan.stage_radices), _radix_code(plan.stage_radices),
-            cols, plan.split_run, *plan.split_smem(F, cols))
+            cols, plan.split_run, plan.split_slots(F),
+            int(plan.split_copy == "tensor"), *plan.split_smem(F, cols))
 
 
 _FN: dict[str, object] = {}
@@ -371,7 +424,7 @@ def _kernel(entry: str = "glava_fused_update"):
             fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
                            + [ctypes.c_void_p])
         else:
-            fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 12
+            fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 14
                            + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _FN[entry] = fn

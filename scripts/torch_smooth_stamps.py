@@ -152,11 +152,12 @@ def stamped(src: str, level: int) -> str:
     return src.replace("namespace {\n", HEADER + "namespace {\n") + TRAILER
 
 
-def build_all(jobs: dict[str, Path]) -> dict[str, ctypes.CDLL]:
-    """nvcc each source of ``jobs`` (name -> .cu) side by side."""
-    OUT.mkdir(parents=True, exist_ok=True)
+def build_all(jobs: dict[str, Path], out: Path = OUT) -> dict[str, ctypes.CDLL]:
+    """nvcc each source of ``jobs`` (name -> .cu) side by side into
+    ``out``."""
+    out.mkdir(parents=True, exist_ok=True)
     procs = {name: subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(OUT / f"{name}.so"),
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out / f"{name}.so"),
          str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for name, cu in jobs.items()}
     libs = {}
@@ -166,7 +167,7 @@ def build_all(jobs: dict[str, Path]) -> dict[str, ctypes.CDLL]:
             raise RuntimeError(f"nvcc failed on {name}:\n{log}")
         print(f"[stamps] {name} built: " + " | ".join(
             ln.strip() for ln in log.splitlines() if "registers" in ln))
-        libs[name] = ctypes.CDLL(str(OUT / f"{name}.so"))
+        libs[name] = ctypes.CDLL(str(out / f"{name}.so"))
     return libs
 
 

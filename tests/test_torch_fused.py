@@ -302,13 +302,19 @@ def _split_route_model(x, plan, cols):
         stage = x[j1[None, :] + k * np.arange(m2)[:, None]]     # (m2, cols)
         Y[j1] = (_stockham(stage, plan.radices, inner) * outer[j1].T).T
     X = np.empty(plan.m, np.complex128)
-    P = k * run
     for blk in range(m2 // run):
         z = _stockham(Y[:, blk * run:(blk + 1) * run], plan.stage_radices,
                       ktw).reshape(-1)                          # [f1*run + col]
-        l = np.arange(P)
-        X[(l // run) * m2 + blk * run + l % run] = z[l]
+        X[_stage_bins(plan, blk)] = z
     return X
+
+
+def _stage_bins(plan, blk):
+    """The bin of each local element l < k*run of stage CTA ``blk``:
+    ``(l // run)*m2 + blk*run + l % run``."""
+    run = plan.split_run
+    l = np.arange(plan.split_points)
+    return (l // run) * plan.m2 + blk * run + l % run
 
 
 SPLIT_NS = [1 << p for p in range(17, 23)]
@@ -342,12 +348,13 @@ def test_split_args_as_the_kernel_takes_them(n, F):
     and the k-point stage's 2-bit log2 radices, columns a column CTA
     takes (SPLIT_COLS only where the rows still give SPLIT_CTAS CTAs),
     a power-of-two run of f2 dividing m2 with runs of 16 bytes or more
-    up to k 1024, and both CTAs' shared memory under the H100's 227 KB
-    for any ring (the stage CTA reads the history from device memory);
-    the plan stops at MAX_SPLIT_N."""
+    up to k 1024, the resident history slots, the copy mode, and both
+    CTAs' shared memory under the
+    H100's 227 KB for any ring (a stage CTA streams a ring that does not
+    fit); the plan stops at MAX_SPLIT_N."""
     plan = fused.fft_plan(n)
     for B in (1, 2, 128):
-        (k, nstages, code, kstages, kcode, cols, run, smem_a,
+        (k, nstages, code, kstages, kcode, cols, run, G, tensor, smem_a,
          smem_b) = fused._split_args(n, F, B)
         assert (k, code) == (plan.k, plan.radix_code)
         assert 2 ** sum((code >> (2 * s)) & 3 for s in range(nstages)) == plan.m2
@@ -357,10 +364,156 @@ def test_split_args_as_the_kernel_takes_them(n, F):
                         if B * k >= fused.SPLIT_CTAS * fused.SPLIT_COLS else 1)
         assert run & (run - 1) == 0 and plan.m2 % run == 0
         assert run >= 4 if k <= 1024 else run >= 1
+        assert G == plan.split_slots(F) and 1 <= G <= F
+        assert tensor == (run >= 4)
         assert (smem_a, smem_b) == plan.split_smem(F, cols)
         assert max(smem_a, smem_b) <= fused.SMEM_LIMIT
     with pytest.raises(ValueError, match="power of two"):
         fused.fft_plan(fused.MAX_SPLIT_N * 2)
+
+
+SPLIT_ALL = SPLIT_NS + [1 << 23, 1 << 24]
+
+
+@pytest.mark.parametrize("F", [1, 6, 16, 64])
+@pytest.mark.parametrize("n", SPLIT_ALL)
+def test_split_plan_slots_copies_and_shared_memory(n, F):
+    """A stage CTA's plan at every split n: points 1024 to k 256, 2048
+    at k 512 and 4096 above; tensor copies where a run is 16 bytes or
+    more (k <= 1024, 1 to 4 boxes a plane), cp.async below; the k-point
+    twiddles in shared memory up to 2048 points. The whole ring resident
+    to F 23 at 1024 points (F 22 at k 256), F 8 at 2048 and 2 slots at
+    4096, each the most that fits: one slot more would pass 227 KB. The
+    column CTA's 112 KB at one column leave room for two CTAs an SM
+    (228 KB)."""
+    plan = fused.fft_plan(n)
+    P = plan.split_points
+    k = plan.k
+    assert P == {True: 1024, False: 2048 if k == 512 else 4096}[k <= 256]
+    assert P == k * plan.split_run
+    assert plan.split_copy == ("tensor" if k <= 1024 else "cp.async")
+    assert plan.split_tw_shared == (k <= 512)
+    G = plan.split_slots(F)
+    resident = {1024: 23 if k <= 128 else 22, 2048: 8, 4096: 2}[P]
+    assert G == min(F, resident)
+    for cols in (1, fused.SPLIT_COLS):
+        smem_a, smem_b = plan.split_smem(F, cols)
+        assert max(smem_a, smem_b) <= fused.SMEM_LIMIT
+        assert smem_b + 8 * P > fused.SMEM_LIMIT or G == F
+    assert 2 * (plan.split_smem(F, 1)[0] + 1024) <= 228 * 1024
+
+
+def _prefetch_model(plan, F, B, row, blk, sl, grp):
+    """csrc/fused_update.cu ``issue_split_history`` in numpy: after group
+    ``grp``'s copies, the flat index into gravity (B, 2, m) of each float
+    of a stage CTA's gravity share ``gs`` (group 0 only) and into the
+    history (B, F, 2, m) of each float of its G slot shares ``hs``, -1
+    where nothing lands. Tensor copies move boxes (run, min(k, 256), 1)
+    of the (m2, k, planes) view at (blk*run, y0, plane), packed innermost
+    first, to ``c*P + y0*run``; cp.async moves element i of a share from
+    plane c = i // P, bin f1*m2 + blk*run + u of l = i % P = f1*run + u.
+    Also returns the byte offsets of every tensor copy's destination."""
+    k, m2, run, P, m = plan.k, plan.m2, plan.split_run, plan.split_points, plan.m
+    G = plan.split_slots(F)
+    gs = np.full(2 * P, -1, np.int64)
+    hs = np.full((G, 2 * P), -1, np.int64)
+    f0, f1 = grp * G, min(F, grp * G + G)
+    dsts = []
+    gs_at = 128 + 32 * P + (16 * k if plan.split_tw_shared else 0)
+
+    def put(dst, at, index, count):
+        assert (dst[at:at + count] == -1).all()     # nothing lands twice
+        dst[at:at + count] = index
+
+    if plan.split_copy == "tensor":
+        kbox = min(k, fused.SPLIT_BOX)
+        yy, xx = np.meshgrid(np.arange(kbox), np.arange(run), indexing="ij")
+        for c in range(2):
+            for y0 in range(0, k, kbox):
+                at = c * P + y0 * run
+                box = ((y0 + yy) * m2 + blk * run + xx).reshape(-1)
+                if grp == 0:
+                    put(gs, at, (2 * row + c) * m + box, kbox * run)
+                    dsts.append(gs_at + 4 * at)
+                for f in range(f0, f1):
+                    if f != sl:
+                        put(hs[f - f0], at, (2 * (row * F + f) + c) * m + box,
+                            kbox * run)
+                        dsts.append(gs_at + 8 * P * (1 + f - f0) + 4 * at)
+    else:
+        i = np.arange(2 * P)
+        c, l = i // P, i % P
+        at = c * m + (l // run) * m2 + blk * run + l % run
+        if grp == 0:
+            put(gs, 0, row * 2 * m + at, 2 * P)
+        for f in range(f0, f1):
+            if f != sl:
+                put(hs[f - f0], 0, (row * F + f) * 2 * m + at, 2 * P)
+    return gs, hs, dsts
+
+
+@pytest.mark.parametrize("F", [1, 6, 16, 32])
+@pytest.mark.parametrize("n", SPLIT_ALL)
+def test_split_prefetch_lands_where_the_epilogue_reads(n, F):
+    """Every float the epilogue reads from shared memory is the one its
+    bin needs: element i of a share (plane c = i // P, l = i % P) holds
+    plane c of bin ``_stage_bins(plan, blk)[l]`` (the bin mapping of
+    ``_split_route_model``), for the gravity and for every slot of every
+    group but the row's own, which nothing copies; every tensor copy
+    lands on a 128-byte boundary of shared memory."""
+    plan = fused.fft_plan(n)
+    P, m, G = plan.split_points, plan.m, plan.split_slots(F)
+    B, row = 2, 1
+    for blk in (0, plan.m2 // plan.split_run - 1):
+        bins = _stage_bins(plan, blk)
+        want = np.concatenate([bins, m + bins])          # [c*P + l]
+        for sl in sorted({0, F - 1}):
+            for grp in range(-(-F // G)):
+                gs, hs, dsts = _prefetch_model(plan, F, B, row, blk, sl, grp)
+                assert all(d % 128 == 0 for d in dsts)
+                if grp == 0:
+                    assert (gs == row * 2 * m + want).all()
+                for f in range(grp * G, min(F, grp * G + G)):
+                    got = hs[f - grp * G]
+                    if f == sl:
+                        assert (got == -1).all()
+                    else:
+                        assert (got == (row * F + f) * 2 * m + want).all()
+
+
+@pytest.mark.parametrize("F", [6, 32])
+def test_split_epilogue_model_sums_the_ring_in_f_order(F):
+    """The epilogue's average over the groups of resident slots, read
+    from the prefetch model's shared memory and summed in f order group
+    after group (the running sums parked between groups, float32 adds
+    of float32 products), equals the plain version's ``ring_average``
+    on the bins of every stage CTA; F 32 at n 131072 streams the ring
+    through 23 slots."""
+    n, B = 1 << 17, 2
+    plan = fused.fft_plan(n)
+    P, m, G = plan.split_points, plan.m, plan.split_slots(F)
+    assert (G < F) == (F == 32)
+    rng = np.random.default_rng(F)
+    hist = rng.uniform(0, 1, (B, F, 2, m)).astype(np.float32)
+    newest = np.array([3 % F, F - 1], np.int32)
+    w_age = fused.age_weights(windows.avg_weights(F, True, True))
+    want = fused.ring_average(torch.as_tensor(hist), torch.as_tensor(newest),
+                              torch.as_tensor(w_age)).numpy().reshape(B, -1)
+    flat = hist.reshape(-1)
+    for row in range(B):
+        sl = int(newest[row])
+        for blk in (0, 5, plan.m2 // plan.split_run - 1):
+            bins = np.concatenate([_stage_bins(plan, blk),
+                                   m + _stage_bins(plan, blk)])
+            gval = flat[(row * F + sl) * 2 * m + bins]
+            acc = np.zeros(2 * P, np.float32)
+            for grp in range(-(-F // G)):
+                _, hs, _ = _prefetch_model(plan, F, B, row, blk, sl, grp)
+                for f in range(grp * G, min(F, grp * G + G)):
+                    v = gval if f == sl else flat[hs[f - grp * G]]
+                    acc = acc + np.float32(w_age[(sl - f) % F]) * v
+            got = np.clip(acc, 0.0, 1.0)
+            np.testing.assert_array_equal(got, want[row, bins])
 
 
 def test_split_twiddles_append_the_stage_table():
