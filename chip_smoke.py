@@ -109,13 +109,24 @@ code is non-zero and no result line is printed):
                The smoothy runs print the rows each smooth_scan walk
                finished.
                Sharded fleets (``phase_sharded``, ``SHARDED_FLEETS``: 64
-               bars streams and a mixed bars/radial/wave fleet of 24)
-               through ``FleetEngine(mesh=...)`` over ``[cuda:0]``,
-               ``[cuda:0, cuda:0]`` and, with more than one card, every
-               card: 4 frames of fixed snapshots byte-equal to the
-               unsharded fleet's, launches the shard count times its;
-               then on every card the kernels whose shared-memory
-               opt-in is per device against their plain versions.
+               bars streams, a mixed bars/radial/wave fleet of 24 and
+               an S 8 fleet of every native module and rings) through
+               ``FleetEngine(mesh=...)`` over ``shard_meshes``:
+               ``[cuda:0]``, ``[cuda:0, cuda:0]`` on the streams axis,
+               ``[cuda:0] x 2`` on rows 2 (each device a band of
+               rows), ``[cuda:0] x 4`` as 2 streams x 2 rows and, with
+               more than one card, every card on streams and on rows
+               2: 4 frames of fixed snapshots byte-equal to the
+               unsharded fleet's, launches the sum over the devices of
+               what the unsharded fleet launches for each device's
+               block of streams (the device count times its, where
+               every block holds every module), each row group's state
+               replicas torch.equal, rings' whole-frame band renders
+               counted; the bars raster and the table lookup against
+               their plain versions at the band shapes
+               (``_band_kernels``); then on every card the kernels
+               whose shared-memory opt-in is per device against their
+               plain versions.
                ``Engine.run_tests()`` (test_rc.glsl) must pass on cuda.
                Every module's frame after 24 updates of fixed stereo
                tones renders on cuda and cpu at 800x600 and must meet
@@ -184,15 +195,20 @@ code is non-zero and no result line is printed):
                rounds; ``FleetEngine.run`` of 64 bars streams at 800x600
                on the native seqlock ring and on the Python ring,
                alternating (host clock); the S 64 bars fleet frame
-               unsharded and on every ``shard_meshes`` mesh, host clock,
-               split into the step and the pinned copy.
+               unsharded and on every ``shard_meshes`` mesh, and the
+               S 64 circle fleet at 1920x1080 unsharded, on
+               ``[cuda:0] x 2`` rows 2 and, where there are several
+               cards, on every card on streams and on rows 2 (else
+               printed as not measured), host clock, split into the
+               step and the pinned copy, with the copy's rate.
 
 The second-to-last line is the kernels JSON, the last the device JSON.
 
     python3 chip_smoke.py --sharded [PARENT]
 
 runs only the build, the sharded fleets, the per-card kernels and the
-sharded fleet's times (on a machine of several cards, what it adds);
+sharded fleets' times (bars S 64, circle S 64 at 1920x1080; on a
+machine of several cards, what it adds);
 with PARENT (another tree unpacked there) first that tree's per-device
 kernels on every card, in a process of its own package.
 
@@ -1255,17 +1271,24 @@ def _kind_loads(kind: str, user_dir=None, reqs=()) -> list:
 
 
 def _fleet_want(kind: str, n: int, frames: int) -> dict:
-    """A fleet run's launches: one fused update a frame over every
-    stream; one raster a frame for a bars group; one table lookup a
-    frame for a radial group and one for a circle group (the (S, 2 sz)
-    tables against its static plane); a shader module's per stream."""
+    """A fleet run's launches (``_block_want`` of its streams' modules)."""
     mods = FLEET_KINDS[kind]
-    per_stream = sum(1 for i in range(n) if mods[i % len(mods)] in SHADER_MODULES)
+    return _block_want([mods[i % len(mods)] for i in range(n)], frames)
+
+
+def _block_want(stream_mods: list, frames: int) -> dict:
+    """The launches of a fleet (or of one mesh device's block of
+    streams) whose stream i runs ``stream_mods[i]``: one fused update a
+    frame over every stream, unless no module has an fft uniform; one
+    raster a frame for a bars group; one table lookup a frame for a
+    radial group and one for a circle group (the (S, 2 sz) tables
+    against its static plane); a shader module's per stream."""
     want = dict.fromkeys(COUNTED, 0)
-    want["fused_update"] = frames
-    want["bars_raster"] = frames * ("bars" in mods)
-    want["table_lookup"] = frames * (("radial" in mods) + ("circle" in mods)
-                                     + per_stream)
+    want["fused_update"] = frames * any(m not in NO_FFT for m in stream_mods)
+    want["bars_raster"] = frames * ("bars" in stream_mods)
+    want["table_lookup"] = frames * (
+        ("radial" in stream_mods) + ("circle" in stream_mods)
+        + sum(m in SHADER_MODULES for m in stream_mods))
     return want
 
 
@@ -1473,32 +1496,45 @@ FLEET_PARITY = (("circle", None), ("circle", (1920, 1080)), ("all", None))
 
 
 # (kind, streams) of the sharded fleets: each runs the unsharded fleet,
-# then the same fleet over every SHARD_MESHES mesh; every stream shard of
-# these meshes holds each of the kind's modules, so a shard launches
-# what the unsharded fleet launches
-SHARDED_FLEETS = (("bars", 64), ("mixed", 24))
+# then the same fleet over every SHARD_MESHES mesh; every stream block of
+# the bars and mixed fleets holds each of the kind's modules, so each
+# device launches what the unsharded fleet launches; the S 8 fleet of
+# every native module and rings splits them over its blocks
+SHARDED_FLEETS = (("bars", 64), ("mixed", 24), ("all", 8))
 
 
 def shard_meshes() -> list:
-    """(label, devices) of the meshes the sharded fleets run on: one
-    card, the first card twice, and every card where there are more."""
-    meshes = [("[cuda:0]", ["cuda:0"]), ("[cuda:0, cuda:0]", ["cuda:0"] * 2)]
+    """(label, devices, make_mesh keywords) of the meshes the sharded
+    fleets run on: one card, the first card twice on the streams axis
+    and on the rows axis, four times as 2 streams x 2 rows, and every
+    card where there are more, on streams and (an even count) on
+    rows 2."""
+    meshes = [("[cuda:0]", ["cuda:0"], {}),
+              ("[cuda:0, cuda:0]", ["cuda:0"] * 2, {}),
+              ("[cuda:0] x 2 rows 2", ["cuda:0"] * 2, {"rows": 2}),
+              ("[cuda:0] x 4 streams 2 rows 2", ["cuda:0"] * 4,
+               {"streams": 2, "rows": 2})]
     count = torch.cuda.device_count()
+    cards = [f"cuda:{i}" for i in range(count)]
     if count > 1:
-        meshes.append((f"every card [cuda:0 .. cuda:{count - 1}]",
-                       [f"cuda:{i}" for i in range(count)]))
+        meshes.append((f"every card [cuda:0 .. cuda:{count - 1}]", cards, {}))
+    if count > 1 and count % 2 == 0:
+        meshes.append((f"every card [cuda:0 .. cuda:{count - 1}] rows 2",
+                       cards, {"rows": 2}))
     return meshes
 
 
-def _fleet_engine(kind: str, n: int, user_dir, devices=None, screen=None):
-    """A FleetEngine of ``n`` streams of ``kind`` with fg/bg rows, on
-    cuda:0 or sharded over a mesh of ``devices``."""
+def _fleet_engine(kind: str, n: int, user_dir, devices=None, screen=None,
+                  mesh_kw=None, pipe: bool = True):
+    """A FleetEngine of ``n`` streams of ``kind`` (with fg/bg rows
+    unless not ``pipe``), on cuda:0 or sharded over a mesh of
+    ``devices`` (``make_mesh(devices, **mesh_kw)``)."""
     from glava_tpu_torch.parallel.mesh import make_mesh
     from glava_tpu_torch.runtime.fleet import FleetEngine
 
     loads = _kind_loads(kind, user_dir)
-    mesh = None if devices is None else make_mesh(devices)
-    return FleetEngine(loads[0], _fleet_streams(n, loads), screen=screen,
+    mesh = None if devices is None else make_mesh(devices, **(mesh_kw or {}))
+    return FleetEngine(loads[0], _fleet_streams(n, loads, pipe), screen=screen,
                        device="cuda", mesh=mesh)
 
 
@@ -1507,12 +1543,12 @@ def _synchronize_all() -> None:
         torch.cuda.synchronize(i)
 
 
-def _sharded_frames(kind: str, n: int, user_dir, devices=None,
+def _sharded_frames(kind: str, n: int, user_dir, devices=None, mesh_kw=None,
                     frames: int = 4):
     """``frames`` fleet frames through ``FleetEngine.step`` and ``fetch``
     on fixed seeded snapshots and staggered clocks (the counts set to 0
-    just before, read just after) -> (host frames, counts)."""
-    eng = _fleet_engine(kind, n, user_dir, devices)
+    just before, read just after) -> (host frames, counts, engine)."""
+    eng = _fleet_engine(kind, n, user_dir, devices, mesh_kw=mesh_kw)
     cfg = eng.loaded.cfg
     rng = np.random.default_rng(31)
     g = np.full(n, cfg.gravity_step / cfg.nominal_ups, np.float32)
@@ -1526,7 +1562,79 @@ def _sharded_frames(kind: str, n: int, user_dir, devices=None,
         out.append(eng.fetch(eng.step(snaps[k], mods, 0.25,
                                       np.ones(n, np.float32), g)))
     _synchronize_all()
-    return np.stack(out), _counts()
+    return np.stack(out), _counts(), eng
+
+
+def _replicas_equal(eng) -> int:
+    """Each row group's state replicas (one a device of a stream block)
+    must be torch.equal; returns the replicas compared."""
+    groups: dict = {}
+    for (sl, _), st in zip(eng.br.blocks, eng.state):
+        groups.setdefault((sl.start, sl.stop), []).append(st)
+    pairs = 0
+    for key, states in groups.items():
+        first = states[0]
+        for st in states[1:]:
+            for name in ("gravity", "history", "avg", "count"):
+                a, b = getattr(first.chains, name), getattr(st.chains, name)
+                if not torch.equal(a.cpu(), b.cpu()):
+                    raise AssertionError(f"streams {key}: the {name} replicas "
+                                         "of a row group differ")
+            if not torch.equal(first.key_end.cpu(), st.key_end.cpu()):
+                raise AssertionError(f"streams {key}: key frames differ")
+            pairs += 1
+    return pairs
+
+
+def _band_kernels() -> str:
+    """The kernels a rows mesh launches at band shapes, against their
+    plain versions, bit for bit: the bars raster at S 64 on each band of
+    800x600 and 1920x1080 split in 2 and in 4 (and S 1 under MIRROR_YX,
+    the band a slice of the raster's columns), and the table lookup on
+    radial's and circle's band index planes, each the whole frame's
+    plane cut to the band (circle's widened by its smoothing's row),
+    into (64, T) tables."""
+    from glava_tpu_torch.config import loader
+    from glava_tpu_torch.ops import lookup, raster
+    from glava_tpu_torch.renderer import Renderer
+
+    rng = np.random.default_rng(12)
+    shapes, planes = [], []
+    for w, h in ((800, 600), (1920, 1080)):
+        for rows in (2, 4):
+            hb = h // rows
+            for S, H, W, view in ((64, hb, w, False), (1, w, hb, True)):
+                args = raster_inputs(S, H, W, shared=False)
+                for outlined in (True, False):
+                    got = raster.bars_raster(*args, 1.0, outlined)
+                    want = raster.bars_raster_plain(*args, 1.0, outlined)
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"bars_raster S {S} ({H}, {W}): "
+                                             "kernel != plain")
+                shapes.append(f"S{S} ({H}, {W}){' MIRROR_YX' if view else ''}")
+        for module in ("radial", "circle"):
+            lc = loader.load(force_module=module)
+            whole = Renderer(lc, screen=(w, h), device="cuda").module.lookups[0]
+            for band in ((0, h // 2), (h // 2, h)):
+                lk = Renderer(loader.load(force_module=module), screen=(w, h),
+                              device="cuda", rows=band).module.lookups[0]
+                a0 = max(band[0] - (module == "circle"), 0)
+                a1 = min(band[1] + (module == "circle"), h)
+                if not torch.equal(lk.idx, whole.idx[..., a0:a1, :]):
+                    raise AssertionError(f"{module} {w}x{h} rows {band}: the "
+                                         "band's plane is not the frame's")
+                tab = torch.as_tensor(rng.standard_normal(
+                    (64, lk.table_size)).astype(np.float32), device="cuda")
+                if not torch.equal(lookup.table_lookup(tab, lk.idx),
+                                   lookup.table_lookup_plain(tab, lk.idx)):
+                    raise AssertionError(f"table_lookup {module} {w}x{h} rows "
+                                         f"{band}: kernel != plain")
+                planes.append(f"{module} {tuple(lk.idx.shape)}")
+    torch.cuda.synchronize()
+    return (f"band shapes, kernel vs plain torch.equal: bars_raster "
+            f"{', '.join(shapes)}; table_lookup (64, T) tables on the band "
+            f"planes {', '.join(planes)} (each the frame's plane cut to its "
+            f"band)")
 
 
 def _per_card_kernels(card: int) -> str:
@@ -1566,30 +1674,61 @@ def _per_card_kernels(card: int) -> str:
 def phase_sharded(user_dir: str, totals: dict | None = None) -> list:
     """``FleetEngine(mesh=...)`` of every ``SHARDED_FLEETS`` entry over
     every ``shard_meshes`` mesh, held byte for byte to the unsharded
-    fleet, with launch counts the shard count times the unsharded
-    fleet's (added to ``totals``); then the per-device kernels on every
+    fleet, with launch counts the sum over the mesh's devices of what
+    the unsharded fleet launches for each device's block of streams
+    (added to ``totals``), each row group's state replicas torch.equal
+    and a shader module's whole-frame renders counted; then the kernels
+    at the rows meshes' band shapes and the per-device kernels on every
     card. Returns the result lines."""
+    from glava_tpu_torch import renderer
+
     meshes = shard_meshes()
     lines = []
     for kind, n in SHARDED_FLEETS:
-        want_frames, one = _sharded_frames(kind, n, user_dir)
-        for label, devices in meshes:
-            got, counts = _sharded_frames(kind, n, user_dir, devices)
-            want = {k: v * len(devices) for k, v in one.items()}
-            if got.tobytes() != want_frames.tobytes() or counts != want:
+        want_frames, one, _ = _sharded_frames(kind, n, user_dir)
+        mods = FLEET_KINDS[kind]
+        if one != _fleet_want(kind, n, 4):
+            raise AssertionError(f"{kind} fleet S {n}: launches {one}, "
+                                 f"expected {_fleet_want(kind, n, 4)}")
+        for label, devices, kw in meshes:
+            whole = renderer.whole_frame_bands
+            got, counts, eng = _sharded_frames(kind, n, user_dir, devices, kw)
+            whole = renderer.whole_frame_bands - whole
+            want = dict.fromkeys(COUNTED, 0)
+            for sl, _ in eng.br.blocks:
+                for k, v in _block_want([mods[i % len(mods)] for i in
+                                         range(sl.start, sl.stop)], 4).items():
+                    want[k] += v
+            rows = eng.br.bands
+            # a shader module renders the whole frame on each device of a
+            # rows mesh: one a frame a stream of it, in every band
+            cut = 4 * sum(mods[i % len(mods)] in SHADER_MODULES
+                          for i in range(n)) * len(rows) * (len(rows) > 1)
+            if got.tobytes() != want_frames.tobytes() or counts != want \
+                    or whole != cut:
                 raise AssertionError(
                     f"{kind} fleet S {n} over {label}: frames byte-equal "
                     f"{got.tobytes() == want_frames.tobytes()}, launches "
-                    f"{counts}, expected {want}")
+                    f"{counts}, expected {want}; whole-frame band renders "
+                    f"{whole}, expected {cut}")
+            replicas = _replicas_equal(eng)
             if totals is not None:
                 for k in PATH:
                     totals[k] += counts[k]
-            lines.append(f"{kind} fleet S {n} ({', '.join(FLEET_KINDS[kind])}) "
-                         f"800x600 sharded over {label}: 4 frames byte-equal "
-                         f"to the unsharded fleet's, launches "
-                         f"{ {k: v for k, v in counts.items() if v} } = "
-                         f"{len(devices)} x the unsharded fleet's")
-    lines.append("meshes run: " + "; ".join(label for label, _ in meshes))
+            times = len(devices) if counts == {
+                k: v * len(devices) for k, v in one.items()} else None
+            lines.append(
+                f"{kind} fleet S {n} ({', '.join(mods)}) 800x600 sharded over "
+                f"{label} (blocks of {n // (len(devices) // len(rows))} "
+                f"streams, bands {rows}): 4 frames byte-equal to the unsharded "
+                f"fleet's, launches { {k: v for k, v in counts.items() if v} }"
+                + (f" = {times} x the unsharded fleet's" if times else
+                   " = each device's block's")
+                + f", {replicas} state replicas torch.equal"
+                + (f", {whole} whole-frame band renders (rings)" if whole
+                   else ""))
+    lines.append("meshes run: " + "; ".join(label for label, _, _ in meshes))
+    lines.append(_band_kernels())
     for card in range(torch.cuda.device_count()):
         lines.append(_per_card_kernels(card))
     if torch.cuda.device_count() == 1:
@@ -2926,17 +3065,21 @@ def _fleet_times(n: int, screen, frames: int, card: str,
     return wall
 
 
-def _sharded_fleet_times(card: str, user_dir: str, n: int = 64,
+def _sharded_fleet_times(card: str, user_dir: str, kind: str = "bars",
+                         n: int = 64, screen=None, meshes=None,
                          frames: int = 20) -> None:
-    """The S 64 bars fleet frame (``FleetEngine.step`` + ``fetch``) on
-    the unsharded engine and on every ``shard_meshes`` mesh, by the host
-    clock, split into the step (every shard's launches and their
-    completion on every device) and the pinned copy into the one host
-    buffer; meshes in turn, two rounds."""
-    engines = [("unsharded", _fleet_engine("bars", n, user_dir))] + [
-        (label, _fleet_engine("bars", n, user_dir, devices))
-        for label, devices in shard_meshes()]
+    """A fleet frame (``FleetEngine.step`` + ``fetch``) of ``n``
+    streams of ``kind`` on the unsharded engine and on every mesh of
+    ``meshes`` (by default ``shard_meshes``), by the host clock, split
+    into the step (every device's launches and their completion on
+    every device) and the pinned copy into the one host buffer, with
+    the copy's rate; meshes in turn, two rounds."""
+    meshes = shard_meshes() if meshes is None else meshes
+    engines = [("unsharded", _fleet_engine(kind, n, user_dir, screen=screen))] + [
+        (label, _fleet_engine(kind, n, user_dir, devices, screen, kw))
+        for label, devices, kw in meshes]
     cfg = engines[0][1].loaded.cfg
+    w, h = engines[0][1].br.screen
     rng = np.random.default_rng(2)
     pool = [(rng.standard_normal((n, 2, cfg.bufsize)) * 0.3).astype(np.float32)
             for _ in range(4)]
@@ -2958,14 +3101,37 @@ def _sharded_fleet_times(card: str, user_dir: str, n: int = 64,
                 copy += time.perf_counter() - t1
                 step += t1 - t0
             res[label].append((step * 1e3 / frames, copy * 1e3 / frames))
+    mb = n * w * h * 4 / 1e6
     for label, runs in res.items():
         st = [a for a, _ in runs]
         cp = [b for _, b in runs]
-        print(f"[5 times] bars fleet S {n} 800x600 {label}: frame "
+        print(f"[5 times] {kind} fleet S {n} {w}x{h} {label}: frame "
               f"{np.mean(st) + np.mean(cp):.3f} ms host clock = step "
               f"{np.mean(st):.3f} ms (rounds {', '.join(f'{v:.3f}' for v in st)}) "
               f"+ pinned copy {np.mean(cp):.3f} ms (rounds "
-              f"{', '.join(f'{v:.3f}' for v in cp)}) ({card})")
+              f"{', '.join(f'{v:.3f}' for v in cp)}; {mb:.1f} MB, "
+              f"{mb / np.mean(cp):.2f} GB/s) ({card})")
+
+
+def _circle_mesh_times(card: str, user_dir: str) -> None:
+    """The S 64 circle fleet at 1920x1080 (device-bound unsharded) on a
+    rows mesh of the first card twice (what the band copies cost: the
+    pinned copy's rate on a rows mesh) and, where several cards are
+    visible, on every card on the streams axis and on rows 2."""
+    count = torch.cuda.device_count()
+    cards = [f"cuda:{i}" for i in range(count)]
+    meshes = [("[cuda:0] x 2 rows 2", ["cuda:0"] * 2, {"rows": 2})]
+    if count > 1:
+        meshes.append((f"every card [cuda:0 .. cuda:{count - 1}]", cards, {}))
+    if count > 1 and count % 2 == 0:
+        meshes.append((f"every card [cuda:0 .. cuda:{count - 1}] rows 2",
+                       cards, {"rows": 2}))
+    _sharded_fleet_times(card, user_dir, "circle", 64, (1920, 1080), meshes,
+                         frames=8)
+    if count == 1:
+        print("[5 times] circle fleet S 64 1920x1080 over several cards "
+              "(streams mesh against rows mesh): not measured, one card "
+              f"visible ({card})")
 
 
 def phase_times(card: str, user_dir: str) -> dict:
@@ -3051,6 +3217,7 @@ def phase_times(card: str, user_dir: str) -> dict:
         _fleet_times(64, screen, 10, card, breakdown=screen is None,
                      module="circle")
     _sharded_fleet_times(card, user_dir)
+    _circle_mesh_times(card, user_dir)
     return out
 
 
@@ -3269,7 +3436,7 @@ def sharded(parent: str | None = None) -> int:
     (another tree, for example the parent commit unpacked by ``git
     archive``) its per-device kernels on every card (``OPT_IN_PROBE``),
     then this tree's sharded fleets and per-card kernels
-    (``phase_sharded``) and the sharded fleet's frame times: what a
+    (``phase_sharded``) and the sharded fleets' frame times: what a
     machine of several cards adds."""
     card = phase_device()
     phase_build()
@@ -3287,6 +3454,7 @@ def sharded(parent: str | None = None) -> int:
         for line in phase_sharded(user_dir):
             print(f"[4 sharded] {line}")
         _sharded_fleet_times(card, user_dir)
+        _circle_mesh_times(card, user_dir)
     print("[4 sharded] every check passed")
     return 0
 

@@ -1,7 +1,7 @@
 """Command-line entry point of the port, flag-compatible with the JAX
-package's CLI on the flags the port supports (-v -d -r -m -e -a
--p/--pipe -i/--stdin -T --config-dir --sink --frames --seconds --size
---offline --fps), plus ``--device``.
+package's CLI (-v -d -r -m -e -C -a -p/--pipe -i/--stdin -T
+--config-dir --sink --frames --seconds --size --offline --fps), plus
+``--device``.
 
     python -m glava_tpu_torch --audio synth --frames 300 --sink null
     echo 'fg = #00ff00' | python -m glava_tpu_torch -a synth -p fg --frames 60
@@ -17,6 +17,7 @@ import sys
 from pathlib import Path
 
 from glava_tpu_torch import __version__
+from glava_tpu_torch.config.loader import SYSTEM_SHADER_DIR
 from glava_tpu_torch.runtime import audio as audio_mod
 from glava_tpu_torch.runtime.engine import Engine, EngineOptions
 from glava_tpu_torch.runtime.sinks import make_sink
@@ -31,6 +32,23 @@ def default_user_dir() -> str | None:
         if p.is_dir():
             return str(p)
     return None
+
+
+def copy_config(verbose: bool) -> int:
+    """--copy-config: install user-editable copies (glava.c:85-167)."""
+    dst = Path(os.path.expanduser(USER_CONFIG_DIRS[0]))
+    dst.mkdir(parents=True, exist_ok=True)
+    for f in sorted(SYSTEM_SHADER_DIR.glob("*.glsl")):
+        target = dst / f.name
+        if target.exists():
+            if verbose:
+                print(f"skipping '{target}' (exists)")
+            continue
+        shutil.copyfile(f, target)
+        if verbose:
+            print(f"copied '{f}' -> '{target}'")
+    print(f"installed user configuration in {dst}")
+    return 0
 
 
 def parse_pipe(spec: str | None) -> PipeBind:
@@ -59,6 +77,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-m", "--force-mod", metavar="NAME",
                    help="force a module, overriding `#request mod`")
     p.add_argument("-e", "--entry", default="rc.glsl", metavar="FILE")
+    p.add_argument("-C", "--copy-config", action="store_true",
+                   help="install the shipped configuration files into "
+                        "~/.config/glava_tpu (existing files are kept)")
     p.add_argument("-a", "--audio", default=None, metavar="BACKEND",
                    help=f"audio backend ({', '.join(audio_mod.available())}; "
                         "default pulseaudio when `parec` is on the PATH, "
@@ -100,6 +121,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    if args.copy_config:
+        return copy_config(args.verbose)
 
     screen = None
     if args.size:

@@ -117,18 +117,28 @@ def load(
         if args:
             on_request(args[0], args[1:], "<request>", 0)
 
-    # 4. drop-in GLSL shader modules (the reference scans config-root
-    # module dirs, render.c:1488-1597), registered into this load's
-    # override map, then module knobs + smoothing params. User Python
-    # modules are JAX programs and are refused.
+    # 4. user Python modules + drop-in GLSL shader modules (the
+    # reference scans config-root module dirs, render.c:1488-1597), then
+    # module knobs + smoothing params. Registrations are captured into
+    # this load's override map, not left in the global registry; a
+    # shader module shadows a Python module of the same name.
     module_overrides: dict = {}
     if user_dir is not None:
-        _refuse_python_modules(user_dir)
+        from glava_tpu_torch.render.modules import _REGISTRY, load_user_modules
         from glava_tpu_torch.render.modules.glsl_module import (
             register_shader_module,
             scan_shader_modules,
         )
 
+        snapshot = dict(_REGISTRY)
+        try:
+            load_user_modules(user_dir)
+            for k, v in _REGISTRY.items():
+                if snapshot.get(k) is not v:
+                    module_overrides[k] = v
+        finally:
+            _REGISTRY.clear()
+            _REGISTRY.update(snapshot)
         for mname, mdir in scan_shader_modules(user_dir).items():
             register_shader_module(mname, mdir, user_dir, system_dir,
                                    registry=module_overrides)
@@ -152,21 +162,6 @@ def load(
         cfg=cfg, env=env, entry_path=entry_path, module=module,
         defines=dict(ctx.defines), module_overrides=module_overrides,
     )
-
-
-def _refuse_python_modules(user_dir: Path) -> None:
-    """Raise on ``<user_dir>/modules/*.py``: the JAX package's user
-    Python modules (``load_user_modules``) are JAX programs, which the
-    port does not run. Shader directories and knob files load."""
-    if not user_dir.is_dir():
-        return
-    found = sorted(p.name for p in (user_dir / "modules").glob("*.py"))
-    if found:
-        raise NotImplementedError(
-            f"user Python modules {found} in '{user_dir / 'modules'}' are "
-            "JAX programs; the port runs GLSL shader modules "
-            "(<user_dir>/<name>/1.frag) only"
-        )
 
 
 def builtin_variables(cfg: RenderConfig) -> dict[str, Any]:

@@ -191,22 +191,9 @@ def cmd_profile(args) -> int:
 
 
 def cmd_install(args) -> int:
-    """Install user-editable copies of the shipped shader files into the
-    first user config root (the JAX CLI's --copy-config,
-    glava.c:85-167)."""
-    from glava_tpu_torch.cli import USER_CONFIG_DIRS
+    from glava_tpu_torch.cli import copy_config
 
-    dst = Path(os.path.expanduser(USER_CONFIG_DIRS[0]))
-    dst.mkdir(parents=True, exist_ok=True)
-    for f in sorted(SYSTEM_SHADER_DIR.glob("*.glsl")):
-        target = dst / f.name
-        if target.exists():
-            print(f"skipping '{target}' (exists)")
-            continue
-        shutil.copyfile(f, target)
-        print(f"copied '{f}' -> '{target}'")
-    print(f"installed user configuration in {dst}")
-    return 0
+    return copy_config(verbose=True)
 
 
 def cmd_interactive(args, stdin=None) -> int:

@@ -30,9 +30,9 @@ the host.
 :class:`ShardedRenderer` is the counterpart of the JAX
 ``BatchedRenderer.sharded_step``/``shard_state`` and
 ``MixedBatchedRenderer.shard_state`` (glava_tpu/parallel/batch.py:127-163,
-306-310): one renderer a stream shard of a ``parallel.mesh.Mesh``, on
-that shard's device, over its block of streams. Its state stays per
-shard and is never gathered.
+306-310): one renderer a device of a ``parallel.mesh.Mesh``, over its
+block of streams and its band of the frame's rows. Its state stays per
+device and is never gathered.
 """
 
 from __future__ import annotations
@@ -89,7 +89,7 @@ def _raster(rend: Renderer, textures: dict, time, pipe: dict | None,
     its pipe row is loaded into the module's env."""
     if rend.module.batched:
         return rend.render_planes(textures, time, pipe)
-    h, w = rend.screen[1], rend.screen[0]
+    h, w = rend.height, rend.screen[0]
     per = []
     for s in range(n):
         if pipe:
@@ -111,7 +111,7 @@ def _frames(rend: Renderer, planes, n: int, quantize: bool) -> torch.Tensor:
     if profiling.nan_guard_enabled():
         profiling.check_nans(planes)
     pack = interleave_u8 if quantize else interleave
-    return pack(planes, rend.screen[1], rend.screen[0], rend.device,
+    return pack(planes, rend.height, rend.screen[0], rend.device,
                 batch=(n,))
 
 
@@ -121,13 +121,16 @@ def _pipe_rows(pipe: dict | None) -> dict | None:
 
 
 class BatchedRenderer:
-    """``n_streams`` streams of one module configuration."""
+    """``n_streams`` streams of one module configuration (with ``rows``,
+    their frames' band [r0, r1) of rows only, as ``Renderer``)."""
 
     def __init__(self, loaded: LoadedConfig, n_streams: int,
-                 screen: tuple[int, int] | None = None, device="cuda"):
+                 screen: tuple[int, int] | None = None, device="cuda",
+                 rows: tuple[int, int] | None = None):
         self.loaded = loaded
         self.n_streams = n_streams
-        self.renderer = Renderer(loaded, screen=screen, device=device)
+        self.renderer = Renderer(loaded, screen=screen, device=device,
+                                 rows=rows)
         self.cfg = self.renderer.cfg
         self.device = self.renderer.device
         self.screen = self.renderer.screen
@@ -141,8 +144,8 @@ class BatchedRenderer:
         """One frame for every stream: ``audio`` (S, 2, bufsize),
         ``modified``/``time``/``interp_mod``/``gravity_g`` (S,) and pipe
         values name -> (S, ...) -> the new state and (S, H, W, 4)
-        frames on the device. ``interp_mod`` feeds only the CPU-path
-        interpolation."""
+        frames on the device ((S, H_band, W, 4) with ``rows``).
+        ``interp_mod`` feeds only the CPU-path interpolation."""
         S = self.n_streams
         rend = self.renderer
         chains, key_start, key_end, feed = _advance(
@@ -180,7 +183,8 @@ class MixedBatchedRenderer:
     )
 
     def __init__(self, loadeds: list[LoadedConfig], assign: list[int],
-                 screen: tuple[int, int] | None = None, device="cuda"):
+                 screen: tuple[int, int] | None = None, device="cuda",
+                 rows: tuple[int, int] | None = None):
         if not loadeds:
             raise ValueError("need at least one module variant")
         if any(not 0 <= a < len(loadeds) for a in assign):
@@ -195,7 +199,8 @@ class MixedBatchedRenderer:
         self.loadeds = loadeds
         self.assign = list(assign)
         self.n_streams = len(assign)
-        self.renderers = [Renderer(lc, screen=screen, device=device)
+        self.renderers = [Renderer(lc, screen=screen, device=device,
+                                   rows=rows)
                           for lc in loadeds]
         self.cfg = base
         self.device = self.renderers[0].device
@@ -262,60 +267,75 @@ class MixedBatchedRenderer:
 
 
 class ShardedRenderer:
-    """A fleet over the stream shards of ``mesh``
-    (``parallel.mesh.stream_slices``): shard i renders streams
-    ``slices[i]`` on ``devices[i]``, a :class:`BatchedRenderer` of
+    """A fleet over the devices of ``mesh``: device [i, j] of
+    ``parallel.mesh.shard_grid`` renders stream block ``slices[i]``
+    (``parallel.mesh.stream_slices``) in row band ``bands[j]``
+    (``parallel.mesh.row_bands``), a :class:`BatchedRenderer` of
     ``loadeds[0]`` when the fleet runs one variant, else a
-    :class:`MixedBatchedRenderer` of the variants its slice of
-    ``assign`` uses (only those are built). A mesh whose rows extent is
-    above 1 raises ``NotImplementedError``."""
+    :class:`MixedBatchedRenderer` of the variants its block of
+    ``assign`` uses (only those are built). The per-device lists
+    (``devices``, ``blocks``, ``shards``, states and frames) run in
+    mesh order, i major. The devices of a row group (one stream block)
+    each hold a replica of the block's state, as JAX replicates
+    ``P(stream_axes)`` state over rows, and advance it from the same
+    inputs."""
 
     def __init__(self, loadeds: list[LoadedConfig], assign: list[int], mesh,
                  screen: tuple[int, int] | None = None):
-        from glava_tpu_torch.parallel.mesh import stream_shards, stream_slices
+        from glava_tpu_torch.parallel.mesh import (
+            row_bands, shard_grid, stream_slices,
+        )
 
         if not loadeds:
             raise ValueError("need at least one module variant")
         if any(not 0 <= a < len(loadeds) for a in assign):
             raise ValueError("stream assignment out of range")
-        self.devices = stream_shards(mesh)
+        grid = shard_grid(mesh)
+        height = screen[1] if screen else loadeds[0].cfg.geometry[3]
         self.slices = stream_slices(mesh, len(assign))
+        self.bands = row_bands(mesh, height)
         self.n_streams = len(assign)
-        self.shards = []
-        for sl, dev in zip(self.slices, self.devices):
+        self.devices, self.blocks, self.shards = [], [], []
+        for i, sl in enumerate(self.slices):
             sub = list(assign[sl])
-            if len(loadeds) == 1:
-                self.shards.append(BatchedRenderer(loadeds[0], len(sub),
-                                                   screen, device=dev))
-                continue
             used = sorted(set(sub))
-            self.shards.append(MixedBatchedRenderer(
-                [loadeds[k] for k in used], [used.index(a) for a in sub],
-                screen, device=dev))
+            for j, band in enumerate(self.bands):
+                rows = band if len(self.bands) > 1 else None
+                if len(loadeds) == 1:
+                    sh = BatchedRenderer(loadeds[0], len(sub), screen,
+                                         device=grid[i, j], rows=rows)
+                else:
+                    sh = MixedBatchedRenderer(
+                        [loadeds[k] for k in used],
+                        [used.index(a) for a in sub], screen,
+                        device=grid[i, j], rows=rows)
+                self.devices.append(sh.device)
+                self.blocks.append((sl, band))
+                self.shards.append(sh)
         self.cfg = self.shards[0].cfg
         self.screen = self.shards[0].screen
         if any(sh.screen != self.screen for sh in self.shards):
             raise ValueError("variants must share the frame geometry")
 
     def init_state(self) -> list[RenderState]:
-        """One state a shard, each on its shard's device."""
+        """One state a device, each on its device."""
         return [sh.init_state() for sh in self.shards]
 
     def step(self, states: list[RenderState], audio, modified, time,
              interp_mod, gravity_g, pipe: dict | None = None,
              quantize: bool = False):
-        """:meth:`BatchedRenderer.step` of every shard, back to back on
+        """:meth:`BatchedRenderer.step` on every device, back to back on
         each device's current stream with no host synchronisation
         between them: ``audio`` (S, 2, bufsize) on the host (one copy to
-        each shard's device of its block); the per-stream inputs and
-        pipe rows are sliced per shard. Returns the new per-shard states
-        and the per-shard (S_i, H, W, 4) frames, each on its shard's
-        device."""
+        each device of its block; every device of a row group takes the
+        same); the per-stream inputs and pipe rows are sliced per block.
+        Returns the new per-device states and the per-device
+        (S_i, H_band, W, 4) frames, each on its device."""
         modified, time = _host(modified), _host(time)
         interp_mod, gravity_g = _host(interp_mod), _host(gravity_g)
         pipe = _pipe_rows(pipe)
         out_states, frames = [], []
-        for sh, sl, st in zip(self.shards, self.slices, states):
+        for sh, (sl, _), st in zip(self.shards, self.blocks, states):
             a = torch.as_tensor(audio[sl], dtype=torch.float32).to(
                 sh.device, non_blocking=True)
             st, fr = sh.step(st, a, modified[sl], time[sl], interp_mod[sl],

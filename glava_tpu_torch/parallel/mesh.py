@@ -3,18 +3,23 @@
 The port of ``glava_tpu/parallel/mesh.py``: the same ``make_mesh``
 defaults, axis names, shapes, validation and messages, over
 ``torch.device``s. Where JAX hands a mesh to XLA, which partitions one
-program, the port runs one renderer a stream shard
-(``parallel.batch.ShardedRenderer``): the streams split into contiguous,
-equal blocks over the stream axes, as ``P(stream_axes)`` splits the
-leading axis in JAX, and each block runs on its shard's device.
+program, the port runs one renderer a device
+(``parallel.batch.ShardedRenderer``) over its (stream block, row band):
+the streams split into contiguous, equal blocks over the stream axes,
+as ``P(stream_axes)`` splits the leading axis in JAX, and the frame's
+row axis (axis 1 of (S, H, W, 4), row 0 at the bottom) into ``rows``
+contiguous, equal bands, as ``P(stream_axes, "rows")`` splits the
+frames (``frame_sharding``).
 
 * ``('streams', 'rows')``, or ``('hosts', 'streams', 'rows')`` with
   ``hosts``: in this one process the hosts axis is flattened with
   streams into stream shards (streams are independent, so no shard
   reads another's data, as the JAX fleet's zero-collective step).
-* ``rows`` is accepted and validated as JAX does, but a fleet on a mesh
-  whose rows extent is above 1 raises ``NotImplementedError``: the
-  port's rasters do not take row bands yet.
+* ``rows``: the devices of one row group (one stream shard) each hold
+  their block's state, replicated as JAX replicates ``P(stream_axes)``
+  state over rows, and advance it from the same audio; each renders
+  its band. An H that ``rows`` does not divide raises ``ValueError``,
+  as JAX's ``jit`` refuses the frame sharding.
 
 One difference from JAX: a device may appear more than once (``["cpu"]
 * 4``, ``["cuda:0", "cuda:0"]``), so that the CPU tests and a one-card
@@ -27,9 +32,6 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-
-# what a sharded fleet cannot take yet, named by its raise
-ROWS_ITEM = "ROADMAP queue 1, item 1: the mesh's rows axis"
 
 
 @dataclass(frozen=True, eq=False)
@@ -114,15 +116,25 @@ def stream_axes(mesh: Mesh) -> tuple[str, ...]:
     return tuple(a for a in mesh.axis_names if a in ("hosts", "streams"))
 
 
-def stream_shards(mesh: Mesh) -> list[torch.device]:
-    """The device of each stream shard, in stream order (the stream
-    axes flattened in mesh order); refuses a rows extent above 1."""
+def shard_grid(mesh: Mesh) -> np.ndarray:
+    """The (stream shard, row band) grid of devices: an object ndarray
+    of shape (stream shards, rows), the stream axes flattened in mesh
+    order (``mesh.devices.reshape(streams, rows)``); device [i, j]
+    renders stream block i's band j."""
+    return mesh.devices.reshape(-1, mesh.shape.get("rows", 1))
+
+
+def row_bands(mesh: Mesh, height: int) -> list[tuple[int, int]]:
+    """The rows [r0, r1) of each band of an H-row frame, in mesh order:
+    ``rows`` contiguous, equal bands, as ``P(stream_axes, "rows")``
+    splits axis 1 of the frames."""
     rows = mesh.shape.get("rows", 1)
-    if rows > 1:
-        raise NotImplementedError(
-            f"a fleet on a mesh with rows={rows}: the port shards streams "
-            f"only, each raster on one device ({ROWS_ITEM})")
-    return list(mesh.devices.reshape(-1))
+    if height % rows:
+        raise ValueError(
+            f"a frame of height {height} does not split into rows={rows} "
+            f"equal bands: the mesh's rows must divide H")
+    per = height // rows
+    return [(j * per, (j + 1) * per) for j in range(rows)]
 
 
 def stream_slices(mesh: Mesh, n_streams: int) -> list[slice]:

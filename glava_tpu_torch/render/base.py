@@ -18,6 +18,16 @@ A module whose build sets ``ModuleBuild.batched`` renders many streams
 at once: its textures carry a leading stream axis (S, sz), its pipe
 values (S, ...) rows, and its planes a leading S axis, broadcastable to
 (S, H, W). The single-stream renderer runs such a module with S = 1.
+
+A module built for a band of rows (``ModuleContext.rows``, a device's
+band of a mesh's rows axis, ``parallel.mesh.row_bands``) that sets
+``ModuleBuild.banded`` returns planes of the band's rows only; every
+knob and centre still reads the whole frame's ``screen``. Its passes
+that read ``prev`` at neighbouring rows take earlier passes computed
+over the band widened by their taps (``ModuleContext.widened``),
+clipped at the frame's real edges, so a band's inner edge equals the
+whole frame's with no traffic between devices. A module that does not
+set it renders the whole frame, and the renderer keeps the band.
 """
 
 from __future__ import annotations
@@ -86,6 +96,14 @@ def clip_planes(planes: Planes, lo: float = 0.0, hi: float = 1.0) -> Planes:
     )
 
 
+def cut_rows(plane, r0: int, r1: int):
+    """Rows [r0, r1) of a channel plane's row axis (axis -2); a plane
+    broadcast over rows (a scalar, a row vector) stays as it is."""
+    if np.ndim(plane) < 2 or plane.shape[-2] == 1:
+        return plane
+    return plane[..., r0:r1, :]
+
+
 def _full_plane(p, shape: tuple, device) -> torch.Tensor:
     return torch.as_tensor(p, dtype=torch.float32, device=device).expand(shape)
 
@@ -123,6 +141,20 @@ class ModuleContext:
     sz: int                        # spectrum texture size (scaled bufsize)
     device: torch.device = torch.device("cpu")
     channels: int = 2              # 1 when `setmirror true` (render.c:289)
+    # the band of frame rows [r0, r1) the module renders (row 0 at the
+    # bottom); None: the whole frame
+    rows: tuple[int, int] | None = None
+
+    @property
+    def band(self) -> tuple[int, int]:
+        """The rows [r0, r1) to render: ``rows``, or the whole frame."""
+        return self.rows if self.rows is not None else (0, self.screen[1])
+
+    def widened(self, halo: int) -> tuple[int, int]:
+        """The band widened by ``halo`` rows on each side, clipped at the
+        frame's bottom and top rows."""
+        r0, r1 = self.band
+        return max(r0 - halo, 0), min(r1 + halo, self.screen[1])
 
     # -- knob readers ---------------------------------------------------
 
@@ -212,6 +244,8 @@ class ModuleBuild:
     passes: list[PassFn] = field(default_factory=list)
     lookups: list = field(default_factory=list)
     batched: bool = False
+    # the planes cover the context's band of rows only (module docstring)
+    banded: bool = False
 
     def render(self, inputs: PassInputs) -> Planes:
         out = inputs.prev
@@ -241,12 +275,16 @@ def premultiply_pass(inputs: PassInputs) -> Planes:
     return (mul(r, a), mul(g, a), mul(b, a), a)
 
 
-def frag_coords(w: int, h: int, pixel_center_integer: bool) -> tuple[np.ndarray, np.ndarray]:
-    """gl_FragCoord.x (W,) and .y (H,) — half-integer centers unless the
-    pass declares ``layout(pixel_center_integer)``."""
+def frag_coords(w: int, h: int, pixel_center_integer: bool,
+                rows: tuple[int, int] | None = None,
+                ) -> tuple[np.ndarray, np.ndarray]:
+    """gl_FragCoord.x (W,) and .y (H,), or .y of the frame rows
+    [r0, r1) only when ``rows`` is given — half-integer centers unless
+    the pass declares ``layout(pixel_center_integer)``."""
     off = 0.0 if pixel_center_integer else 0.5
+    r0, r1 = rows if rows is not None else (0, h)
     x = np.arange(w, dtype=np.float64) + off
-    y = np.arange(h, dtype=np.float64) + off
+    y = np.arange(r0, r1, dtype=np.float64) + off
     return x, y
 
 

@@ -13,6 +13,10 @@ row (``d``) and on the ``@fg``/``@bg`` pipe values, so each stream's
 colours are one (H, 4) table, evaluated on the host and cached by the
 pipe values (``base.StreamColors``).
 
+Built for a band of rows (``ModuleContext.rows``), the row tables are
+the band's; under MIRROR_YX the frame's rows are the pre-transpose
+columns, so the band slices the column quantities instead.
+
 Knobs (shaders/glava/bars.glsl): BAR_WIDTH, BAR_GAP, BAR_OUTLINE_WIDTH,
 AMPLIFY, GRADIENT, COLOR, BAR_OUTLINE, DIRECTION, INVERT, FLIP,
 MIRROR_YX, DISABLE_MONO, USE_ALPHA.
@@ -47,7 +51,11 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
     channels = 2 if (disable_mono or ctx.channels == 2) else 1
 
     # ---- column-only math (bars/1.frag:50-111), host-side -------------
-    ax, ay = base.frag_coords(aw, ah, pixel_center_integer=False)
+    # the band's rows: rows of the raster, or its columns under MIRROR_YX
+    ax, ay = base.frag_coords(aw, ah, pixel_center_integer=False,
+                              rows=None if mirror_yx else ctx.rows)
+    r0, r1 = ctx.band
+    cols = slice(r0, r1) if mirror_yx else slice(None)
     if channels == 2:
         dx = ax - (aw // 2)             # GLSL int division screen.x / 2
     elif invert:
@@ -80,19 +88,21 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
         use_right = p > 0
     visible = in_bar & ~oob
 
+    # sampled at every column, then cut: the resample's sums keep the
+    # whole frame's order
     sample = ctx.sampler(np.clip(pos, 0.0, 1.0))
-    use_right_t = torch.as_tensor(use_right, device=dev)
-    visible_t = torch.as_tensor(visible, device=dev)
-    inner_t = torch.as_tensor(inner & visible, device=dev)
+    use_right_t = torch.as_tensor(use_right[cols], device=dev)
+    visible_t = torch.as_tensor(visible[cols], device=dev)
+    inner_t = torch.as_tensor((inner & visible)[cols], device=dev)
 
     # ---- row-only quantities -------------------------------------------
     d = ((ah - ay) if flip else ay).astype(np.float32)  # from the baseline
     d_t = torch.as_tensor(d, device=dev)
 
     def tables(c):
-        """COLOR, BAR_OUTLINE -> (S or 1, AH, 4) colour tables."""
+        """COLOR, BAR_OUTLINE -> (S or 1, rows of d, 4) colour tables."""
         return tuple(
-            torch.stack([p.expand(p.shape[0], ah, 1)[..., 0] for p in c[k]],
+            torch.stack([p.expand(p.shape[0], len(d), 1)[..., 0] for p in c[k]],
                         dim=-1).contiguous()
             for k in ("COLOR", "BAR_OUTLINE"))
 
@@ -100,8 +110,8 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
                                d=torch.as_tensor(d)[:, None])
 
     def pass1(inputs: base.PassInputs) -> base.Planes:
-        vl = sample(inputs.textures["audio_l"])         # (S, AW)
-        vr = sample(inputs.textures["audio_r"])
+        vl = sample(inputs.textures["audio_l"])[..., cols]   # (S, AW)
+        vr = sample(inputs.textures["audio_r"])[..., cols]
         v = torch.where(use_right_t, vr, vl) * amplify
         v = torch.where(visible_t, v, -torch.inf)  # gap/oob columns never draw
         color, outline = colors(inputs.pipe)
@@ -117,4 +127,4 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
     # bars/2.frag: premultiply, compiled only when USE_ALPHA == 1
     if use_alpha and ctx.cfg.premultiply_alpha:
         passes.append(base.premultiply_pass)
-    return base.ModuleBuild("bars", passes, batched=True)
+    return base.ModuleBuild("bars", passes, batched=True, banded=True)

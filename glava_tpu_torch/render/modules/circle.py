@@ -17,7 +17,9 @@ left)`` of the three sample sites, stacked (3, H, W), into the (S,
 pass is off). On CUDA tensors that is the hand-written lookup kernel
 (``ops/lookup.py``), one launch a frame for every stream. OUTLINE, the
 module's one colour, is evaluated once at build time, as in the JAX
-module, and keeps the load's ``@fg`` value.
+module, and keeps the load's ``@fg`` value. Built for a band of rows,
+the index planes cover the band, widened by one row on each side when
+the C_SMOOTH neighbourhood reads its neighbours.
 
 Knobs (shaders/glava/circle.glsl): C_RADIUS, C_LINE, OUTLINE, AMPLIFY,
 ROTATE, INVERT, C_FILL, C_SMOOTH.
@@ -32,7 +34,7 @@ from glava_tpu_torch.ops import smoothing
 from glava_tpu_torch.ops.lookup import StaticLookup
 from glava_tpu_torch.render import base
 from glava_tpu_torch.render.modules import register
-from glava_tpu_torch.render.modules.wave import neighbor_sum
+from glava_tpu_torch.render.modules.wave import crop_rows, neighbor_sum
 
 TWOPI = 6.28318530718
 PI = 3.14159265359
@@ -71,9 +73,14 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
     c_smooth = ctx.knob_i("C_SMOOTH", 1)
     use_alpha = ctx.knob_i("_USE_ALPHA", 1) > 0
     outline = base.color_planes(ctx.color_fn("OUTLINE")(), dev)
+    smooth_on = c_smooth > 0 and use_alpha
 
-    # static polar geometry; pixel_center_integer (circle/1.frag:1)
-    x, y = base.frag_coords(w, h, pixel_center_integer=True)
+    # static polar geometry; pixel_center_integer (circle/1.frag:1); over
+    # the band and the rows the smoothing reads beyond it
+    r0, r1 = ctx.band
+    a0, a1 = ctx.widened(1) if smooth_on else (r0, r1)
+    halo = (r0 - a0, a1 - r1)
+    x, y = base.frag_coords(w, h, pixel_center_integer=True, rows=(a0, a1))
     dx = x[None, :] - (w // 2)
     dy = y[:, None] - (h // 2)
     theta = np.arctan2(dy, dx)
@@ -114,7 +121,6 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
                 (d <= dmax) & (d >= dmin))
         return active_t & bounds
 
-    smooth_on = c_smooth > 0 and use_alpha
     premult_on = bool(ctx.cfg.premultiply_alpha)
     # inter-pass stage FBOs clamp to [0, 1]; fold the clamp into the
     # static colour once
@@ -127,7 +133,8 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
             # circle/2.frag fills pixels whose alpha is 0 with the
             # neighbourhood average; with a zero-alpha outline every
             # pixel qualifies
-            wsum = neighbor_sum(m)
+            wsum = neighbor_sum(m, halo)
+            m = crop_rows(m, halo)
             coef = wsum if o_cl[3] == 0.0 else torch.where(m > 0, 1.0, wsum)
         if premult_on:
             a = o_cl[3] * coef
@@ -135,4 +142,5 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
                     (o_cl[2] * coef) * a, a)
         return tuple(o_cl[c] * coef for c in range(4))
 
-    return base.ModuleBuild("circle", [pass_fused], [lookup], batched=True)
+    return base.ModuleBuild("circle", [pass_fused], [lookup], batched=True,
+                            banded=True)

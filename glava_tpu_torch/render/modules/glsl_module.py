@@ -8,6 +8,15 @@ directory ``<name>/`` holding ``1.frag, 2.frag, ...`` becomes module
 registers these modules into the load's own override map, so a user's
 shader directory shadows a built-in module of the same name, like the
 reference's user-over-system path search.
+
+On a mesh's rows axis a shader module does not take its band
+(``ModuleBuild.banded`` stays False): the interpreter's fetch routes
+(constant shifts, first-hit walks through the latch scan, run-time rows
+through the row-wise lookup) read ``prev`` at any row over the whole
+pixel grid, so every pass renders the whole frame on each device of a
+row group and the renderer keeps the band (counted in
+``renderer.whole_frame_bands``). Its frames are right; the module gets
+no split of its work.
 """
 
 from __future__ import annotations

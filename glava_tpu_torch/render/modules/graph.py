@@ -9,7 +9,9 @@ Re-expression of shaders/glava/graph/{1,2,3,4}.frag:
 * pass 3 (graph/3.frag) — column anti-aliasing; disabled unless
   ANTI_ALIAS. The reference walks pixels up/down per column; pass 1's
   output is a contiguous fill, so the walk reduces to per-column top
-  indices, computed vectorized.
+  indices, computed vectorized. The colour it reads at each column's
+  top is computed at that pixel from passes 1 and 2 (``column_tops``),
+  so a band of rows renders without the rows the top lies in.
 * pass 4 (graph/4.frag) — premultiply.
 
 Every column-only quantity is baked in numpy; per frame the passes are
@@ -33,7 +35,7 @@ import torch
 
 from glava_tpu_torch.render import base
 from glava_tpu_torch.render.modules import register
-from glava_tpu_torch.render.modules.wave import neighbor_sum
+from glava_tpu_torch.render.modules.wave import crop_rows, neighbor_sum
 
 
 @register("graph")
@@ -82,8 +84,17 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
     fact_c_t = t(fact_c.astype(np.float32))
     fact_e_t = t(fact_e.astype(np.float32))
 
+    # the row distances of the whole frame: pass 1 covers the band and,
+    # when pass 2 reads its neighbours, the row on each side; pass 3
+    # also reads each column's top, wherever it lies
+    outline_on = draw_outline > 0 or draw_highlight > 0
+    r0, r1 = ctx.band
+    a0, a1 = ctx.widened(1) if outline_on else (r0, r1)
+    halo = (r0 - a0, a1 - r1)
     d_rows = ((float(h) - yrow) if invert > 0 else yrow).astype(np.float32)
-    d_col = t(d_rows)[:, None]
+    d_all = t(d_rows)
+    d_ext = d_all[a0:a1, None]
+    d_col = d_all[r0:r1, None]
     colors = base.StreamColors(ctx, ("COLOR",),
                                pos=torch.as_tensor(d_rows)[:, None])
 
@@ -101,35 +112,76 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
             s = s * fact_c_t
         return s * fact_e_t
 
+    def fill(d, s, color) -> list:
+        """graph/1.frag at row distances ``d`` against line heights
+        ``s``."""
+        mask = (d + 1.5) <= s
+        return [torch.where(mask, c, 0.0) for c in color]
+
+    def outline_highlight(frame, avg_a) -> list:
+        """graph/2.frag from the pixel's planes and its neighbourhood
+        alpha average. graph/2.frag only ever consumes avg.A (the
+        outline branch writes a constant; the highlight multiplies by
+        avg.a)."""
+        alpha = frame[3]
+        near = avg_a > 0
+        out = list(frame)
+        if draw_outline > 0:
+            m = near & (alpha <= 0)
+            out = [torch.where(m, outline[c], out[c]) for c in range(4)]
+        if draw_highlight > 0:
+            m = near & (alpha > 0) & (avg_a < 1)
+            out[:3] = [torch.where(m, out[c] * (avg_a * 2.0), out[c])
+                       for c in range(3)]
+        return out
+
     def pass1(inputs: base.PassInputs) -> base.Planes:
         s = line_heights(inputs.textures)
-        mask = (d_col + 1.5) <= s[..., None, :]                 # (S, H, W)
-        color = colors(inputs.pipe)["COLOR"]
-        return tuple(torch.where(mask, color[c], 0.0) for c in range(4))
+        color = [base.cut_rows(c, a0, a1) for c in colors(inputs.pipe)["COLOR"]]
+        return tuple(fill(d_ext, s[..., None, :], color))   # (S, rows, W)
 
     passes = [pass1]
 
     # graph/2.frag — outline + highlight
-    if draw_outline > 0 or draw_highlight > 0:
+    if outline_on:
         def pass2(inputs: base.PassInputs) -> base.Planes:
             frame = inputs.prev
-            # graph/2.frag only ever consumes avg.A (the outline branch
-            # writes a constant; the highlight multiplies by avg.a), so
-            # only the alpha plane feeds the neighbourhood average
-            alpha = frame[3]
-            avg_a = neighbor_sum(alpha)
-            near = avg_a > 0
-            out = list(frame)
-            if draw_outline > 0:
-                m = near & (alpha <= 0)
-                out = [torch.where(m, outline[c], out[c]) for c in range(4)]
-            if draw_highlight > 0:
-                m = near & (alpha > 0) & (avg_a < 1)
-                out[:3] = [torch.where(m, out[c] * (avg_a * 2.0), out[c])
-                           for c in range(3)]
-            return tuple(out)
+            # only the alpha plane feeds the neighbourhood average; the
+            # rgb planes see one select each
+            avg_a = neighbor_sum(frame[3], halo)
+            return tuple(outline_highlight(
+                [crop_rows(p, halo) for p in frame], avg_a))
 
         passes.append(pass2)
+
+    def column_tops(s, rows_pix, pipe) -> list:
+        """The planes passes 1 and 2 leave at each column's top pixel
+        (rows_pix[x], x), (S, W) each, computed at that pixel and its
+        neighbours (each stage through its [0, 1] clamp), so that a band
+        reads them wherever the top lies."""
+        cols = torch.arange(w, device=dev)
+        color = [c.expand(s.shape[0], h, 1)[..., 0]
+                 for c in colors(pipe)["COLOR"]]            # (S, H)
+
+        def at(dy, dx):
+            """Pass 1's planes at (rows_pix + dy, x + dx), zero outside
+            the frame (texelFetch's zero padding)."""
+            y, x = rows_pix + dy, cols + dx
+            yc, xc = y.clamp(0, h - 1), x.clamp(0, w - 1)
+            inside = (y >= 0) & (y < h) & (x >= 0) & (x < w)
+            px = fill(d_all[yc], s[..., xc], [c.gather(-1, yc) for c in color])
+            return [torch.where(inside, torch.clamp(p, 0.0, 1.0), 0.0)
+                    for p in px]
+
+        top = at(0, 0)
+        if not outline_on:
+            return top
+        a = {(dy, dx): at(dy, dx)[3]
+             for dy, dx in ((0, 1), (1, 1), (1, 0), (0, -1), (-1, -1), (-1, 0))}
+        # the sum of wave.neighbor_sum, term for term
+        avg_a = (2.0 * a[0, 1] + a[1, 1] + a[1, 0] + 2.0 * a[0, -1]
+                 + a[-1, -1] + a[-1, 0]) / 8.0
+        return [torch.clamp(p, 0.0, 1.0) for p in outline_highlight(top, avg_a)]
 
     # graph/3.frag — anti-alias: alpha-feather empty pixels between the
     # tops of adjacent columns.
@@ -148,12 +200,11 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
             lcol = d_col <= ty_l[..., None, :]
             rcol = d_col <= ty_r[..., None, :]
             h2 = ty  # own column top (first colored going down)
-            # fragment colour of (x, h2): a plain per-column gather
+            # fragment colour of (x, h2), the column's top pixel
             rows = torch.clamp(ty, 0, h - 1).to(torch.int64)
             rows_pix = torch.clamp(h - rows, 0, h - 1) if invert > 0 else rows
-            shape = (ty.shape[0], h, w)
-            top = [torch.as_tensor(frame[c], device=dev).expand(shape)
-                   .gather(-2, rows_pix[:, None, :]) for c in range(4)]
+            top = [p[:, None, :] for p in column_tops(s, rows_pix,
+                                                      inputs.pipe)]
             # (ty_l - d) / (h2 - ty_l) is 0/0 where both vanish; the NaN
             # goes on through clamp/maximum as in the JAX module
             af_l = torch.clamp(torch.abs(
@@ -171,4 +222,4 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
     if ctx.cfg.premultiply_alpha:
         passes.append(base.premultiply_pass)  # graph/4.frag
 
-    return base.ModuleBuild("graph", passes, batched=True)
+    return base.ModuleBuild("graph", passes, batched=True, banded=True)

@@ -66,8 +66,8 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
     bow = ctx.knob_f("BAR_OUTLINE_WIDTH", 0)
     use_alpha = ctx.knob_i("_USE_ALPHA", 1) > 0
 
-    # ---- static polar geometry (radial/1.frag:44-70) -------------------
-    x, y = base.frag_coords(w, h, pixel_center_integer=False)
+    # ---- static polar geometry (radial/1.frag:44-70), over the band ---
+    x, y = base.frag_coords(w, h, pixel_center_integer=False, rows=ctx.rows)
     dx = x[None, :] - (w // 2) + off_x
     dy = y[:, None] - (h // 2) + off_y
     theta = np.arctan2(dy, dx)                    # (H, W)
@@ -202,5 +202,6 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
     passes = [pass1]
     if ctx.cfg.premultiply_alpha:
         passes.append(base.premultiply_pass)  # radial/2.frag
-    return base.ModuleBuild("radial", passes, [lookup_v], batched=True)
+    return base.ModuleBuild("radial", passes, [lookup_v], batched=True,
+                            banded=True)
 

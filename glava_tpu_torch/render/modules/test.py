@@ -7,7 +7,7 @@ chaining); pass 3 is the premultiply include. With ``settesteval
 55000055`` (test_rc.glsl) ``--run-tests`` asserts every output pixel
 equals the premultiplied constant within +-0.5/255 (render.c:2419-2453).
 The module is batched (``ModuleBuild.batched``): textures (S, sz) in,
-(S, 1, 1) planes out.
+(S, 1, 1) planes out, the same for any band of rows.
 """
 
 from __future__ import annotations
@@ -34,4 +34,4 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
     passes = [pass1, pass2]
     if ctx.cfg.premultiply_alpha:
         passes.append(base.premultiply_pass)  # test/3.frag
-    return base.ModuleBuild("test", passes, batched=True)
+    return base.ModuleBuild("test", passes, batched=True, banded=True)

@@ -9,7 +9,9 @@ pass. The per-column texel indices are static (numpy); per frame the
 pass is three (S, W) gathers and (S, H, W) masks. The module is batched
 (``ModuleBuild.batched``). BASE_COLOR and OUTLINE are evaluated once at
 build time, as in the JAX module (wave.py:37-38), so they keep the
-load's ``@fg``/``@bg`` values whatever a step's pipe values.
+load's ``@fg``/``@bg`` values whatever a step's pipe values. Built for a
+band of rows, pass 1 covers the band widened by the one row on each
+side that pass 2's neighbourhood reads.
 
 Knobs (shaders/glava/wave.glsl): MIN_THICKNESS, MAX_THICKNESS,
 BASE_COLOR, AMPLIFY, OUTLINE.
@@ -44,8 +46,12 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
     base_color = base.color_tensors(ctx.color_fn("BASE_COLOR")(), dev)
     outline = base.color_tensors(ctx.color_fn("OUTLINE")(), dev)
 
-    # pixel_center_integer: integer fragment coords (wave/1.frag:2)
-    x, y = base.frag_coords(w, h, pixel_center_integer=True)
+    # pixel_center_integer: integer fragment coords (wave/1.frag:2); pass
+    # 1 over the band and the row on each side pass 2 reads
+    r0, r1 = ctx.band
+    a0, a1 = ctx.widened(1)
+    halo = (r0 - a0, a1 - r1)
+    x, y = base.frag_coords(w, h, pixel_center_integer=True, rows=(a0, a1))
     taps = [torch.as_tensor(_texture_nearest_repeat(c / w, ctx.sz), device=dev)
             for c in (x, x - 1, x + 1)]
     y_col = torch.as_tensor(y.astype(np.float32), device=dev)[:, None]
@@ -72,18 +78,32 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
                      for c in range(4))
 
     def pass2(inputs: base.PassInputs) -> base.Planes:
-        return neighbor_outline_pass(inputs.prev, outline, edge_columns=True)
+        return neighbor_outline_pass(inputs.prev, outline, edge_columns=True,
+                                     halo=halo)
 
-    return base.ModuleBuild("wave", [pass1, pass2], batched=True)
+    return base.ModuleBuild("wave", [pass1, pass2], batched=True, banded=True)
 
 
-def neighbor_sum(alpha: torch.Tensor) -> torch.Tensor:
+def crop_rows(plane, halo: tuple[int, int]):
+    """``plane`` without the ``halo`` = (below, above) rows beyond its
+    band (a plane broadcast over rows stays as it is)."""
+    if not any(halo) or np.ndim(plane) < 2:
+        return plane
+    return base.cut_rows(plane, halo[0], plane.shape[-2] - halo[1])
+
+
+def neighbor_sum(alpha: torch.Tensor,
+                 halo: tuple[int, int] = (0, 0)) -> torch.Tensor:
     """The 8-fetch neighbourhood average of the outline passes
     (wave/2.frag:14-32, graph/2.frag, circle/2.frag): the reference
     fetches (+1, 0) and (-1, 0) twice each, and an out-of-bounds
-    texelFetch reads as transparent black (zero padding)."""
-    h, w = alpha.shape[-2:]
-    p = torch.nn.functional.pad(alpha, (1, 1, 1, 1))
+    texelFetch reads as transparent black (zero padding). ``alpha``
+    may hold ``halo`` = (below, above) rows beyond the output's band,
+    at most one each: the band's neighbours inside the frame; the rows
+    it lacks lie outside the frame and read as zero."""
+    lo, hi = halo
+    h, w = alpha.shape[-2] - lo - hi, alpha.shape[-1]
+    p = torch.nn.functional.pad(alpha, (1, 1, 1 - lo, 1 - hi))
 
     def sh(dy, dx):  # neighbour at (x+dx, y+dy)
         return p[..., 1 + dy: 1 + dy + h, 1 + dx: 1 + dx + w]
@@ -95,14 +115,18 @@ def neighbor_sum(alpha: torch.Tensor) -> torch.Tensor:
 
 
 def neighbor_outline_pass(frame: base.Planes, outline: list[torch.Tensor],
-                          edge_columns: bool) -> base.Planes:
+                          edge_columns: bool,
+                          halo: tuple[int, int] = (0, 0)) -> base.Planes:
     """wave/2.frag: outline colour where the neighbourhood alpha average
     is positive and the pixel itself is transparent (or, with
     ``edge_columns``, in the first or last column). Only the alpha plane
-    feeds the average; the rgb planes see one select each."""
+    feeds the average; the rgb planes see one select each. ``frame``
+    may hold ``halo`` rows beyond the band (:func:`neighbor_sum`); the
+    result covers the band."""
+    cond = neighbor_sum(frame[3], halo) > 0
+    frame = tuple(crop_rows(p, halo) for p in frame)
     alpha = frame[3]
     w = alpha.shape[-1]
-    cond = neighbor_sum(alpha) > 0
     inner = alpha <= 0
     if edge_columns:
         col = torch.arange(w, device=alpha.device)

@@ -8,6 +8,14 @@ Python ``if`` here and there is no compile step. On the CPU path with
 ``setinterpolate`` on, the feed blends the two newest keyframes by
 ``interp_mod`` and the update runs every frame (render.c:1792-1809,
 glava_tpu/renderer.py:154-162).
+
+With ``rows`` = (r0, r1) the renderer draws only that band of the
+frame's rows (a device's band of a mesh's rows axis,
+``parallel.mesh.row_bands``): frames are (H_band, W, 4). A module that
+takes the band (``ModuleBuild.banded``: every native module) builds for
+it; any other (a GLSL shader module, whose interpreter fetches ``prev``
+at any row) renders every pass over the whole frame and keeps its band,
+counted in :data:`whole_frame_bands`.
 """
 
 from __future__ import annotations
@@ -23,10 +31,15 @@ from glava_tpu_torch.device import resolve
 from glava_tpu_torch.ops import transforms
 from glava_tpu_torch.pipeline import AudioPipeline, FusedChainState, UniformSpec
 from glava_tpu_torch.render.base import (
-    ModuleContext, PassInputs, _host_f32, interleave, interleave_u8, mul,
+    ModuleContext, PassInputs, _host_f32, cut_rows, interleave,
+    interleave_u8, mul,
 )
 from glava_tpu_torch.render.modules import build_module, module_uniforms
 from glava_tpu_torch.utils import profiling
+
+# band renders of a module that drew the whole frame to keep its band
+# (a shader module on a mesh's rows axis)
+whole_frame_bands = 0
 
 
 class RenderState(NamedTuple):
@@ -40,12 +53,21 @@ class Renderer:
     loaded: LoadedConfig
     screen: tuple[int, int] | None = None
     device: str | torch.device = "cuda"
+    rows: tuple[int, int] | None = None   # a band [r0, r1) of the rows
 
     def __post_init__(self):
         self.device = resolve(self.device)
         cfg = self.cfg = self.loaded.cfg
         if self.screen is None:
             self.screen = (cfg.geometry[2], cfg.geometry[3])
+        if self.rows is not None:
+            r0, r1 = self.rows = tuple(int(r) for r in self.rows)
+            if not 0 <= r0 < r1 <= self.screen[1]:
+                raise ValueError(f"rows {self.rows} are not a band of a "
+                                 f"frame of height {self.screen[1]}")
+        # the height of the frames this renderer draws
+        self.height = (self.screen[1] if self.rows is None
+                       else self.rows[1] - self.rows[0])
         # user shader modules registered by this load shadow built-ins
         overrides = self.loaded.module_overrides
         self.uniforms = [UniformSpec(*u) for u in
@@ -60,8 +82,11 @@ class Renderer:
             sz=self.pipeline.sz,
             device=self.device,
             channels=1 if cfg.mirror_input else 2,
+            rows=self.rows,
         )
         self.module = build_module(self.loaded.module, mctx, overrides)
+        # the band a module drew over the whole frame is cut from it
+        self._cut = self.rows is not None and not self.module.banded
         # xroot/none opacity composites over the `setbg` clear color, or
         # over a `setbgimg` wallpaper sampled at the window geometry (the
         # reference's root-pixmap copy, xwin.c:345-472): (H, W) planes on
@@ -74,7 +99,14 @@ class Renderer:
             self.bg_path = cfg.background_image
             self._bg_planes = tuple(
                 torch.as_tensor(p, device=self.device)
-                for p in self.load_bg_planes())
+                for p in self.band_of(self.load_bg_planes()))
+
+    def band_of(self, planes) -> tuple:
+        """Whole-frame channel planes cut to this renderer's band (a
+        plane broadcast over rows stays as it is)."""
+        if self.rows is None:
+            return tuple(planes)
+        return tuple(cut_rows(p, *self.rows) for p in planes)
 
     def load_bg_planes(self) -> tuple[np.ndarray, ...]:
         """Read the ``setbgimg`` wallpaper and build the 4 (H, W)
@@ -129,7 +161,7 @@ class Renderer:
         if pipe and "__bg__" in pipe:
             pipe = dict(pipe)
             bg = pipe.pop("__bg__")
-            bg = tuple(bg[i] for i in range(4))
+            bg = self.band_of(bg[i] for i in range(4))
         if pipe and not self.module.batched:
             load_pipe_values(self.module_env, pipe)
         # Keyframe push on update (render.c:2348-2353): start <- end,
@@ -182,6 +214,10 @@ class Renderer:
         step loaded into its env)."""
         planes = self.module.render(
             PassInputs(prev=None, textures=textures, time=time, pipe=pipe))
+        if self._cut:
+            global whole_frame_bands
+            whole_frame_bands += 1
+            planes = self.band_of(planes)
         if not self.cfg.premultiply_alpha:
             # xroot/none opacity: the final draw blends src-alpha over
             # the background (render.c:1468-1469, 1700, 2028), per
@@ -196,14 +232,14 @@ class Renderer:
     def step(self, *args, **kwargs) -> tuple[RenderState, torch.Tensor]:
         """:meth:`step_planes` + the (H, W, 4) float32 RGBA frame."""
         st, planes = self.step_planes(*args, **kwargs)
-        return st, interleave(planes, self.screen[1], self.screen[0], self.device)
+        return st, interleave(planes, self.height, self.screen[0], self.device)
 
     def step_u8(self, *args, **kwargs) -> tuple[RenderState, torch.Tensor]:
         """:meth:`step_planes` + the (H, W, 4) uint8 RGBA frame on the
         device, quantized per channel before interleaving (the JAX
         ``jit_step(quantize=True)``)."""
         st, planes = self.step_planes(*args, **kwargs)
-        return st, interleave_u8(planes, self.screen[1], self.screen[0],
+        return st, interleave_u8(planes, self.height, self.screen[0],
                                  self.device)
 
     def step_yuv420(self, *args, **kwargs) -> tuple[RenderState, torch.Tensor]:
@@ -212,7 +248,7 @@ class Renderer:
         the (H, W) Y plane then the (H/2, W/2) U and V planes, top-down,
         1.5 B/px on the device-to-host wire instead of RGBA8's 4. Needs
         even dimensions."""
-        w, h = self.screen
+        w, h = self.screen[0], self.height
         if h % 2 or w % 2:
             raise ValueError("yuv420 packing needs even dimensions")
         st, planes = self.step_planes(*args, **kwargs)

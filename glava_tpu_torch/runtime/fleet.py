@@ -18,10 +18,11 @@ audio clocks behave as separate engines would. Pipe values
 change live with :meth:`FleetEngine.set_pipe`, with no rebuild.
 
 With ``mesh`` (``parallel.mesh.make_mesh``) the fleet is sharded over
-the mesh's stream shards (``parallel.batch.ShardedRenderer``): a frame
-makes one host-to-device copy a shard of its block of snapshots, one
-step a shard, launched back to back, and one pinned (S, H, W, 4) host
-buffer that every shard's frames are copied into at their rows.
+the mesh's devices (``parallel.batch.ShardedRenderer``), each taking a
+block of streams and a band of rows: a frame makes one host-to-device
+copy a device of its block's snapshots, one step a device, launched
+back to back, and one pinned (S, H, W, 4) host buffer that every
+device's frames are copied into at their streams and rows.
 """
 
 from __future__ import annotations
@@ -96,8 +97,8 @@ class FleetDynamics:
 
 class FleetEngine:
     """Multi-stream serving engine on one device (``"cuda"`` unless the
-    caller asks for ``"cpu"``), or sharded over the stream shards of
-    ``mesh`` (then ``device`` is not read)."""
+    caller asks for ``"cpu"``), or sharded over the devices of ``mesh``
+    (then ``device`` is not read)."""
 
     def __init__(self, loaded: LoadedConfig, streams: list[StreamSpec],
                  screen: tuple[int, int] | None = None, device="cuda",
@@ -173,9 +174,9 @@ class FleetEngine:
     def step(self, snaps: np.ndarray, mods: np.ndarray, tnow: float,
              interp: np.ndarray, gravity_g: np.ndarray):
         """One fleet frame from host snapshots (S, 2, bufsize): the
-        snapshots go to the device in one copy (one a shard); returns the
-        (S, H, W, 4) uint8 frames on the device (on a mesh, a list of
-        each shard's (S_i, H, W, 4) frames on its device)."""
+        snapshots go to the device in one copy (one a mesh device);
+        returns the (S, H, W, 4) uint8 frames on the device (on a mesh, a
+        list of each device's (S_i, H_band, W, 4) frames on it)."""
         S = len(self.streams)
         audio = snaps if self.mesh is not None else \
             torch.from_numpy(snaps).to(self.device)
@@ -236,16 +237,33 @@ class FleetEngine:
         ONE fresh pinned tensor (``non_blocking``, then one synchronize a
         device), so the copy runs at the link's rate instead of a
         pageable copy's; no frame stays in flight, as in the JAX fleet.
-        ``frames`` is one tensor or, on a mesh, a list of each shard's
-        frames, copied into its rows. A failed pinned allocation or copy
-        raises."""
+        ``frames`` is one tensor or, on a mesh, a list of each device's
+        (S_i, H_band, W, 4) frames, copied into their streams and rows.
+        Every copy lands in a contiguous block of the buffer: one a
+        device, or, for a band of a rows mesh, one a stream (a strided
+        pinned destination would be copied through a pageable
+        temporary). A failed pinned allocation or copy raises."""
         parts = frames if isinstance(frames, (list, tuple)) else [frames]
-        rows = getattr(self.br, "slices", [slice(0, len(self.streams))])
+        S = len(self.streams)
+        blocks = getattr(self.br, "blocks", [(slice(0, S), None)])
+        if len(parts) != len(blocks):
+            raise ValueError(f"{len(parts)} frame parts for {len(blocks)} "
+                             "mesh devices")
         cuda = [f.device for f in parts if f.device.type == "cuda"]
-        shape = (len(self.streams),) + tuple(parts[0].shape[1:])
-        host = torch.empty(shape, dtype=parts[0].dtype, pin_memory=bool(cuda))
-        for f, sl in zip(parts, rows):
-            host[sl].copy_(f, non_blocking=f.device.type == "cuda")
+        w, h = self.br.screen
+        host = torch.empty((S, h, w, 4), dtype=parts[0].dtype,
+                           pin_memory=bool(cuda))
+        for f, (sl, band) in zip(parts, blocks):
+            r0, r1 = band or (0, h)
+            if tuple(f.shape) != (sl.stop - sl.start, r1 - r0, w, 4):
+                raise ValueError(f"frames {tuple(f.shape)} do not fill "
+                                 f"streams {sl} and rows [{r0}, {r1})")
+            nb = f.device.type == "cuda"
+            if r1 - r0 == h:
+                host[sl].copy_(f, non_blocking=nb)
+                continue
+            for k, s in enumerate(range(sl.start, sl.stop)):
+                host[s, r0:r1].copy_(f[k], non_blocking=nb)
         for dev in dict.fromkeys(cuda):
             torch.cuda.current_stream(dev).synchronize()
         return host.numpy()

@@ -75,13 +75,20 @@ def test_user_knob_file_loads(tmp_path):
 
 @pytest.mark.parametrize("kind", ["python", "shader"])
 def test_user_modules_are_not_yet_ported(tmp_path, kind):
-    """User Python modules (JAX programs) still raise; a user shader
-    directory now registers as a module of this load, as in the JAX
-    loader."""
+    """User modules register into the load's own override map, as in
+    the JAX loader: a user Python module that registers nothing leaves
+    it empty in both loaders, one that imports jax is refused by name
+    before it runs; a user shader directory registers as a module of
+    this load."""
     if kind == "python":
         (tmp_path / "modules").mkdir()
         (tmp_path / "modules" / "mine.py").write_text("")
-        with pytest.raises(NotImplementedError, match="JAX programs"):
+        got = loader.load(user_dir=tmp_path)
+        want = jloader.load(user_dir=tmp_path)
+        assert got.module_overrides == {} and want.module_overrides == {}
+        (tmp_path / "modules" / "mine.py").write_text(
+            "import jax.numpy as jnp\nraise SystemExit('ran')\n")
+        with pytest.raises(ValueError, match=r"mine\.py' imports jax\.numpy"):
             loader.load(user_dir=tmp_path)
         return
     (tmp_path / "mine").mkdir()

@@ -267,12 +267,16 @@ def test_variants_meet_live_jax_frame(variant, tmp_path):
 
 
 def test_unported_module_raises(tmp_path):
-    """A user Python module (``<user_dir>/modules/*.py``, a JAX
-    program) is refused; user GLSL shader modules load
-    (tests/test_torch_interp.py)."""
+    """A user Python module written for the JAX package
+    (``<user_dir>/modules/*.py`` importing ``glava_tpu``) is refused by
+    name before it runs; one written for the port loads
+    (tests/test_torch_user_modules.py), and so do user GLSL shader
+    modules (tests/test_torch_interp.py)."""
     (tmp_path / "modules").mkdir()
-    (tmp_path / "modules" / "mine.py").write_text("MODULE = None\n")
-    with pytest.raises(NotImplementedError, match="JAX programs"):
+    (tmp_path / "modules" / "mine.py").write_text(
+        "from glava_tpu.render.modules import register\nMODULE = None\n")
+    with pytest.raises(ValueError, match=r"mine\.py' imports "
+                       r"glava_tpu\.render\.modules"):
         loader.load(cli_requests=_requests((48, 32), False),
                     force_module="mine", user_dir=tmp_path)
 
