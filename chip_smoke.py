@@ -156,6 +156,19 @@ code is non-zero and no result line is printed):
                ``fifo`` backend fed through an ``os.mkfifo``, and one on
                the ``pulseaudio`` backend's pa_simple path over a
                stand-in libpulse.
+               The port's own entry points (``phase_entry_points``), the
+               counts set to 0 just before and read just after:
+               ``entry()``'s bars 512x256 step on cuda against the same
+               fn on cpu under the golden rule; ``dryrun_multichip(4)``
+               on ``cuda:0`` four times (tiny parity, 1080p bands on
+               their devices, the scaling table, the hosts mesh, the
+               FleetEngine on the mesh: five OK lines); every section
+               of ``glava_tpu_torch.bench`` once at its real shapes with
+               short counts (the interpreted section ``null`` without
+               the reference's shaders, then run on rings at 1080p),
+               every key of the line there and every number finite and
+               positive; the fused update, the table lookup and the
+               bars raster each launched.
 5. times     — device times of each kernel and its plain version at
                the main path's shapes, and of one PyTorch call computing
                the same function where there is one: fused_update
@@ -206,8 +219,9 @@ The second-to-last line is the kernels JSON, the last the device JSON.
 
     python3 chip_smoke.py --sharded [PARENT]
 
-runs only the build, the sharded fleets, the per-card kernels and the
-sharded fleets' times (bars S 64, circle S 64 at 1920x1080; on a
+runs only the build, the sharded fleets, the per-card kernels,
+``dryrun_multichip(4)`` over the first four cards (repeated where fewer)
+and the sharded fleets' times (bars S 64, circle S 64 at 1920x1080; on a
 machine of several cards, what it adds);
 with PARENT (another tree unpacked there) first that tree's per-device
 kernels on every card, in a process of its own package.
@@ -250,6 +264,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from glava_tpu_torch.utils.timing import (
+    bound_ms, cuda_ms, device_ms, event_ms, fused_bound, host_ms, kernel_ms,
+    synchronize, update_bytes,
+)
+
 TOL = 2e-5           # spectra (the JAX suite's fused-vs-unfused tolerance)
 ROOT = Path(__file__).resolve().parent
 KERNELS = ("fused_update", "table_lookup", "rowwise_lookup", "latch_scan",
@@ -262,8 +281,6 @@ PATH = ("fused_update", "fused_update split", "table_lookup",
         "bars_raster", "smooth_scan")
 COUNTED = PATH + ("rowwise_lookup C=1",)
 MODULES = ("bars", "radial", "circle", "wave", "graph", "test")
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
-FP64_FLOPS = 34e12          # H100 SXM float64 outside the tensor cores (data sheet)
 
 # -- user GLSL shader modules (<user_dir>/<name>/{1,2}.frag) -------------
 
@@ -462,22 +479,6 @@ def golden_rule(got: np.ndarray, want: np.ndarray) -> float:
     if got.shape != want.shape:
         raise AssertionError(f"frame shapes differ: {got.shape} vs {want.shape}")
     return float((np.abs(got.astype(np.int16) - want.astype(np.int16)) > 2).mean())
-
-
-def cuda_ms(fn, iters: int) -> float:
-    """Mean milliseconds per call of ``fn`` on the card (CUDA events,
-    after a warm-up)."""
-    for _ in range(3):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def phase_device() -> str:
@@ -1194,10 +1195,7 @@ def _engine_run(frames: int, screen=None, module=None, user_dir=None,
                                requests=tuple(requests), device="cuda"),
                  sink=NullSink())
     _zero_counts()
-    t0 = time.perf_counter()
-    eng.run(max_frames=frames)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    dt = host_ms(lambda i: eng.run(max_frames=frames), 1, warmup=0) / 1e3
     counts = _counts()
     routes = dict(lookup.rowwise_routes)
     name = eng.loaded.module
@@ -1303,10 +1301,7 @@ def _fleet_run(n: int, frames: int, screen=None, kind: str = "bars",
     eng = FleetEngine(loads[0], _fleet_streams(n, loads), screen=screen,
                       device="cuda")
     _zero_counts()
-    t0 = time.perf_counter()
-    eng.run(max_frames=frames)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    dt = host_ms(lambda i: eng.run(max_frames=frames), 1, warmup=0) / 1e3
     counts = _counts()
     rows = eng.state.chains.count.shape[0]
     want = _fleet_want(kind, n, frames)
@@ -1538,11 +1533,6 @@ def _fleet_engine(kind: str, n: int, user_dir, devices=None, screen=None,
                        device="cuda", mesh=mesh)
 
 
-def _synchronize_all() -> None:
-    for i in range(torch.cuda.device_count()):
-        torch.cuda.synchronize(i)
-
-
 def _sharded_frames(kind: str, n: int, user_dir, devices=None, mesh_kw=None,
                     frames: int = 4):
     """``frames`` fleet frames through ``FleetEngine.step`` and ``fetch``
@@ -1554,14 +1544,14 @@ def _sharded_frames(kind: str, n: int, user_dir, devices=None, mesh_kw=None,
     g = np.full(n, cfg.gravity_step / cfg.nominal_ups, np.float32)
     snaps = [(rng.standard_normal((n, 2, cfg.bufsize)) * 0.3).astype(np.float32)
              for _ in range(frames)]
-    _synchronize_all()
+    synchronize()
     _zero_counts()
     out = []
     for k in range(frames):
         mods = np.array([k % (1 + s % 3) == 0 for s in range(n)])
         out.append(eng.fetch(eng.step(snaps[k], mods, 0.25,
                                       np.ones(n, np.float32), g)))
-    _synchronize_all()
+    synchronize()
     return np.stack(out), _counts(), eng
 
 
@@ -1876,6 +1866,99 @@ def phase_mel() -> None:
     print(f"[4 main path] log_mel {MEL_SECONDS} s of {MEL_RATE} Hz audio, "
           f"{frames.shape[0]} frames x {frames.shape[1]} -> {gpu.shape}: cuda vs "
           f"cpu {err:.2e} of the peak (tolerance {MEL_TOL})")
+
+
+# -- the port's entry points: entry(), dryrun_multichip and the bench ----
+
+DRYRUN_OK = ("dryrun_multichip OK", "dryrun_multichip realistic OK",
+             "dryrun_multichip scaling OK", "dryrun_multichip hosts OK",
+             "dryrun_multichip engine_4dev OK")
+# what the entry-points phase launches of the path's kernels: the fused
+# update (every section but log-mel), the table lookup (radial and
+# circle, alone and in the fleets) and the bars raster
+ENTRY_KERNELS = ("fused_update", "table_lookup", "bars_raster")
+
+
+def _quantized(frame: torch.Tensor) -> np.ndarray:
+    return np.clip(np.rint(frame.cpu().numpy() * 255.0), 0, 255).astype(np.uint8)
+
+
+def _dryrun(devices, tag: str) -> None:
+    """``dryrun_multichip(4, devices)``, its lines printed under ``tag``;
+    its five OK lines must come, in order."""
+    import io
+
+    from glava_tpu_torch.entry_points import dryrun_multichip
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        dryrun_multichip(4, devices)
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        print(f"{tag} {line}")
+    ok = tuple(ln.split(":")[0] for ln in lines if " OK:" in ln)
+    if ok != DRYRUN_OK:
+        raise AssertionError(f"dryrun_multichip(4) printed {ok}, expected "
+                             f"{DRYRUN_OK}")
+
+
+def _numbers_ok(line, path: str = "") -> None:
+    """Every number of a bench line finite and positive, no ``None``."""
+    for k, v in line.items():
+        if isinstance(v, dict):
+            _numbers_ok(v, f"{path}{k}.")
+        elif not isinstance(v, str) and (
+                v is None or not np.isfinite(v) or v <= 0):
+            raise AssertionError(f"bench {path}{k} = {v}")
+
+
+def phase_entry_points(card: str) -> None:
+    """The port's own entry points on the card, the counts set to 0
+    just before and read just after: ``entry()``'s bars frame against
+    the same fn on the cpu under the golden rule; ``dryrun_multichip(4)``
+    on ``cuda:0`` four times; ``glava_tpu_torch.bench.run()``, the line
+    the bench prints, every key there and every number finite and
+    positive (the interpreted section ``null`` without the reference's
+    shaders in the repository, and the section run on rings at 1080p
+    instead). Then, outside the counted run, the spread of the windows
+    section's reading over its window length and warm-up."""
+    from glava_tpu_torch import bench
+    from glava_tpu_torch.entry_points import entry
+
+    _zero_counts()
+    fn, args = entry()
+    cfn, cargs = entry(device="cpu")
+    got, want = _quantized(fn(*args)[1]), _quantized(cfn(*cargs)[1])
+    off = golden_rule(got, want)
+    if off >= 0.002 or not (got[..., 3] > 0).any():
+        raise AssertionError(f"entry(): cuda vs cpu {off:.4%} of pixels off")
+    print(f"[4 entry] entry(): bars 512x256 step on cuda vs the same fn on "
+          f"cpu: {off:.4%} of pixels more than 2 LSB apart")
+    _dryrun(["cuda:0"] * 4, "[4 entry]")
+
+    line = bench.run()
+    extra = dict(line["extra"])
+    if set(extra) != set(bench.EXTRA_KEYS):
+        raise AssertionError(f"bench keys {tuple(extra)}, expected "
+                             f"{bench.EXTRA_KEYS}")
+    verbatim = extra.pop("interpreted_verbatim_1080p_fps")
+    if (verbatim is None) == bench.REFERENCE_SHADERS.is_dir():
+        raise AssertionError(f"interpreted section {verbatim} with "
+                             f"{bench.REFERENCE_SHADERS} on disk: "
+                             f"{bench.REFERENCE_SHADERS.is_dir()}")
+    if verbatim is not None:
+        extra["interpreted verbatim"] = verbatim
+    extra["interpreted rings"] = bench.interpreted(RINGS, frames=2, builds=1)
+    _numbers_ok({k: line[k] for k in ("value", "vs_baseline", "power_limit_w")}
+                | extra)
+    counts = _counts()
+    if any(counts[k] == 0 for k in ENTRY_KERNELS):
+        raise AssertionError(f"entry points launched {counts}")
+    print(f"[4 entry] bench.run() ({card}): {json.dumps(line)}")
+    print(f"[4 entry] launches of the entry points' run: {counts}")
+    spread = bench.windows_spread()
+    print(f"[4 entry] windows section, windows/s over 5 readings a window "
+          f"(host clock; {card}): {json.dumps(spread)}")
 
 
 # -- the host runtime: the frame's way to the host, pipe values, the
@@ -2235,48 +2318,6 @@ def phase_host(user_dir: str, tmp: Path) -> None:
           f"updates, launches {counts}")
 
 
-def event_ms(fn, iters: int) -> float:
-    """Mean device milliseconds per call of ``fn(i)``, i = 0 .. iters-1,
-    from CUDA events: the calls are enqueued behind a spin kernel
-    (``torch.cuda._sleep``) that outlasts their enqueueing, so the card
-    runs them back to back and the events time the device alone, not
-    the host's launches. ``fn`` must not synchronise; the check that the
-    spin was still running when the last call was enqueued makes sure."""
-    fn(0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(iters):
-        fn(i)
-    enqueue = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    cycles = int(4 * enqueue * 2e9) + 10_000_000     # ~4x at up to 2 GHz
-    for _ in range(4):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(cycles)
-        start.record()
-        for i in range(iters):
-            fn(i)
-        end.record()
-        covered = not start.query()
-        torch.cuda.synchronize()
-        if covered:
-            return start.elapsed_time(end) / iters
-        cycles *= 4
-    raise AssertionError("event_ms: the spin kernel never outlasted the "
-                         "enqueueing of the timed calls")
-
-
-def _update_bytes(n: int, B: int, F: int) -> int:
-    """Bytes the fused update must move. Read once: pcm, window,
-    weights, slots and 3 row parameters, gravity and the F - 1 history
-    slots a row does not overwrite (nothing reads the old value of its
-    own slot). Written once: gravity, that slot and the average."""
-    plane = B * n * 4            # one (B, 2, m) float32 plane set
-    return (B * n * 4 + n * 4 + F * 4 + 4 * B * 4 + plane + (F - 1) * plane
-            + 3 * plane)
-
-
 def _update_sets(n: int, B: int, F: int = 6) -> list:
     """Input sets of fused_update, more of them than the 50 MB L2 holds
     together, so a rotation through them gives each call fresh inputs."""
@@ -2294,7 +2335,7 @@ def _update_sets(n: int, B: int, F: int = 6) -> list:
              t(np.arange(B) % F, torch.int32),
              t(np.full(B, 10.2)), t(np.full(B, 0.3)), t(np.full(B, 0.05)),
              window, w_age)
-            for _ in range(max(2, -(-64 * 2 ** 20 // _update_bytes(n, B, F))))]
+            for _ in range(max(2, -(-64 * 2 ** 20 // update_bytes(n, B, F))))]
 
 
 def _update_times(n: int, B: int):
@@ -2311,7 +2352,7 @@ def _update_times(n: int, B: int):
     profiled = device_ms(lambda: fused.fused_update(*sets[0]))
     each = (kernel_ms(lambda: fused.fused_update(*sets[0]), SPLIT_KERNELS, 20)
             if fused.fft_plan(n).split else {})
-    return kernel, plain, profiled, each, _update_bytes(n, B, 6), K
+    return kernel, plain, profiled, each, update_bytes(n, B, 6), K
 
 
 def host_us(fn, iters: int = 1000, repeats: int = 5) -> float:
@@ -2447,7 +2488,7 @@ def fused_ab(dirs: list[str]) -> int:
                   f"(tolerance {tol:.2e}), round {r // len(variants)} "
                   f"({card})")
         print(f"[ab] fused n{n} B{B}: bound "
-              f"{bound_ms(_update_bytes(n, B, 6)) * 1e3:.3f} us (bytes), "
+              f"{bound_ms(update_bytes(n, B, 6)) * 1e3:.3f} us (bytes), "
               f"{K} input sets in turn")
     _host_ab(variants, card)
     return 0
@@ -2625,10 +2666,7 @@ def _engine_ms(module: str, screen, frames: int) -> float:
                  sink=NullSink())
     eng.run(max_frames=10)
     eng.frames_rendered = 0
-    t0 = time.perf_counter()
-    eng.run(max_frames=frames)
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / frames
+    return host_ms(lambda i: eng.run(max_frames=frames), 1, warmup=0) / frames
 
 
 def frames_ab(parent: Path, card: str, pairs: int = 8) -> None:
@@ -2664,79 +2702,10 @@ def frames_ab(parent: Path, card: str, pairs: int = 8) -> None:
               f"({card})")
 
 
-def device_ms(fn, iters: int = 100, tries: int = 3) -> float:
-    """Mean device milliseconds per call of ``fn``: the kernels' own
-    time from torch.profiler, free of the host's launch overhead that
-    an event-timed loop of small launches measures instead. A profile
-    that recorded no device time (CUPTI drops one now and then) is taken
-    again; after ``tries`` such profiles the time comes from CUDA events
-    around the calls (``cuda_ms``), and the line says so."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        busy = sum(e.self_device_time_total for e in prof.key_averages())
-        if busy > 0:
-            return busy / 1e3 / iters
-    ms = cuda_ms(fn, iters)
-    print(f"[5 times] torch.profiler recorded no device time in {tries} "
-          f"profiles: {ms * 1e3:.2f} us a call by CUDA events instead")
-    return ms
-
-
-def kernel_ms(fn, names, iters: int = 100, tries: int = 3) -> dict:
-    """Device milliseconds a call of ``fn`` spent in each kernel whose
-    name holds one of ``names``: torch.profiler's ``key_averages`` by
-    kernel name, on warm inputs. Fails if a profile never records one of
-    them (no fallback: a time per kernel has no other source)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        out = {name: sum(e.self_device_time_total for e in events
-                         if name in e.key) / 1e3 / iters for name in names}
-        if all(v > 0 for v in out.values()):
-            return out
-    raise AssertionError(f"kernel_ms: no device time recorded for {names} in "
-                         f"{tries} profiles")
-
-
 # (n, B) of the fused update's timed shapes: the one-cluster route at
 # the shipped 4096 and its larger sizes, the split route above 65536
 FUSED_TIMED = tuple((n, B) for n in (4096, 16384, 32768, 65536, 131072, 262144)
                     for B in (2, 128)) + ((524288, 2),)
-
-
-def fused_bound(n: int, B: int, nbytes: int) -> tuple[float, str, float]:
-    """The fused update's bound in ms, what sets it, and the operations'
-    time: the larger of its bytes over the memory rate and its float64
-    FFT (5 m log2 m flops a row, m = n/2) over the card's float64 rate."""
-    m = n // 2
-    ops = B * 5 * m * np.log2(m) / FP64_FLOPS * 1e3
-    by_bytes = bound_ms(nbytes)
-    return (max(by_bytes, ops), "bytes" if by_bytes >= ops else "operations",
-            ops)
-
-
-def bound_ms(nbytes: float) -> float:
-    """Least time to move ``nbytes`` through device memory. Every kernel
-    here does a handful of operations a byte (compares, selects, one
-    float64 FFT of ~5 m log2 m flops a row), orders of magnitude under
-    the card's peak rates, so the bytes bound each one."""
-    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def _lookup_times():
@@ -2890,11 +2859,7 @@ def _profile(frame, label: str, card: str, frames: int = 50,
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(frames):
-            frame()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        wall_us = host_ms(lambda i: frame(), frames, warmup=0) * frames * 1e3
     # device rows only: an op's row (device type CPU) also carries the
     # device time of the kernels it launched, so summing every row
     # counts most device time twice
@@ -2991,13 +2956,9 @@ def _mel_times(card: str) -> None:
     frames = mel_frames()
     dev = torch.as_tensor(frames, device="cuda")
     ms = cuda_ms(lambda: mel.log_mel(dev), 20)
-    runs = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        mel.log_mel(frames, device="cuda")
-        torch.cuda.synchronize()
-        runs.append((time.perf_counter() - t0) * 1e3)
-    host = float(np.median(runs))
+    host = float(np.median([
+        host_ms(lambda i: mel.log_mel(frames, device="cuda"), 1, warmup=0)
+        for _ in range(5)]))
     n = frames.shape[0]
     print(f"[5 times] log_mel {n} frames x 512 -> 80 mels: {ms:.3f} ms on the "
           f"card = {n / ms * 1e3:.0f} frames/s (CUDA events, frames on the "
@@ -3090,12 +3051,12 @@ def _sharded_fleet_times(card: str, user_dir: str, kind: str = "bars",
         for label, eng in (engines if rnd == 0 else engines[::-1]):
             for k in range(3):
                 eng.fetch(eng.step(pool[k % 4], mods, 0.0, interp, g))
-            _synchronize_all()
+            synchronize()
             step = copy = 0.0
             for k in range(frames):
                 t0 = time.perf_counter()
                 out = eng.step(pool[k % 4], mods, 0.0, interp, g)
-                _synchronize_all()
+                synchronize()
                 t1 = time.perf_counter()
                 eng.fetch(out)
                 copy += time.perf_counter() - t1
@@ -3288,10 +3249,8 @@ def host_times(card: str) -> None:
     for _ in range(ENGINE_ROUNDS):
         for key, eng in engines.items():
             eng.frames_rendered = 0
-            t0 = time.perf_counter()
-            eng.run(max_frames=ENGINE_FRAMES)
-            torch.cuda.synchronize()
-            ms[key].append((time.perf_counter() - t0) * 1e3 / ENGINE_FRAMES)
+            ms[key].append(host_ms(lambda i: eng.run(max_frames=ENGINE_FRAMES),
+                                   1, warmup=0) / ENGINE_FRAMES)
     for (module, wire, depth), t in ms.items():
         med = float(np.median(t))
         print(f"[5 times] Engine {module} 1920x1080 {wire} inflight {depth}: "
@@ -3329,10 +3288,7 @@ def _fleet_run_ms(native: bool, frames: int = 20) -> float:
         raise AssertionError(f"fleet ring: {type(eng.audio[0]).__name__}")
     eng.run(max_frames=3)
     eng.frames_rendered = 0
-    t0 = time.perf_counter()
-    eng.run(max_frames=frames)
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / frames
+    return host_ms(lambda i: eng.run(max_frames=frames), 1, warmup=0) / frames
 
 
 ENGINE_ROUNDS, ENGINE_FRAMES = 5, 60
@@ -3365,6 +3321,7 @@ def main() -> int:
         launches = phase_main_path(user_dir)
         phase_mel()
         phase_host(user_dir, Path(td))
+        phase_entry_points(card)
         times = phase_times(card, user_dir)
         host_times(card)
     print(json.dumps({"kernels": [{
@@ -3436,8 +3393,9 @@ def sharded(parent: str | None = None) -> int:
     (another tree, for example the parent commit unpacked by ``git
     archive``) its per-device kernels on every card (``OPT_IN_PROBE``),
     then this tree's sharded fleets and per-card kernels
-    (``phase_sharded``) and the sharded fleets' frame times: what a
-    machine of several cards adds."""
+    (``phase_sharded``), ``dryrun_multichip(4)`` over the visible cards
+    and the sharded fleets' frame times: what a machine of several
+    cards adds."""
     card = phase_device()
     phase_build()
     if parent is not None:
@@ -3453,6 +3411,7 @@ def sharded(parent: str | None = None) -> int:
         user_dir = str(write_shader_modules(Path(td)))
         for line in phase_sharded(user_dir):
             print(f"[4 sharded] {line}")
+        _dryrun(None, "[4 sharded]")
         _sharded_fleet_times(card, user_dir)
         _circle_mesh_times(card, user_dir)
     print("[4 sharded] every check passed")

@@ -64,13 +64,14 @@ def test_every_module_imports_without_jax():
     "glava_tpu_torch.parallel.batch", "glava_tpu_torch.runtime.fleet",
     "glava_tpu_torch.ops.smooth", "glava_tpu_torch.models.mel",
     "glava_tpu_torch.config_tool", "glava_tpu_torch.utils.profiling",
-    "glava_tpu_torch.parallel.mesh",
+    "glava_tpu_torch.parallel.mesh", "glava_tpu_torch.bench",
+    "glava_tpu_torch.entry_points", "glava_tpu_torch.utils.timing",
 ])
 def test_fleet_modules_import_without_jax(module):
     """The many-stream path and its device mesh, the raster and smooth
-    kernels' modules, the log-mel frontend, the config tool and the
-    profiling helpers, each alone in a fresh process with jax
-    blocked."""
+    kernels' modules, the log-mel frontend, the config tool, the
+    profiling helpers, the benchmark, the entry points and the timers,
+    each alone in a fresh process with jax blocked."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
