@@ -169,6 +169,25 @@ code is non-zero and no result line is printed):
                every key of the line there and every number finite and
                positive; the fused update, the table lookup and the
                bars raster each launched.
+               The compiled steps (``phase_compiled``; the Engine, the
+               fleet, ``render_wav``, ``entry()`` and the bench above
+               already run them): every native module at 800x600 and
+               circle at 1920x1080, rgba8 and yuv420, ``jit_step``; bars
+               at bufsize 131072 (the split route, its programmatic
+               dependent launch captured), ``jit_update`` at 131072 and
+               at 2^25 (the chain route), and bars on the CPU path; the
+               S 64 bars and circle fleets and a mixed S 24 fleet, a
+               pipe write at frame 12 (a new capture); the bars fleet
+               sharded over ``[cuda:0, cuda:0]`` on streams and on rows
+               2; ``render_wav`` and ``entry()``: 24 replays of each
+               byte-equal to the eager step on the same inputs, each
+               replay under ``torch.cuda.set_sync_debug_mode("error")``,
+               the captures where the case puts them (each branch's
+               first call, the pipe write), the replays' launch counts
+               the frames times ``LAUNCHES`` (the fused update once an
+               update), and a profile of a few replays showing those
+               kernels; then the shader modules that keep the eager
+               step, and why.
 5. times     — device times of each kernel and its plain version at
                the main path's shapes, and of one PyTorch call computing
                the same function where there is one: fused_update
@@ -213,7 +232,14 @@ code is non-zero and no result line is printed):
                ``[cuda:0] x 2`` rows 2 and, where there are several
                cards, on every card on streams and on rows 2 (else
                printed as not measured), host clock, split into the
-               step and the pinned copy, with the copy's rate.
+               step and the pinned copy, with the copy's rate, each by
+               the compiled step and by the eager step in its place.
+               Eager against captured (``_compiled_times``): each native
+               module's frame at 800x600 and circle's at 1920x1080 (host
+               clock and device time under the profiler, busy share,
+               CUDA events), the split route's update in and out of a
+               graph (each kernel's profiler time, events, host time),
+               and the S 64 bars and circle fleets at both sizes.
 
 The second-to-last line is the kernels JSON, the last the device JSON.
 
@@ -224,7 +250,17 @@ runs only the build, the sharded fleets, the per-card kernels,
 and the sharded fleets' times (bars S 64, circle S 64 at 1920x1080; on a
 machine of several cards, what it adds);
 with PARENT (another tree unpacked there) first that tree's per-device
-kernels on every card, in a process of its own package.
+kernels on every card, in a process of its own package. It also reads
+the weak-scaling table of ``dryrun_multichip`` by the eager update
+beside the compiled one (``_eager_scaling_table``).
+
+    python3 chip_smoke.py --compiled [PARENT]
+
+runs only the build, ``phase_compiled`` and the eager-against-captured
+times; with PARENT (another tree, for example the parent commit, whose
+bench runs every step eagerly) the ``glava_tpu_torch.bench`` line and
+``bench.windows_spread()`` of PARENT and of this tree, each in a
+process of its own tree (parent, this, this, parent).
 
     python3 chip_smoke.py --fused-ab DIR [DIR ...]
 
@@ -254,6 +290,7 @@ frame.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -1961,6 +1998,420 @@ def phase_entry_points(card: str) -> None:
           f"(host clock; {card}): {json.dumps(spread)}")
 
 
+# -- the compiled step: the native modules' steps as CUDA graphs ---------
+
+COMPILED_FRAMES = 24     # replays a case checks against the eager step
+# the kernel a launch counter counts, by name in a profile
+KERNEL_NAMES = {"fused_update": "fused_update_kernel",
+                "fused_update split": "split_stage_kernel",
+                "table_lookup": "table_lookup_kernel",
+                "bars_raster": "bars_raster_kernel"}
+SPLIT_N = 131072         # the split route's first bufsize
+CHAIN_N = 1 << 25        # above the split plans: the chain route
+PIPE_WRITE = 12          # the fleets' pipe write (a new capture)
+
+
+@contextlib.contextmanager
+def sync_errors():
+    """Inside, any torch operation that synchronises the host with the
+    card raises (``torch.cuda.set_sync_debug_mode("error")``)."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _graph_steps(step) -> list:
+    """The ``compiled.Step`` objects behind a compiled callable (one a
+    shard for a sharded step)."""
+    return [s.step for s in getattr(step, "steps", [step])]
+
+
+def _same(got, want) -> bool:
+    from glava_tpu_torch import compiled
+
+    a, b = compiled.leaves(got), compiled.leaves(want)
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _replays(label: str, step, eager, init, inputs, capture_at) -> dict:
+    """``COMPILED_FRAMES`` replays of the compiled ``step`` (plus its
+    captures, at the frames ``capture_at``: each branch's first call and
+    a pipe write) against the ``eager`` step from the same fresh state
+    (``init()``) on the same inputs (``inputs(k)``, the arguments after
+    the state); every replay under ``sync_errors`` and byte-equal to the
+    eager step's output, each capture where the case puts it. -> the
+    launches the replays added (the counts read just before and just
+    after each)."""
+    frames = COMPILED_FRAMES + len(capture_at)
+    graphs = _graph_steps(step)
+    before = sum(g.captures for g in graphs)
+    replayed = dict.fromkeys(COUNTED, 0)
+    cs, es = init(), init()
+    for k in range(frames):
+        args = inputs(k)
+        c0 = _counts()
+        with contextlib.nullcontext() if k in capture_at else sync_errors():
+            cs, got = step(cs, *args)
+        if k not in capture_at:
+            for name, n in _counts().items():
+                if name in replayed:
+                    replayed[name] += n - c0[name]
+        es, want = eager(es, *args)
+        if not _same(got, want):
+            raise AssertionError(f"{label}: frame {k} of the compiled step "
+                                 "differs from the eager step's")
+    captured = sum(g.captures for g in graphs) - before
+    if captured != len(capture_at) * len(graphs):
+        raise AssertionError(f"{label}: {captured} captures, expected "
+                             f"{len(capture_at) * len(graphs)}")
+    return replayed
+
+
+def _graph_kernels(call, frames: int = 3) -> set:
+    """The names of the kernels the card ran in ``frames`` calls of
+    ``call`` (replays), from torch.profiler's device rows."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(frames):
+            call()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+
+
+def _check_profile(label: str, call, replayed: dict) -> str:
+    """The kernels the replays launched (``replayed``) must show in a
+    profile of ``call``'s replays."""
+    names = _graph_kernels(call)
+    want = [KERNEL_NAMES[k] for k, n in replayed.items()
+            if n and k in KERNEL_NAMES]
+    missing = [w for w in want if not any(w in n for n in names)]
+    if missing:
+        raise AssertionError(f"{label}: a profile of the replays shows no "
+                             f"{missing}; it shows {sorted(names)}")
+    return ", ".join(want) or "no kernel of the path"
+
+
+def _render_case(label: str, module: str, screen=None, reqs=(),
+                 user_dir=None, wire: str = "rgba8", profile: bool = False):
+    """``Renderer.jit_step`` of ``module`` against ``step_u8`` (or
+    ``step_yuv420``) over a schedule of tones, ``modified`` false every
+    third frame, ``time``, ``interp_mod`` and ``gravity_g`` changing."""
+    from glava_tpu_torch.config import loader
+    from glava_tpu_torch.renderer import Renderer
+
+    lc = loader.load(cli_requests=reqs, force_module=module, user_dir=user_dir)
+    r = Renderer(lc, screen=screen, device="cuda")
+    yuv = wire == "yuv420"
+    step = r.jit_step(quantize=not yuv, yuv420=yuv)
+    eager = r.step_yuv420 if yuv else r.step_u8
+    cfg = r.cfg
+    snaps = [tone_snapshot(cfg, k) for k in range(COMPILED_FRAMES + 2)]
+    g0 = cfg.gravity_step / cfg.nominal_ups
+
+    def inputs(k):
+        return (snaps[k], k % 3 != 2, 0.05 * k, 0.5 if k % 2 else 1.0,
+                float(np.float32(g0 * (1.0 + 0.1 * (k % 4)))))
+
+    replayed = _replays(label, step, eager, r.init_state, inputs, {0, 2})
+    updates = sum(k % 3 != 2 for k in range(COMPILED_FRAMES + 2)
+                  if k not in (0, 2))
+    split = r.pipeline.route == "kernel" and r.pipeline.sz > 65536
+    want = {k: COMPILED_FRAMES * LAUNCHES[module].get(k, 0) for k in COUNTED}
+    fft = r.pipeline.route == "kernel"
+    want["fused_update"] = updates if fft and not split else 0
+    want["fused_update split"] = updates if split else 0
+    if replayed != want:
+        raise AssertionError(f"{label}: the replays launched {replayed}, "
+                             f"expected {want}")
+    shown = ""
+    if profile:
+        st = step.step.state
+        shown = "; a profile of 3 replays shows " + _check_profile(
+            label, lambda: step(st, *inputs(0)), replayed)
+    w, h = r.screen
+    return (f"{label} {module} {w}x{h} {wire}"
+            f"{' ' + ', '.join(reqs) if reqs else ''} (update route "
+            f"{r.pipeline.route}{', split' if split else ''}): "
+            f"{COMPILED_FRAMES} replays byte-equal to the eager step, no host "
+            f"sync inside a replay, 2 graphs (modified, carried), replay "
+            f"launches { {k: v for k, v in replayed.items() if v} }{shown}")
+
+
+def _update_case(n: int, streams: int = 1) -> str:
+    """``AudioPipeline.jit_update`` at bufsize ``n`` (smooth pass off)
+    against the eager update, four seeded snapshots in turn."""
+    from dataclasses import replace
+
+    from glava_tpu_torch.config import loader
+    from glava_tpu_torch.pipeline import AudioPipeline, UniformSpec
+
+    cfg = replace(loader.load().cfg, bufsize=n, smooth_pass=False)
+    chain = ("window", "fft", "gravity", "avg")
+    pipe = AudioPipeline(cfg, [UniformSpec("audio_l", "audio_l", chain),
+                               UniformSpec("audio_r", "audio_r", chain)],
+                         device="cuda")
+    rng = np.random.default_rng(8)
+    pool = [(rng.random((2, streams, n), np.float32) - 0.5) for _ in range(4)]
+    g = np.float32(cfg.gravity_step / cfg.nominal_ups)
+    step = pipe.jit_update()
+
+    def eager(st, al, ar, *params):
+        return pipe.update(st, torch.from_numpy(al).cuda(),
+                           torch.from_numpy(ar).cuda(), gravity_g=g)
+
+    def inputs(k):
+        return (*pool[k % 4], None, None, g)
+
+    replayed = _replays(f"update n {n}", step, eager,
+                        lambda: pipe.init_state((streams,)), inputs, {0})
+    return (f"AudioPipeline.jit_update n {n} S {streams} (route "
+            f"{pipe.route}): {COMPILED_FRAMES} replays' textures byte-equal "
+            f"to the eager update's, no host sync inside a replay, replay "
+            f"launches { {k: v for k, v in replayed.items() if v} }")
+
+
+def _fleet_inputs(n: int, cfg, pipe: bool = True):
+    """Seeded per-frame fleet inputs: four snapshot sets in turn,
+    staggered clocks (stream s updates every (1 + s % 3)-th frame),
+    per-stream time and gravity, fg/bg rows whose fg changes at frame
+    ``PIPE_WRITE``."""
+    rng = np.random.default_rng(n)
+    pool = [(rng.standard_normal((n, 2, cfg.bufsize)) * 0.3).astype(np.float32)
+            for _ in range(4)]
+    rows = [{"fg": rng.uniform(0.3, 1.0, (n, 4)).astype(np.float32),
+             "bg": rng.uniform(0.0, 0.5, (n, 4)).astype(np.float32)}
+            for _ in range(2)]
+    g0 = cfg.gravity_step / cfg.nominal_ups
+
+    def inputs(k):
+        mods = np.array([k % (1 + s % 3) == 0 for s in range(n)])
+        return (pool[k % 4], mods, np.full(n, 0.05 * k, np.float32),
+                np.full(n, 0.5, np.float32),
+                (g0 * (1.0 + 0.1 * (np.arange(n) % 4))).astype(np.float32),
+                rows[k >= PIPE_WRITE] if pipe else None)
+
+    return inputs
+
+
+def _fleet_case(kind: str, n: int, screen=None) -> str:
+    """``jit_step`` of a (mixed) batched renderer against its eager step,
+    a pipe write at frame ``PIPE_WRITE`` (a new capture)."""
+    from glava_tpu_torch.parallel.batch import (
+        BatchedRenderer, MixedBatchedRenderer,
+    )
+
+    loads = _kind_loads(kind)
+    if len(loads) == 1:
+        br = BatchedRenderer(loads[0], n, screen=screen, device="cuda")
+    else:
+        br = MixedBatchedRenderer(loads, [i % len(loads) for i in range(n)],
+                                  screen=screen, device="cuda")
+    step = br.jit_step(quantize=True)
+    replayed = _replays(f"{kind} fleet S {n}", step,
+                        lambda st, *a: br.step(st, *a, quantize=True),
+                        br.init_state, _fleet_inputs(n, br.cfg),
+                        {0, PIPE_WRITE})
+    want = {k: v for k, v in _fleet_want(kind, n, COMPILED_FRAMES).items()}
+    if replayed != want:
+        raise AssertionError(f"{kind} fleet S {n}: the replays launched "
+                             f"{replayed}, expected {want}")
+    st = step.step.state
+    inputs = _fleet_inputs(n, br.cfg)
+    shown = _check_profile(f"{kind} fleet S {n}",
+                           lambda: step(st, *inputs(PIPE_WRITE)), replayed)
+    w, h = br.screen
+    return (f"{kind} fleet S {n} ({', '.join(FLEET_KINDS[kind])}) {w}x{h}: "
+            f"{COMPILED_FRAMES} replays byte-equal to the eager fleet step "
+            f"(staggered clocks, a pipe write at frame {PIPE_WRITE}: a new "
+            f"capture), no host sync inside a replay, replay launches "
+            f"{ {k: v for k, v in replayed.items() if v} }; a profile of 3 "
+            f"replays shows {shown}")
+
+
+def _sharded_case(label: str, devices, kw: dict, n: int = 16) -> str:
+    """The sharded bars fleet's ``jit_step`` (one graph a device block)
+    against its eager step over the mesh."""
+    from glava_tpu_torch.parallel.batch import ShardedRenderer
+    from glava_tpu_torch.parallel.mesh import make_mesh
+
+    sr = ShardedRenderer(_kind_loads("bars"), [0] * n,
+                         make_mesh(devices, **kw))
+    step = sr.jit_step(quantize=True)
+    replayed = _replays(f"bars fleet S {n} over {label}", step,
+                        lambda st, *a: sr.step(st, *a, quantize=True),
+                        sr.init_state, _fleet_inputs(n, sr.cfg),
+                        {0, PIPE_WRITE})
+    want = {k: v * len(sr.shards)
+            for k, v in _fleet_want("bars", 1, COMPILED_FRAMES).items()}
+    if replayed != want:
+        raise AssertionError(f"bars fleet S {n} over {label}: the replays "
+                             f"launched {replayed}, expected {want}")
+    return (f"bars fleet S {n} sharded over {label} (blocks {sr.blocks}): "
+            f"{COMPILED_FRAMES} replays of one graph a device block, "
+            f"byte-equal to the eager sharded step, no host sync inside a "
+            f"replay, replay launches "
+            f"{ {k: v for k, v in replayed.items() if v} }")
+
+
+def _write_wav(path: Path, seconds: float = 0.5, rate: int = 22050) -> None:
+    import wave
+
+    t = np.arange(int(seconds * rate)) / rate
+    left = 0.4 * np.sin(2 * np.pi * 300.0 * t) * (t < 0.3)
+    right = 0.4 * np.sin(2 * np.pi * 2500.0 * t)
+    pcm = (np.stack([left, right], axis=1) * 32767).astype("<i2")
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(2)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes(pcm.tobytes())
+
+
+def _render_wav_case(tmp: Path) -> str:
+    """``render_wav`` (its compiled step, every call after both branches
+    are captured under ``sync_errors``) against the same schedule
+    through the eager ``step_u8``: every frame byte-equal."""
+    from glava_tpu_torch import renderer as renderer_mod
+    from glava_tpu_torch.config import loader
+    from glava_tpu_torch.pipeline import frame_windows
+    from glava_tpu_torch.runtime import offline
+    from glava_tpu_torch.runtime.audio.wav import read_wav
+    from glava_tpu_torch.runtime.sinks import CallbackSink
+
+    wav = tmp / "compiled.wav"
+    _write_wav(wav)
+    lc = loader.load()
+    steps = []
+    jit_step = renderer_mod.Renderer.jit_step
+
+    def watched(self, *a, **kw):
+        step = jit_step(self, *a, **kw)
+        steps.append(step)
+
+        def call(*args):
+            guard = (sync_errors() if step.step.captures >= 2
+                     else contextlib.nullcontext())
+            with guard:
+                return step(*args)
+        return call
+
+    got = []
+    renderer_mod.Renderer.jit_step = watched
+    try:
+        _zero_counts()
+        n = offline.render_wav(lc, str(wav), CallbackSink(
+            lambda f, t: got.append(f)), fps=60.0, device="cuda")
+        counts = _counts()
+    finally:
+        renderer_mod.Renderer.jit_step = jit_step
+    cfg = lc.cfg
+    left, right, rate = read_wav(str(wav))
+    hop = max(cfg.samplesize // 4, 1)
+    wl, wr = (frame_windows(x, cfg.bufsize, hop) for x in (left, right))
+    sched = offline._schedule(len(left), rate, hop, 60.0, cfg.timecycle)
+    g = float(np.float32(cfg.gravity_step / sched["ups"]))
+    r = renderer_mod.Renderer(lc, device="cuda")
+    st = r.init_state()
+    for k in range(sched["n_frames"]):
+        i = sched["widx"][k]
+        st, want = r.step_u8(st, np.stack([wl[i], wr[i]]),
+                             bool(sched["modified"][k]),
+                             float(sched["time"][k]),
+                             float(sched["interp"][k]), g)
+        if not np.array_equal(got[k], want.cpu().numpy()):
+            raise AssertionError(f"render_wav: frame {k} differs from the "
+                                 "eager step's")
+    updates = int(sched["modified"].sum())
+    if not n == len(got) == sched["n_frames"] or steps[0].step.captures != 2 \
+            or counts["fused_update"] != updates \
+            or counts["bars_raster"] != n:
+        raise AssertionError(f"render_wav: {n} frames, {len(got)} handed out, "
+                             f"{steps[0].step.captures} captures, launches "
+                             f"{counts} for {updates} updates")
+    return (f"render_wav: {n} frames of a 0.5 s WAV through the compiled "
+            f"step ({steps[0].step.captures} graphs), {n - 2} replays under "
+            f"sync_errors, every frame byte-equal to the eager step_u8's; "
+            f"launches { {k: v for k, v in counts.items() if v} } "
+            f"({updates} updates)")
+
+
+def _entry_case() -> str:
+    """``entry()``'s fn (the compiled step) against ``Renderer.step`` of
+    the same configuration: float32 frames byte-equal over the replays."""
+    from glava_tpu_torch.config import loader
+    from glava_tpu_torch.entry_points import BARS_512, entry
+    from glava_tpu_torch.renderer import Renderer
+
+    fn, args = entry()
+    r = Renderer(loader.load(cli_requests=BARS_512, force_module="bars"),
+                 device="cuda")
+    rng = np.random.default_rng(3)
+    feeds = [(rng.standard_normal(tuple(args[1].shape)) * 0.2)
+             .astype(np.float32) for _ in range(COMPILED_FRAMES + 1)]
+    cs, es = r.init_state(), r.init_state()
+    for k in range(COMPILED_FRAMES + 1):
+        with contextlib.nullcontext() if k == 0 else sync_errors():
+            cs, got = fn(cs, feeds[k], True, *args[3:])
+        es, want = r.step(es, feeds[k], True, *args[3:])
+        if not torch.equal(got, want):
+            raise AssertionError(f"entry(): frame {k} differs from "
+                                 "Renderer.step's")
+    return (f"entry(): bars 512x256, {COMPILED_FRAMES} replays of its "
+            f"compiled step byte-equal (float32) to Renderer.step, no host "
+            f"sync inside a replay")
+
+
+def phase_compiled(user_dir: str, tmp: Path) -> list:
+    """The compiled steps on the card: every case's replays byte-equal
+    to the eager steps on the same inputs, under ``sync_errors``, with
+    their launch counts and a profile of the replays; then which modules
+    keep the eager step, and why. Returns the result lines."""
+    from glava_tpu_torch.config import loader
+    from glava_tpu_torch.renderer import Renderer
+
+    lines = [_update_case(CHAIN_N)]
+    for module in MODULES:
+        for wire in ("rgba8", "yuv420"):
+            lines.append(_render_case("single stream", module, wire=wire,
+                                      profile=wire == "rgba8"))
+    for wire in ("rgba8", "yuv420"):
+        lines.append(_render_case("single stream", "circle", (1920, 1080),
+                                  wire=wire, profile=wire == "rgba8"))
+    with tempfile.TemporaryDirectory() as td:
+        ud = Path(td)
+        (ud / "smooth_parameters.glsl").write_text(NO_SMOOTH_PASS)
+        lines.append(_render_case("split route (programmatic dependent "
+                                  "launch)", "bars",
+                                  reqs=(f"setbufsize {SPLIT_N}",),
+                                  user_dir=str(ud), profile=True))
+    lines.append(_update_case(SPLIT_N, 2))
+    lines.append(_render_case("CPU path", "bars", reqs=CPU_PATH_RUNS[0]))
+    for kind, n, screen in (("bars", 64, None), ("circle", 64, None),
+                            ("mixed", 24, None)):
+        lines.append(_fleet_case(kind, n, screen))
+    for label, devices, kw in (("[cuda:0, cuda:0]", ["cuda:0"] * 2, {}),
+                               ("[cuda:0] x 2 rows 2", ["cuda:0"] * 2,
+                                {"rows": 2})):
+        lines.append(_sharded_case(label, devices, kw))
+    lines.append(_render_wav_case(tmp))
+    lines.append(_entry_case())
+    for name in SHADER_MODULES:
+        r = Renderer(loader.load(force_module=name, user_dir=user_dir),
+                     device="cuda")
+        try:
+            r.jit_step(quantize=True)
+        except ValueError as e:
+            lines.append(f"eager: {e}")
+        else:
+            raise AssertionError(f"shader module {name} has a compiled step")
+    return lines
+
+
 # -- the host runtime: the frame's way to the host, pipe values, the
 # -- wallpaper, the embedding API, the FIFO backend ----------------------
 
@@ -1995,14 +2446,18 @@ def _stress(nbytes: int, n: int) -> None:
         b.fill_(0x5A + i)
 
 
-def _fetch_check(module: str, sink_kind: str, depth: int) -> str:
+def _fetch_check(module: str, sink_kind: str, depth: int,
+                 compiled: bool = False) -> str:
     """One stream of device frames through the Engine's own fetch path
     (``FrameFetch``) at 1920x1080: the engine's step is wrapped to keep
     a device copy of each frame (and of the RGBA frame of the same
     planes) and to write fresh allocations between steps. Every buffer
     the sink gets must be pinned and byte-equal to a synchronous
     ``.cpu()`` of its device frame; on the yuv420 wire the planes must
-    be within 1 LSB of ``yuv420_pack_host`` of the RGBA frame."""
+    be within 1 LSB of ``yuv420_pack_host`` of the RGBA frame. With
+    ``compiled`` the wrapped step is the Engine's own compiled step,
+    whose frame is one static buffer each replay overwrites (the copy
+    kept is taken on the compute stream right after the call)."""
     import io
 
     from glava_tpu_torch.render.base import interleave_u8
@@ -2044,7 +2499,15 @@ def _fetch_check(module: str, sink_kind: str, depth: int) -> str:
         want.append((frame.clone(), rgba.clone()))
         return st, frame
 
-    eng._step = step
+    jit = eng._step
+
+    def replayed(state, audio, modified, t, interp, g, pipe):
+        _stress(nbytes, depth + 2)
+        st, frame = jit(state, audio, modified, t, interp, g, pipe)
+        want.append((frame.clone(), None))
+        return st, frame
+
+    eng._step = replayed if compiled else step
     _zero_counts()
     eng.run(max_frames=FETCH_FRAMES)
     torch.cuda.synchronize()
@@ -2064,17 +2527,18 @@ def _fetch_check(module: str, sink_kind: str, depth: int) -> str:
             raise AssertionError(f"{module} {sink_kind} inflight {depth}: a "
                                  "host frame differs from .cpu() of its "
                                  "device frame")
-        if wire[0] == "yuv420":
+        if wire[0] == "yuv420" and rgba is not None:
             for a, b in zip(host, yuv420_pack_host(rgba.cpu().numpy())):
                 lsb = max(lsb, int(np.abs(a.astype(np.int16) - b).max()))
     if lsb > 1:
         raise AssertionError(f"{module} yuv420 planes {lsb} LSB off the host "
                              "pack")
-    return (f"{module} {w}x{h} {sink_kind} ({wire[0]}) inflight {depth}: "
+    return (f"{module} {w}x{h} {sink_kind} ({wire[0]}) inflight {depth}"
+            f"{', the compiled step' if compiled else ''}: "
             f"{FETCH_FRAMES} pinned "
             f"frames byte-equal to .cpu()"
-            + (f", YUV within {lsb} LSB of yuv420_pack_host" if lsb or
-               wire[0] == "yuv420" else ""))
+            + (f", YUV within {lsb} LSB of yuv420_pack_host" if (
+                lsb or wire[0] == "yuv420") and not compiled else ""))
 
 
 def _fleet_fetch_check(n: int = 8, frames: int = 3) -> str:
@@ -2189,6 +2653,8 @@ def phase_host(user_dir: str, tmp: Path) -> None:
         for sink_kind in ("y4m", "null"):
             for depth in (0, 1, 2):
                 print(f"[4 host] {_fetch_check(module, sink_kind, depth)}")
+                print(f"[4 host] "
+                      f"{_fetch_check(module, sink_kind, depth, True)}")
     print(f"[4 host] {_fleet_fetch_check()}")
 
     for name, frag in (("pipebar", PIPE_FRAG), ("stdinbar", STDIN_FRAG)):
@@ -2815,7 +3281,12 @@ def _latch_times():
     return out
 
 
-def _frame_ms(screen, module="bars", user_dir=None, iters=200, requests=()):
+def _frame_ms(screen, module="bars", user_dir=None, iters=200, requests=(),
+              compiled: bool = False):
+    """CUDA events around ``iters`` frames of ``module`` (fresh audio on
+    the card, the update every frame, uint8, ``FrameFetch`` to the host)
+    by the eager ``step_u8`` or, ``compiled``, by ``jit_step``; -> (ms a
+    frame, renderer, the frame function)."""
     from glava_tpu_torch.config import loader
     from glava_tpu_torch.renderer import Renderer
 
@@ -2827,10 +3298,11 @@ def _frame_ms(screen, module="bars", user_dir=None, iters=200, requests=()):
                             dtype=torch.float32, device="cuda")
     box = {"s": r.init_state(), "k": 0}
     to_host = _to_host()
+    step = r.jit_step(quantize=True) if compiled else r.step_u8
 
     def frame():
-        box["s"], f = r.step_u8(box["s"], audio[box["k"] % 64], True, 0.0,
-                                1.0, 0.05)
+        box["s"], f = step(box["s"], audio[box["k"] % 64], True, 0.0,
+                           1.0, 0.05)
         box["k"] += 1
         return to_host(f)
 
@@ -2968,20 +3440,23 @@ def _mel_times(card: str) -> None:
 
 def _fleet_times(n: int, screen, frames: int, card: str,
                  breakdown: bool = False, module: str = "bars",
-                 pipe: bool = True) -> float:
+                 pipe: bool = True, eager: bool = False) -> float:
     """One fleet frame as ``FleetEngine.run`` makes it (host snapshots to
     the card, the step, the uint8 frames back through
     ``FleetEngine.fetch``), n streams of ``module`` with their own
     colours (``pipe``), every stream updating: the host clock per frame,
     CUDA events around the step (the snapshot copy and the kernels,
     with any idle gaps) and around the frame copy, and the device busy
-    share under the profiler."""
+    share under the profiler. The engine's step is its compiled step, or
+    with ``eager`` the eager fleet step in its place."""
     from glava_tpu_torch.config import loader
     from glava_tpu_torch.runtime.fleet import FleetEngine
 
     eng = FleetEngine(loader.load(force_module=module),
                       _fleet_streams(n, pipe=pipe), screen=screen,
                       device="cuda")
+    if eager:
+        eng._step = lambda *a: eng.br.step(*a, quantize=True)
     cfg = eng.loaded.cfg
     rng = np.random.default_rng(2)
     pool = [(rng.standard_normal((n, 2, cfg.bufsize)) * 0.3).astype(np.float32)
@@ -3015,7 +3490,8 @@ def _fleet_times(n: int, screen, frames: int, card: str,
     step = sum(e[0].elapsed_time(e[1]) for e in ev) / frames
     copy = sum(e[1].elapsed_time(e[2]) for e in ev) / frames
     w, h = eng.br.screen
-    label = f"{module} fleet S {n} {w}x{h}"
+    label = (f"{module} fleet S {n} {w}x{h}"
+             f"{' eager' if eager else ' compiled'}")
     busy, _ = _profile(frame, label, card, frames=3 if n > 8 else 10,
                        show=breakdown)
     mb = n * w * h * 4 / 1e6
@@ -3031,14 +3507,21 @@ def _sharded_fleet_times(card: str, user_dir: str, kind: str = "bars",
                          frames: int = 20) -> None:
     """A fleet frame (``FleetEngine.step`` + ``fetch``) of ``n``
     streams of ``kind`` on the unsharded engine and on every mesh of
-    ``meshes`` (by default ``shard_meshes``), by the host clock, split
-    into the step (every device's launches and their completion on
-    every device) and the pinned copy into the one host buffer, with
-    the copy's rate; meshes in turn, two rounds."""
+    ``meshes`` (by default ``shard_meshes``), each by its compiled step
+    and by the eager step in its place, by the host clock, split into
+    the step (every device's launches and their completion on every
+    device) and the pinned copy into the one host buffer, with the
+    copy's rate; engines in turn, two rounds."""
     meshes = shard_meshes() if meshes is None else meshes
     engines = [("unsharded", _fleet_engine(kind, n, user_dir, screen=screen))] + [
         (label, _fleet_engine(kind, n, user_dir, devices, screen, kw))
         for label, devices, kw in meshes]
+    for label, _ in list(engines):
+        devices, kw = next(((d, k) for lb, d, k in meshes if lb == label),
+                           (None, None))
+        eng = _fleet_engine(kind, n, user_dir, devices, screen, kw)
+        eng._step = functools.partial(eng.br.step, quantize=True)
+        engines.append((f"{label} eager", eng))
     cfg = engines[0][1].loaded.cfg
     w, h = engines[0][1].br.screen
     rng = np.random.default_rng(2)
@@ -3093,6 +3576,116 @@ def _circle_mesh_times(card: str, user_dir: str) -> None:
         print("[5 times] circle fleet S 64 1920x1080 over several cards "
               "(streams mesh against rows mesh): not measured, one card "
               f"visible ({card})")
+
+
+def _compiled_times(card: str) -> None:
+    """Eager against captured, side by side in this process: each native
+    module's frame at 800x600 and circle's at 1920x1080 (the update
+    every frame, uint8, ``FrameFetch`` to the host): the host clock and
+    the device time a frame and the device's busy share under the
+    profiler, and CUDA events around 100 frames; the split route's
+    update (n 131072, B 2) in and out of a graph; the S 64 bars and
+    circle fleets at both sizes."""
+    for module, screen in ([(m, None) for m in MODULES]
+                           + [("circle", (1920, 1080))]):
+        row = {}
+        names = [KERNEL_NAMES[k] for k in ("fused_update",
+                                           *LAUNCHES[module])]
+        if module in NO_FFT:
+            names = names[1:]
+        for mode in ("eager", "captured"):
+            ms, r, frame = _frame_ms(screen, module, iters=100,
+                                     compiled=mode == "captured")
+            busy, dev_us = _profile(frame, f"{module} {mode}", card,
+                                    show=False)
+            each = kernel_ms(frame, names, 20) if names else {}
+            row[mode] = (dev_us / busy if busy else float("nan"), dev_us,
+                         busy, ms * 1e3, ", ".join(
+                             f"{k} {v * 1e3:.2f} us" for k, v in each.items()))
+        w, h = r.screen
+        (we, de, be, ee, ke), (wc, dc, bc, ec, kc) = (row["eager"],
+                                                      row["captured"])
+        print(f"[5 times] compiled {module} {w}x{h} frame (update + raster + "
+              f"uint8 + FrameFetch): eager {we:.1f} us wall, {de:.1f} us "
+              f"device, busy {be:.1%}, {ee:.1f} us by CUDA events"
+              f"{f' ({ke}, profiler)' if ke else ''}; captured "
+              f"{wc:.1f} us wall, {dc:.1f} us device, busy {bc:.1%}, "
+              f"{ec:.1f} us by CUDA events{f' ({kc}, profiler)' if kc else ''}"
+              f"; wall eager/captured {we / wc:.2f}x ({card})")
+    _split_graph_times(card)
+    for module, screen, count in (("bars", None, 20),
+                                  ("bars", (1920, 1080), 5),
+                                  ("circle", None, 10),
+                                  ("circle", (1920, 1080), 5)):
+        for eager in (True, False):
+            _fleet_times(64, screen, count, card, module=module, eager=eager)
+
+
+def _split_graph_times(card: str, n: int = SPLIT_N, B: int = 2) -> None:
+    """The split route's update at bufsize ``n``, B rows, on
+    ``_update_sets``' input sets in turn: eager (``fused.fused_update``,
+    two launches, the second a programmatic dependent) and replayed from
+    one CUDA graph a set holding that call (its programmatic edge a
+    graph edge): each of its two kernels' profiler device time, the
+    call's device time (CUDA events behind a spin) and its host time;
+    then ``AudioPipeline.jit_update``'s call on fresh device inputs (two
+    copies in, the replay) by the same three."""
+    from dataclasses import replace
+
+    from glava_tpu_torch import compiled
+    from glava_tpu_torch.config import loader
+    from glava_tpu_torch.ops import fused
+    from glava_tpu_torch.pipeline import AudioPipeline, UniformSpec
+
+    sets = _update_sets(n, B)
+    K = len(sets)
+    saved = compiled.read_counters()
+    graphs = []
+    for args in sets:
+        fused.fused_update(*args)
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            fused.fused_update(*args)
+        graphs.append(g)
+    cfg = replace(loader.load().cfg, bufsize=n, smooth_pass=False)
+    chain = ("window", "fft", "gravity", "avg")
+    pipe = AudioPipeline(cfg, [UniformSpec("audio_l", "audio_l", chain),
+                               UniformSpec("audio_r", "audio_r", chain)],
+                         device="cuda")
+    rng = np.random.default_rng(5)
+    feeds = [torch.as_tensor(rng.standard_normal((B // 2, 2, n)) * 0.3,
+                             dtype=torch.float32, device="cuda")
+             for _ in range(4)]
+    gravity = np.float32(cfg.gravity_step / cfg.nominal_ups)
+    upd = pipe.jit_update()
+    box = {"st": pipe.init_state((B // 2,)), "k": 0}
+
+    def update(i=None):
+        a = feeds[box["k"] % 4]
+        box["k"] += 1
+        box["st"], _ = upd(box["st"], a[:, 0], a[:, 1], None, None, gravity)
+
+    # the jit_update call waits for its staging ring when the host runs
+    # ahead, so it is not queued behind a spin: events around the calls
+    runs = {"eager": (lambda i=0: fused.fused_update(*sets[i % K]),
+                      event_ms, "behind a spin"),
+            "in a graph": (lambda i=0: graphs[i % K].replay(), event_ms,
+                           "behind a spin"),
+            "jit_update call": (update, lambda fn, k: cuda_ms(fn, k),
+                                "back to back")}
+    out = {}
+    for label, (fn, timer, how) in runs.items():
+        each = kernel_ms(fn, SPLIT_KERNELS, 20)
+        out[label] = (each, timer(fn, 100), how, host_ms(fn, 200))
+    compiled._restore_counters(saved)
+    print(f"[5 times] split route n {n} B {B} update ({K} input sets in "
+          "turn): " + "; ".join(
+              f"{label}: " + ", ".join(f"{k} {v * 1e3:.2f} us" for k, v in
+                                       each.items())
+              + f" (profiler), {ev * 1e3:.2f} us a call by CUDA events "
+                f"{how}, {ho * 1e3:.2f} us a call host clock"
+              for label, (each, ev, how, ho) in out.items()) + f" ({card})")
 
 
 def phase_times(card: str, user_dir: str) -> dict:
@@ -3179,6 +3772,7 @@ def phase_times(card: str, user_dir: str) -> dict:
                      module="circle")
     _sharded_fleet_times(card, user_dir)
     _circle_mesh_times(card, user_dir)
+    _compiled_times(card)
     return out
 
 
@@ -3322,6 +3916,8 @@ def main() -> int:
         phase_mel()
         phase_host(user_dir, Path(td))
         phase_entry_points(card)
+        for line in phase_compiled(user_dir, Path(td)):
+            print(f"[4 compiled] {line}")
         times = phase_times(card, user_dir)
         host_times(card)
     print(json.dumps({"kernels": [{
@@ -3388,6 +3984,78 @@ for card in range(torch.cuda.device_count()):
 '''
 
 
+def _eager_scaling_table(devices, n_devices: int, per_device: int = 64,
+                         updates: int = 8) -> dict:
+    """``entry_points._scaling_table``'s weak-scaling reading with each
+    shard's eager ``AudioPipeline.advance`` in place of its compiled
+    update: windows/s on one device against ``n_devices``."""
+    from glava_tpu_torch.config import loader
+    from glava_tpu_torch.entry_points import BARS_512, _host_batch
+    from glava_tpu_torch.parallel.batch import ShardedRenderer
+    from glava_tpu_torch.parallel.mesh import make_mesh
+
+    lc = loader.load(cli_requests=BARS_512, force_module="bars")
+    out = {}
+    for ndev in dict.fromkeys((1, n_devices)):
+        S = per_device * ndev
+        sr = ShardedRenderer([lc], [0] * S, make_mesh(devices[:ndev], rows=1))
+        audio = _host_batch(S, lc.cfg)["audio"]
+        runs = []
+        for sh, (sl, _) in zip(sr.shards, sr.blocks):
+            pipe = sh.renderer.pipeline
+            a = torch.as_tensor(audio[sl], device=sh.device)
+            g = torch.full((sl.stop - sl.start,), np.float32(
+                lc.cfg.gravity_step / lc.cfg.nominal_ups), device=sh.device)
+            runs.append([pipe, pipe.init_state(batch=(a.shape[0],)),
+                         [a * (1.0 + 1e-3 * k) for k in range(updates)], g])
+
+        def step(i, runs=runs):
+            for run in runs:
+                pipe, chains, feeds, g = run
+                run[1] = pipe.advance(chains, feeds[i][:, 0], feeds[i][:, 1],
+                                      gravity_g=g)
+
+        ms = host_ms(step, updates, devices[:ndev])
+        out[f"{ndev}dev"] = {"streams": S, "windows_per_s": S / (ms / 1e3)}
+    out["weak_scaling_efficiency"] = (
+        out[f"{n_devices}dev"]["windows_per_s"]
+        / (out["1dev"]["windows_per_s"] * n_devices))
+    return out
+
+
+def compiled_run(parent: str | None = None) -> int:
+    """``--compiled [PARENT]``: the device phase, the build,
+    ``phase_compiled`` and ``_compiled_times``; with PARENT, the bench
+    line and ``bench.windows_spread()`` of PARENT (eager) and of this
+    tree (compiled), each tree in processes of its own, parent, this,
+    this, parent."""
+    card = phase_device()
+    phase_build()
+    with tempfile.TemporaryDirectory() as td:
+        user_dir = str(write_shader_modules(Path(td)))
+        for line in phase_compiled(user_dir, Path(td)):
+            print(f"[4 compiled] {line}")
+    _compiled_times(card)
+    if parent is not None:
+        tree = Path(parent).resolve()
+        code = ("import json, sys; from glava_tpu_torch import bench; "
+                "print(json.dumps(bench.run())); "
+                "print(json.dumps(bench.windows_spread()))")
+        for label, cwd in (("parent", tree), ("this", ROOT), ("this", ROOT),
+                           ("parent", tree)):
+            out = subprocess.run([sys.executable, "-c", code], cwd=cwd,
+                                 capture_output=True, text=True, timeout=900)
+            if out.returncode != 0:
+                raise AssertionError(f"the bench of {cwd} failed:\n"
+                                     f"{out.stderr[-4000:]}")
+            line, spread = out.stdout.strip().splitlines()[-2:]
+            print(f"[5 bench] {label} ({cwd.name}) line ({card}): {line}")
+            print(f"[5 bench] {label} ({cwd.name}) windows_spread ({card}): "
+                  f"{spread}")
+    print("[4 compiled] every check passed")
+    return 0
+
+
 def sharded(parent: str | None = None) -> int:
     """``--sharded [PARENT]``: the device phase, the build, with PARENT
     (another tree, for example the parent commit unpacked by ``git
@@ -3412,6 +4080,14 @@ def sharded(parent: str | None = None) -> int:
         for line in phase_sharded(user_dir):
             print(f"[4 sharded] {line}")
         _dryrun(None, "[4 sharded]")
+        from glava_tpu_torch.entry_points import _devices, _scaling_table
+
+        devices = _devices(4, None)
+        for _ in range(2):
+            print(f"[5 times] weak scaling, eager update ({card}): "
+                  f"{json.dumps(_eager_scaling_table(devices, 4))}")
+            print(f"[5 times] weak scaling, compiled update ({card}): "
+                  f"{json.dumps(_scaling_table(devices, 4))}")
         _sharded_fleet_times(card, user_dir)
         _circle_mesh_times(card, user_dir)
     print("[4 sharded] every check passed")
@@ -3421,6 +4097,8 @@ def sharded(parent: str | None = None) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--sharded"] and len(sys.argv) <= 3:
         raise SystemExit(sharded(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--compiled"] and len(sys.argv) <= 3:
+        raise SystemExit(compiled_run(*sys.argv[2:]))
     if sys.argv[1:2] == ["--fused-ab"]:
         raise SystemExit(fused_ab(sys.argv[2:]))
     if sys.argv[1:2] == ["--smooth-ab"]:

@@ -23,13 +23,21 @@ JAX bench's scan, probe and slope:
 * the K inputs of a timed run are made on the device before it, fresh
   for each step (``audio * (1 + 1e-3 k)``, as the JAX scan bodies make
   them), so no step reads what the one before left in the cache;
+* every section but the interpreted one times the compiled step, what
+  the Engine and the fleet run (``jit_step``, ``jit_update``: a CUDA
+  graph replayed a call, ``glava_tpu_torch.compiled``), where the JAX
+  bench times a jitted function: each call copies its fresh input into
+  the step's static buffer, then replays; the first (warm-up) call
+  captures. The interpreted section runs shader modules, which keep the
+  eager step;
 * the steps run back to back with no probe: ``torch.cuda.synchronize()``
   returns when the card is done;
 * fps, windows a second and the ``p50_pcm_to_frame_ms`` keys are host
-  clock (:func:`~glava_tpu_torch.utils.timing.host_ms`): what an eager
-  serving loop gets, every launch from Python included. The JAX bench
-  ran K steps in one dispatch and took the slope, so its numbers leave
-  the launches out; the two are not the same measurement;
+  clock (:func:`~glava_tpu_torch.utils.timing.host_ms`): what a serving
+  loop of compiled steps gets, each call's input copy and replay
+  included. The JAX bench ran K steps in one dispatch and took the
+  slope, so its numbers leave a dispatch a step out; the two are not
+  the same measurement;
 * ``device_step_ms`` and ``device_p50_pcm_to_frame_ms`` are the card's
   own busy time from torch.profiler
   (:func:`~glava_tpu_torch.utils.timing.device_ms`), what the JAX
@@ -186,17 +194,20 @@ def bytes_per_window(pipe: AudioPipeline, streams: int) -> float:
 
 def _updates_ms(pipe: AudioPipeline, audio: torch.Tensor, gravity_g,
                 updates: int, warmup: int = 1) -> float:
-    """Host ms per ``advance`` of every stream's chains, ``updates`` of
-    them back to back on fresh inputs after ``warmup`` warm-up calls."""
+    """Host ms per update of every stream's chains by the compiled
+    update (``jit_update``), ``updates`` of them back to back on fresh
+    inputs, each copied into its static buffers, after ``warmup``
+    warm-up calls (the first captures the graph)."""
     S = audio.shape[0]
     feeds = _fresh(audio, updates)
-    g = torch.as_tensor(np.asarray(gravity_g, np.float32), device=pipe.device)
+    g = np.asarray(gravity_g, np.float32)
+    update = pipe.jit_update()
     chains = pipe.init_state(batch=(S,))
 
     def step(i):
         nonlocal chains
         a = feeds[i]
-        chains = pipe.advance(chains, a[:, 0], a[:, 1], gravity_g=g)
+        chains, _ = update(chains, a[:, 0], a[:, 1], None, None, g)
 
     return host_ms(step, updates, pipe.device, warmup)
 
@@ -213,14 +224,15 @@ def _steps_ms(step, state, feeds: list, reps: int = 1, dev="cuda") -> float:
 
 
 def _fleet_steps_ms(br, frames: int, reps: int) -> float:
-    """Host ms per step of a (mixed) batched renderer on its
+    """Host ms per compiled step of a (mixed) batched renderer on its
     ``example_batch`` inputs, fresh audio each step."""
     ex = example_batch(br)
     feeds = _fresh(ex["audio"], frames)
+    fleet = br.jit_step(quantize=False)
 
     def step(st, a):
-        return br.step(st, a, ex["modified"], ex["time"], ex["interp_mod"],
-                       ex["gravity_g"])[0]
+        return fleet(st, a, ex["modified"], ex["time"], ex["interp_mod"],
+                     ex["gravity_g"])[0]
 
     return _steps_ms(step, br.init_state(), feeds, reps, br.device)
 
@@ -306,10 +318,11 @@ def bars_frames(device="cuda", streams: int = 64, frames: int = 16,
     ex = example_batch(br)
     feeds = _fresh(ex["audio"], frames)
     state = [br.init_state()]
+    fleet = br.jit_step(quantize=False)
 
     def one(i):
-        state[0] = br.step(state[0], feeds[i % frames], ex["modified"],
-                           ex["time"], ex["interp_mod"], ex["gravity_g"])[0]
+        state[0] = fleet(state[0], feeds[i % frames], ex["modified"],
+                         ex["time"], ex["interp_mod"], ex["gravity_g"])[0]
 
     per = host_ms(one, frames, dev)
     k = count()
@@ -336,7 +349,8 @@ def module_fps(module: str, requests=(), device="cuda", screen=(1920, 1080),
         snap = torch.as_tensor(np.random.default_rng(0).standard_normal(
             (2, lc.cfg.bufsize)).astype(np.float32) * 0.3, device=dev)
         g = _gravity(lc.cfg)
-        ms = _steps_ms(lambda s, a: r.step(s, a, True, 0.1, 1.0, g)[0],
+        step = r.jit_step()
+        ms = _steps_ms(lambda s, a: step(s, a, True, 0.1, 1.0, g)[0],
                        r.init_state(), _fresh(snap, frames), 1, dev)
         vals.append(1e3 / ms)
     vals.sort()
@@ -501,10 +515,11 @@ def device_p50(device="cuda", steps: int = 32, readings: int = 7,
     g = _gravity(lc.cfg)
     state = [r.init_state()]
     k = count()
+    step = r.jit_step()
 
     def one():
-        state[0] = r.step(state[0], feeds[next(k) % steps], True, 0.0, 1.0,
-                          g)[0]
+        state[0] = step(state[0], feeds[next(k) % steps], True, 0.0, 1.0,
+                        g)[0]
 
     samples = [device_ms(one, steps) for _ in range(readings)]
     log(f"device p50: readings {samples} ms")
@@ -528,8 +543,8 @@ def logmel(device="cuda", frames: int = 1024, n_fft: int = 512,
 def single_dispatch(device="cuda", samples: int = 30,
                     screen=(512, 256)) -> dict:
     """p50 of the synchronous PCM-to-pixels round trip of one bars
-    stream: host snapshot -> ``torch.as_tensor`` -> ``step`` -> pageable
-    ``.cpu()`` (``bench.py:606-628``)."""
+    stream: host snapshot -> the compiled step (its one host-to-device
+    copy, a replay) -> pageable ``.cpu()`` (``bench.py:606-628``)."""
     import time
 
     dev = resolve(device)
@@ -537,13 +552,13 @@ def single_dispatch(device="cuda", samples: int = 30,
     r = Renderer(lc, device=dev)
     snap = _example_audio(lc.cfg, "cpu").numpy()
     g = _gravity(lc.cfg)
-    st, f = r.step(r.init_state(), torch.as_tensor(snap).to(dev), True, 0.0,
-                   1.0, g)
+    step = r.jit_step()
+    st, f = step(r.init_state(), snap, True, 0.0, 1.0, g)
     f.cpu()
     lats = []
     for _ in range(samples):
         t0 = time.perf_counter()
-        st, f = r.step(st, torch.as_tensor(snap).to(dev), True, 0.0, 1.0, g)
+        st, f = step(st, snap, True, 0.0, 1.0, g)
         f.cpu()
         lats.append(time.perf_counter() - t0)
     p50 = float(np.median(lats) * 1e3)

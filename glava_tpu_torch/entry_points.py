@@ -6,7 +6,9 @@ single-stream bars step at 512x256 with its example arguments;
 :func:`dryrun_multichip` drives the fleet sharded over a mesh of
 devices (``parallel.mesh``, ``parallel.batch.ShardedRenderer``,
 ``runtime.fleet.FleetEngine(mesh=...)``) and checks it against the
-unsharded fleet. Where the JAX dry run reads XLA's compiled program
+unsharded fleet. Where the JAX entry points ``jax.jit`` a step, these
+run the compiled step (``jit_step``, ``jit_update``: a CUDA graph
+replayed a call on the card, ``compiled.py``). Where the JAX dry run reads XLA's compiled program
 (no full-frame all-gather, no collective on a hosts mesh), the port has
 no compiled program: it checks where each device's tensors lie and
 what shape each device's frame has.
@@ -46,17 +48,20 @@ def entry(device="cuda"):
     """``(fn, example_args)`` for the flagship single-stream step: PCM
     ring snapshot -> spectrum chains -> bars frame (512x256), as
     ``__graft_entry__.entry``. ``fn(state, audio, modified, time,
-    interp_mod, gravity_g)`` is ``Renderer.step``: the new state and the
-    (256, 512, 4) float32 frame on ``device``."""
+    interp_mod, gravity_g)`` is ``Renderer.jit_step()``, the compiled
+    step whose state is donated: the new state and the (256, 512, 4)
+    float32 frame on ``device`` (the step's static output, overwritten
+    by its next call of the same branch)."""
     lc = loader.load(cli_requests=BARS_512, force_module="bars")
     r = Renderer(lc, device=device)
     rng = np.random.default_rng(0)
     audio = torch.as_tensor(
         rng.standard_normal((2, lc.cfg.bufsize)).astype(np.float32) * 0.2,
         device=r.device)
+    step = r.jit_step()
 
     def fn(state, audio, modified, time, interp_mod, gravity_g):
-        return r.step(state, audio, modified, time, interp_mod, gravity_g)
+        return step(state, audio, modified, time, interp_mod, gravity_g)
 
     example_args = (
         r.init_state(),
@@ -97,8 +102,10 @@ def _host_batch(n_streams: int, cfg) -> dict:
 
 
 def _step(br, state, ex):
-    return br.step(state, ex["audio"], ex["modified"], ex["time"],
-                   ex["interp_mod"], ex["gravity_g"])
+    """One compiled step of ``br`` (float32 frames)."""
+    return br.jit_step(quantize=False)(
+        state, ex["audio"], ex["modified"], ex["time"], ex["interp_mod"],
+        ex["gravity_g"])
 
 
 def _whole(sr: ShardedRenderer, frames) -> torch.Tensor:
@@ -198,7 +205,9 @@ def _scaling_table(devices, n_devices: int, per_device: int = 64,
     """windows/s of the spectrum update on 1 device vs all
     ``n_devices`` (streams-axis data parallelism at ``per_device``
     streams a device, 512x256 bars, weak scaling), host clock around
-    ``updates`` updates of every shard back to back on fresh inputs;
+    ``updates`` updates of every shard back to back on fresh inputs,
+    each a replay of the shard's ``jit_update`` (after a warm-up call
+    that captures it);
     with the update's bytes a device in place of the JAX table's
     compiled flops (constant iff the streams divide over the devices)."""
     lc = loader.load(cli_requests=BARS_512, force_module="bars")
@@ -212,22 +221,24 @@ def _scaling_table(devices, n_devices: int, per_device: int = 64,
         for sh, (sl, _) in zip(sr.shards, sr.blocks):
             pipe = sh.renderer.pipeline
             a = torch.as_tensor(audio[sl], device=sh.device)
-            g = torch.full((sl.stop - sl.start,), np.float32(
-                lc.cfg.gravity_step / lc.cfg.nominal_ups), device=sh.device)
-            runs.append([pipe, pipe.init_state(batch=(a.shape[0],)),
+            g = np.full((sl.stop - sl.start,), np.float32(
+                lc.cfg.gravity_step / lc.cfg.nominal_ups))
+            runs.append([pipe.jit_update(),
+                         pipe.init_state(batch=(a.shape[0],)),
                          [a * (1.0 + 1e-3 * k) for k in range(updates)], g])
 
         def step(i, runs=runs):
             for run in runs:
-                pipe, chains, feeds, g = run
-                run[1] = pipe.advance(chains, feeds[i][:, 0], feeds[i][:, 1],
-                                      gravity_g=g)
+                update, chains, feeds, g = run
+                run[1], _ = update(chains, feeds[i][:, 0], feeds[i][:, 1],
+                                   None, None, g)
 
         ms = host_ms(step, updates, devices[:ndev])
         out[f"{ndev}dev"] = {"streams": S, "windows_per_s": S / (ms / 1e3)}
-        pipe, chains = runs[0][:2]
-        nbytes[f"{ndev}dev"] = update_bytes(pipe.sz, chains.count.shape[0],
-                                            lc.cfg.avg_frames)
+        chains = runs[0][1]
+        nbytes[f"{ndev}dev"] = update_bytes(
+            sr.shards[0].renderer.pipeline.sz, chains.count.shape[0],
+            lc.cfg.avg_frames)
     w1 = out["1dev"]["windows_per_s"]
     wn = out[f"{n_devices}dev"]["windows_per_s"]
     out["weak_scaling_efficiency"] = wn / (w1 * n_devices)

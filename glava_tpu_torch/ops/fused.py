@@ -323,35 +323,41 @@ def update_route(n: int) -> str:
 
 
 def chain_update(pcm, grav, hist, slot, fft_scale, fft_cutoff, g, window,
-                 age_weights, clamp: bool = True):
+                 age_weights, clamp: bool = True, avg=None):
     """:func:`fused_update_plain` on the tensors' own device, IN PLACE on
-    ``grav`` and ``hist`` like the kernel; returns ``(grav, hist, avg)``.
+    ``grav`` and ``hist`` like the kernel (and on ``avg`` when given);
+    returns ``(grav, hist, avg)``.
     No kernel: the bufsizes below MIN_N on any device, every bufsize on
     the CPU, and the CPU path (``clamp`` off: ``setaccelfft false``,
     where the JAX package takes its XLA chain, never the Pallas kernel,
     glava_tpu/pipeline.py:128-129) at every bufsize."""
-    g2, h2, avg = fused_update_plain(pcm, grav, hist, slot, fft_scale,
-                                     fft_cutoff, g, window, age_weights,
-                                     clamp)
+    g2, h2, a2 = fused_update_plain(pcm, grav, hist, slot, fft_scale,
+                                    fft_cutoff, g, window, age_weights,
+                                    clamp)
     grav.copy_(g2)
     hist.copy_(h2)
+    if avg is None:
+        return grav, hist, a2
+    avg.copy_(a2)
     return grav, hist, avg
 
 
 def fused_update(pcm, grav, hist, slot, fft_scale, fft_cutoff, g,
-                 window, age_weights):
+                 window, age_weights, avg=None):
     """The fused update, IN PLACE on ``grav`` and ``hist``; returns
-    ``(grav, hist, avg)`` with ``avg`` newly allocated.
+    ``(grav, hist, avg)``, the average written into ``avg`` when given
+    (a step captured into a CUDA graph keeps its outputs at fixed
+    addresses), else newly allocated.
 
     CPU tensors take :func:`chain_update`. CUDA tensors launch the
     kernel, or raise when the inputs are not what it takes."""
     if pcm.device.type == "cpu":
         return chain_update(pcm, grav, hist, slot, fft_scale, fft_cutoff, g,
-                            window, age_weights)
+                            window, age_weights, avg=avg)
     if pcm.device.type != "cuda":
         raise ValueError(f"fused_update: unsupported device {pcm.device}")
     return _launch(pcm, grav, hist, slot, fft_scale, fft_cutoff, g,
-                   window, age_weights)
+                   window, age_weights, avg)
 
 
 def _twiddles(plan: FFTPlan, device: torch.device) -> torch.Tensor:
@@ -432,7 +438,7 @@ def _kernel(entry: str = "glava_fused_update"):
 
 
 def _launch(pcm, grav, hist, slot, fft_scale, fft_cutoff, g, window,
-            age_weights):
+            age_weights, avg=None):
     global launches, split_launches
     if pcm.ndim != 2 or hist.ndim != 4:
         raise ValueError("fused_update: pcm must be (B, n), hist (B, F, 2, m)")
@@ -458,7 +464,9 @@ def _launch(pcm, grav, hist, slot, fft_scale, fft_cutoff, g, window,
         _check_aligned(name, t, nbytes)
 
     tw = _twiddles(plan, dev)
-    avg = torch.empty((B, 2, m), dtype=f32, device=dev)
+    if avg is None:
+        avg = torch.empty((B, 2, m), dtype=f32, device=dev)
+    _check("avg", avg, (B, 2, m), f32, dev)
     ptrs = (pcm.data_ptr(), window.data_ptr(), tw.data_ptr(),
             age_weights.data_ptr(), slot.data_ptr(), fft_scale.data_ptr(),
             fft_cutoff.data_ptr(), g.data_ptr(), grav.data_ptr(),

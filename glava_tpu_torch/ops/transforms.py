@@ -50,9 +50,14 @@ def decimate(x: torch.Tensor, bufscale: int) -> torch.Tensor:
 def interpolate(start: torch.Tensor, end: torch.Tensor, mod) -> torch.Tensor:
     """Linear blend between audio keyframes by ``min(mod, 1)``, ``mod =
     uratio * kcounter`` (render.c:1804-1807). ``mod`` is a number, or
-    one per stream (S,) against (S, ...) keyframes; it is taken in
-    float32, as the JAX package takes it."""
-    m = np.minimum(np.asarray(mod, np.float32), np.float32(1.0))
-    m = torch.as_tensor(m, device=start.device)
+    one per stream (S,) against (S, ...) keyframes, on the host or a
+    float32 tensor on the keyframes' device (a compiled step's static
+    input); it is taken in float32, as the JAX package takes it."""
+    if isinstance(mod, torch.Tensor):
+        m = torch.clamp(mod, max=1.0)
+    else:
+        m = torch.as_tensor(
+            np.minimum(np.asarray(mod, np.float32), np.float32(1.0)),
+            device=start.device)
     m = m.reshape(m.shape + (1,) * (start.ndim - m.ndim))
     return start + (end - start) * m

@@ -24,8 +24,15 @@ modified. On the CPU path with ``setinterpolate`` on, the feed blends
 each stream's two newest keyframes by its ``interp_mod`` before the
 gated advance (glava_tpu/parallel/batch.py:76-88). Per-stream scalars
 (``time``, ``interp_mod``, ``gravity_g``) and pipe values (name ->
-(S, ...)) have a leading stream axis; the ``modified`` mask is read on
-the host.
+(S, ...)) have a leading stream axis; the eager step reads the
+``modified`` mask on the host.
+
+``jit_step`` of each renderer is the compiled fleet step, the
+counterpart of the JAX fleet's ``jax.jit(step, donate_argnums=(0,))``
+(glava_tpu/runtime/fleet.py:185-191): captured into a CUDA graph and
+replayed a frame (``compiled.py``). Inside it every stream advances and
+the update is selected on the device by the mask, as the JAX step
+computes it; the pipe rows, host values, pick the graph.
 
 :class:`ShardedRenderer` is the counterpart of the JAX
 ``BatchedRenderer.sharded_step``/``shard_state`` and
@@ -40,6 +47,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from glava_tpu_torch import compiled
 from glava_tpu_torch.config.loader import LoadedConfig
 from glava_tpu_torch.ops import transforms
 from glava_tpu_torch.pipeline import (
@@ -82,6 +90,29 @@ def _advance(pipeline: AudioPipeline, state: RenderState, audio, modified,
     return chains, key_start, key_end, feed
 
 
+def _advance_static(pipeline: AudioPipeline, st: RenderState, inp: dict):
+    """:func:`_advance` on a compiled step's static state and inputs
+    (``audio``, ``modified``, ``interp``, ``rows``), in place: every
+    stream advances and the mask selects on the device, with no read of
+    the mask on the host -> the feed."""
+    cfg = pipeline.cfg
+    m = inp["modified"]
+    m3 = m[:, None, None]
+    st.key_start.copy_(torch.where(m3, st.key_end, st.key_start))
+    st.key_end.copy_(torch.where(m3, inp["audio"], st.key_end))
+    if cfg.interpolate and not cfg.accel_fft:
+        feed = transforms.interpolate(st.key_start, st.key_end, inp["interp"])
+    else:
+        feed = st.key_end
+    carried = clone_state(st.chains)
+    pipeline.advance(st.chains, feed[:, 0, :], feed[:, 1, :],
+                     rows=inp["rows"])
+    for t, sel in zip(st.chains,
+                      pipeline.select_updated(st.chains, carried, m)):
+        t.copy_(sel)
+    return feed
+
+
 def _raster(rend: Renderer, textures: dict, time, pipe: dict | None,
             n: int) -> tuple:
     """Channel planes of ``n`` streams, each broadcastable to (n, H, W):
@@ -104,11 +135,13 @@ def _raster(rend: Renderer, textures: dict, time, pipe: dict | None,
         for c in range(4))
 
 
-def _frames(rend: Renderer, planes, n: int, quantize: bool) -> torch.Tensor:
+def _frames(rend: Renderer, planes, n: int, quantize: bool,
+            guard: bool = True) -> torch.Tensor:
     """(n, H, W, 4) frames: float32, or uint8 when ``quantize`` (the
     serving wire format, quantized per channel plane before the
-    interleave)."""
-    if profiling.nan_guard_enabled():
+    interleave). ``guard``: the NaN guard, when it is on, checks the
+    planes here (a compiled step checks them after its replay)."""
+    if guard and profiling.nan_guard_enabled():
         profiling.check_nans(planes)
     pack = interleave_u8 if quantize else interleave
     return pack(planes, rend.height, rend.screen[0], rend.device,
@@ -155,6 +188,26 @@ class BatchedRenderer:
         planes = _raster(rend, textures, _host(time), _pipe_rows(pipe), S)
         return (RenderState(chains, key_start, key_end),
                 _frames(rend, planes, S, quantize))
+
+    def used_renderers(self) -> list[Renderer]:
+        return [self.renderer]
+
+    def jit_step(self, quantize: bool = True):
+        """The compiled fleet step (:class:`CompiledFleetStep`), frames
+        as :meth:`step` gives them. Raises ``ValueError`` for a module
+        that keeps the eager step."""
+        compiled.check_native(self.renderer.module)
+        return CompiledFleetStep(self, self.renderer.pipeline,
+                                 [self.renderer], quantize)
+
+    def _static_frames(self, st: RenderState, inp: dict, pipe,
+                       quantize: bool):
+        rend = self.renderer
+        feed = _advance_static(rend.pipeline, st, inp)
+        textures = rend.pipeline.textures_from(st.chains, feed[:, 0, :],
+                                               feed[:, 1, :])
+        planes = _raster(rend, textures, inp["time"], pipe, self.n_streams)
+        return planes, _frames(rend, planes, self.n_streams, quantize, False)
 
     def update_textures(self, chains: FusedChainState, audio, gravity_g):
         """(S, 2, bufsize) -> (new chains, per-uniform (S, sz) textures),
@@ -230,6 +283,10 @@ class MixedBatchedRenderer:
         inv = np.argsort(np.asarray(order))
         self._inv = (None if np.array_equal(inv, np.arange(len(order)))
                      else torch.as_tensor(inv, device=self.device))
+        # each group's streams as an index on the device
+        self._group_rows = [torch.as_tensor(g, dtype=torch.int64,
+                                            device=self.device)
+                            for g in self._groups]
 
     def init_state(self) -> RenderState:
         S = self.n_streams
@@ -246,24 +303,53 @@ class MixedBatchedRenderer:
             self.pipeline, state, audio, modified, interp_mod, gravity_g)
         textures = self.pipeline.textures_from(chains, feed[:, 0, :],
                                                feed[:, 1, :])
-        time = _host(time)
-        pipe = _pipe_rows(pipe)
-        parts = []
+        _, frames = self._group_frames(textures, _host(time),
+                                       _pipe_rows(pipe), quantize, True)
+        return RenderState(chains, key_start, key_end), frames
+
+    def _group_frames(self, textures, time, pipe, quantize: bool,
+                      guard: bool):
+        """Each variant's group rendered by its renderer, the frames put
+        back in stream order -> (every group's planes, frames)."""
+        parts, planes_all = [], []
         for k, idxs in enumerate(self._groups):
             if not idxs:
                 continue
             rend = self.renderers[k]
             rows = list(idxs)
-            rows_t = torch.as_tensor(rows, device=self.device)
+            rows_t = self._group_rows[k]
             sub_tex = {un: textures[cn][rows_t]
                        for un, cn in self._variant_tex[k].items()}
             sub_pipe = {n: v[rows] for n, v in pipe.items()} if pipe else None
-            planes = _raster(rend, sub_tex, time[rows], sub_pipe, len(rows))
-            parts.append(_frames(rend, planes, len(rows), quantize))
+            planes = _raster(rend, sub_tex, time[rows_t]
+                             if isinstance(time, torch.Tensor)
+                             else time[rows], sub_pipe, len(rows))
+            planes_all.extend(planes)
+            parts.append(_frames(rend, planes, len(rows), quantize, guard))
         frames = torch.cat(parts) if len(parts) > 1 else parts[0]
         if self._inv is not None:
             frames = frames[self._inv]
-        return RenderState(chains, key_start, key_end), frames
+        return planes_all, frames
+
+    def used_renderers(self) -> list[Renderer]:
+        """The variants' renderers that render some stream."""
+        return [r for r, g in zip(self.renderers, self._groups) if g]
+
+    def jit_step(self, quantize: bool = True):
+        """The compiled fleet step (:class:`CompiledFleetStep`), frames
+        as :meth:`step` gives them. Raises ``ValueError`` when a variant
+        keeps the eager step."""
+        for rend in self.used_renderers():
+            compiled.check_native(rend.module)
+        return CompiledFleetStep(self, self.pipeline, self.renderers, quantize)
+
+    def _static_frames(self, st: RenderState, inp: dict, pipe,
+                       quantize: bool):
+        feed = _advance_static(self.pipeline, st, inp)
+        textures = self.pipeline.textures_from(st.chains, feed[:, 0, :],
+                                               feed[:, 1, :])
+        return self._group_frames(textures, inp["time"], pipe, quantize,
+                                  False)
 
 
 class ShardedRenderer:
@@ -342,6 +428,102 @@ class ShardedRenderer:
                              gravity_g[sl],
                              {k: v[sl] for k, v in pipe.items()} if pipe
                              else None, quantize)
+            out_states.append(st)
+            frames.append(fr)
+        return out_states, frames
+
+    def used_renderers(self) -> list[Renderer]:
+        return [r for sh in self.shards for r in sh.used_renderers()]
+
+    def jit_step(self, quantize: bool = True):
+        """The compiled sharded step (:class:`CompiledShardedStep`):
+        one graph a device block, replayed back to back."""
+        return CompiledShardedStep(self, quantize)
+
+
+class CompiledFleetStep:
+    """``jit_step`` of a :class:`BatchedRenderer` or
+    :class:`MixedBatchedRenderer`: ``step(state, audio, modified, time,
+    interp_mod, gravity_g, pipe=None) -> (state, frames)`` with the
+    eager step's arguments, (S, ...) on the host or the device. The
+    state is donated; the audio (S, 2, bufsize), the mask, the
+    per-stream scalars and the parameter rows go into static inputs in
+    one host-to-device copy (``compiled.Step``); the pipe rows, host
+    values, pick the graph, captured anew when they change. The NaN
+    guard, when it is on, checks the frame's planes after the replay."""
+
+    def __init__(self, br, pipeline: AudioPipeline, renderers: list,
+                 quantize: bool):
+        self.br = br
+        self.pipeline = pipeline
+        self.quantize = quantize
+        colors = [c for r in renderers for c in r.module_ctx.colors]
+        self.step = compiled.Step(
+            br.device,
+            {"audio": torch.float32, "modified": torch.bool,
+             "time": torch.float32, "interp": torch.float32,
+             "rows": torch.float32},
+            keep=lambda: [c.last for c in colors])
+
+    def __call__(self, state, audio, modified, time, interp_mod, gravity_g,
+                 pipe: dict | None = None):
+        S = self.br.n_streams
+        st = self.step.donate(state)
+
+        def per_stream(v, dtype):
+            if isinstance(v, torch.Tensor):
+                return v.reshape(S).to(dtype)
+            return np.broadcast_to(np.asarray(v, compiled.NP[dtype]), (S,))
+
+        rows = self.pipeline.host_rows(len(self.pipeline.fft_uniforms) * S,
+                                       gravity_g=_host(gravity_g))
+        self.step.load(audio=audio, modified=per_stream(modified, torch.bool),
+                       time=per_stream(time, torch.float32),
+                       interp=per_stream(interp_mod, torch.float32),
+                       rows=rows)
+        rows_pipe = _pipe_rows(pipe)
+        guard = profiling.nan_guard_enabled()
+        frames, nan = self.step.run(guard, self._body, rows_pipe,
+                                    compiled.pipe_key(rows_pipe))
+        if nan is not None and bool(nan):
+            raise FloatingPointError("NaN in frame")
+        return st, frames
+
+    def _body(self, guard: bool, pipe):
+        planes, frames = self.br._static_frames(
+            self.step.state, self.step.inputs, pipe, self.quantize)
+        if not guard:
+            return frames, None
+        flags = [torch.isnan(p).any() for p in planes
+                 if isinstance(p, torch.Tensor)]
+        return frames, torch.stack(flags).any()
+
+
+class CompiledShardedStep:
+    """``jit_step`` of a :class:`ShardedRenderer`: one compiled fleet
+    step a device block, each replaying its own graph, back to back on
+    each device's current stream with no host synchronisation between
+    them (the counterpart of the JAX one ``jit`` over the mesh,
+    glava_tpu/parallel/batch.py:151-156). Arguments as
+    :meth:`ShardedRenderer.step`, on the host; each block's slice goes
+    into its device's static inputs."""
+
+    def __init__(self, sr, quantize: bool):
+        self.sr = sr
+        self.steps = [sh.jit_step(quantize) for sh in sr.shards]
+
+    def __call__(self, states, audio, modified, time, interp_mod, gravity_g,
+                 pipe: dict | None = None):
+        modified, time = _host(modified), _host(time)
+        interp_mod, gravity_g = _host(interp_mod), _host(gravity_g)
+        audio = _host(audio)
+        pipe = _pipe_rows(pipe)
+        out_states, frames = [], []
+        for step, (sl, _), st in zip(self.steps, self.sr.blocks, states):
+            st, fr = step(st, audio[sl], modified[sl], time[sl],
+                          interp_mod[sl], gravity_g[sl],
+                          {k: v[sl] for k, v in pipe.items()} if pipe
+                          else None)
             out_states.append(st)
             frames.append(fr)
         return out_states, frames

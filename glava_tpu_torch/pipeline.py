@@ -55,6 +55,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from glava_tpu_torch import compiled
 from glava_tpu_torch.config.state import RenderConfig
 from glava_tpu_torch.device import resolve
 from glava_tpu_torch.ops import fused, smooth, smoothing, transforms, windows
@@ -141,20 +142,23 @@ class AudioPipeline:
             count=torch.zeros(B, dtype=torch.int32, device=self.device),
         )
 
-    def _row_params(self, B: int, fft_scale, fft_cutoff, gravity_g):
-        """Scalar or per-stream (S,) parameters -> (3, B) float32 rows
-        (per-stream values tile over the U uniforms of each stream)."""
+    def _params(self, fft_scale, fft_cutoff, gravity_g) -> tuple:
+        """The three update parameters, the configuration's for None."""
         cfg = self.cfg
-        vals = (
+        return (
             cfg.fft_scale if fft_scale is None else fft_scale,
             cfg.fft_cutoff if fft_cutoff is None else fft_cutoff,
             cfg.gravity_step / cfg.nominal_ups if gravity_g is None else gravity_g,
         )
+
+    def _row_params(self, B: int, fft_scale, fft_cutoff, gravity_g):
+        """Scalar or per-stream (S,) parameters -> (3, B) float32 rows
+        (per-stream values tile over the U uniforms of each stream)."""
+        vals = self._params(fft_scale, fft_cutoff, gravity_g)
         if all(np.ndim(v) == 0 and not isinstance(v, torch.Tensor)
                for v in vals):
             # host scalars: one host-to-device copy for all three rows
-            host = np.repeat(np.asarray(vals, np.float32)[:, None], B, axis=1)
-            return torch.as_tensor(host, device=self.device)
+            return torch.as_tensor(self.host_rows(B, *vals), device=self.device)
         U = len(self.fft_uniforms)
         rows = []
         for v in vals:
@@ -164,14 +168,33 @@ class AudioPipeline:
             rows.append(t.expand(B) if t.ndim == 0 else t)
         return torch.stack(rows).contiguous()
 
+    def host_rows(self, B: int, fft_scale=None, fft_cutoff=None,
+                  gravity_g=None) -> np.ndarray:
+        """The (3, B) float32 parameter rows of host values (scalars or
+        per-stream (S,) arrays; None takes the configuration's) on the
+        host: what a compiled step writes into its staging buffer, to
+        reach its static rows in the frame's one host-to-device copy."""
+        U = len(self.fft_uniforms)
+        out = np.empty((3, B), np.float32)
+        for r, v in enumerate(self._params(fft_scale, fft_cutoff,
+                                           gravity_g)):
+            v = np.asarray(v, np.float32)
+            out[r] = np.repeat(v, U) if v.ndim else v
+        return out
+
     # -- state transition --------------------------------------------------
 
     def advance(self, state: FusedChainState, audio_l: torch.Tensor,
                 audio_r: torch.Tensor, *, fft_scale=None, fft_cutoff=None,
-                gravity_g=None) -> FusedChainState:
+                gravity_g=None, rows: torch.Tensor | None = None,
+                ) -> FusedChainState:
         """Apply one audio update to every row. ``audio_l``/``audio_r``
-        are (*batch, bufsize). The gravity and history buffers of
-        ``state`` are updated in place and carried into the result. A
+        are (*batch, bufsize). Every tensor of ``state`` (gravity,
+        history, the average and the counter) is updated in place and
+        is the result's, so a captured step keeps its state at the
+        addresses of the capture. ``rows``, when given, is the (3, B)
+        parameter buffer on the device (a compiled step's static input,
+        :meth:`host_rows`) and the three parameters are not read. A
         module with no fft uniform has nothing to update."""
         cfg = self.cfg
         if not self.fft_uniforms:
@@ -184,19 +207,22 @@ class AudioPipeline:
                           dim=-2)
         pcm = pcm.reshape(-1, self.sz).to(torch.float32).contiguous()
         B = pcm.shape[0]
-        scale, cutoff, g = self._row_params(B, fft_scale, fft_cutoff, gravity_g)
+        if rows is None:
+            rows = self._row_params(B, fft_scale, fft_cutoff, gravity_g)
+        scale, cutoff, g = rows
         if self.route == "kernel":
-            grav, hist, avg = fused.fused_update(
-                pcm, state.gravity, state.history, state.count,
-                scale, cutoff, g, self.window, self.age_weights)
-        else:
-            grav, hist, avg = fused.chain_update(
+            fused.fused_update(
                 pcm, state.gravity, state.history, state.count,
                 scale, cutoff, g, self.window, self.age_weights,
-                clamp=cfg.accel_fft)
+                avg=state.avg)
+        else:
+            fused.chain_update(
+                pcm, state.gravity, state.history, state.count,
+                scale, cutoff, g, self.window, self.age_weights,
+                clamp=cfg.accel_fft, avg=state.avg)
         # store mod F: only slot/age math ever consumes count
-        count = torch.remainder(state.count + 1, cfg.avg_frames).to(torch.int32)
-        return FusedChainState(grav, hist, avg, count)
+        state.count.add_(1).remainder_(cfg.avg_frames)
+        return state
 
     # -- textures ---------------------------------------------------------
 
@@ -263,6 +289,51 @@ class AudioPipeline:
         new_state = self.advance(state, audio_l, audio_r, fft_scale=fft_scale,
                                  fft_cutoff=fft_cutoff, gravity_g=gravity_g)
         return new_state, self.textures_from(new_state, audio_l, audio_r)
+
+    # -- convenience: the compiled update ---------------------------------
+
+    def jit_update(self):
+        """The compiled update, the counterpart of the JAX package's
+        ``jit_update`` (``jax.jit(step, donate_argnums=(0,))``):
+        ``step(state, audio_l, audio_r, fft_scale, fft_cutoff, gravity_g)
+        -> (state, textures)``. The state is donated: the step owns it,
+        and the state it returns is the step's static buffers
+        (:class:`CompiledUpdate`); on a card the update is captured into
+        a CUDA graph once and replayed a call."""
+        return CompiledUpdate(self)
+
+
+class CompiledUpdate:
+    """:meth:`AudioPipeline.jit_update`'s callable. Per call the two
+    (*batch, bufsize) channels and the (3, B) parameter rows (from
+    ``fft_scale``, ``fft_cutoff`` and ``gravity_g``: numbers, per-stream
+    (S,) arrays or tensors, read on the host, or None for the
+    configuration's) go into static inputs, the host values in one
+    host-to-device copy (``compiled.Step``); the update and the
+    textures run on the donated state in place. The textures are the
+    step's static outputs, overwritten by the next call."""
+
+    def __init__(self, pipeline: AudioPipeline):
+        self.pipeline = pipeline
+        self.step = compiled.Step(
+            pipeline.device,
+            {"audio_l": torch.float32, "audio_r": torch.float32,
+             "rows": torch.float32})
+
+    def __call__(self, state, audio_l, audio_r, fft_scale=None,
+                 fft_cutoff=None, gravity_g=None):
+        st = self.step.donate(state)
+        rows = self.pipeline.host_rows(
+            st.count.shape[0], *(v.cpu().numpy() if isinstance(v, torch.Tensor)
+                                 else v for v in (fft_scale, fft_cutoff,
+                                                  gravity_g)))
+        self.step.load(audio_l=audio_l, audio_r=audio_r, rows=rows)
+        return st, self.step.run(None, self._body)
+
+    def _body(self, _branch, _scope):
+        p, st, inp = self.pipeline, self.step.state, self.step.inputs
+        p.advance(st, inp["audio_l"], inp["audio_r"], rows=inp["rows"])
+        return p.textures_from(st, inp["audio_l"], inp["audio_r"])
 
 
 def clone_state(state: FusedChainState) -> FusedChainState:

@@ -144,6 +144,9 @@ class ModuleContext:
     # the band of frame rows [r0, r1) the module renders (row 0 at the
     # bottom); None: the whole frame
     rows: tuple[int, int] | None = None
+    # every StreamColors the build made (a compiled step keeps the colours
+    # its graph reads alive, StreamColors.last)
+    colors: list = field(default_factory=list)
 
     @property
     def band(self) -> tuple[int, int]:
@@ -246,6 +249,11 @@ class ModuleBuild:
     batched: bool = False
     # the planes cover the context's band of rows only (module docstring)
     banded: bool = False
+    # "native" (a built-in module: its passes read no host value and no
+    # tensor on the host, so its step is captured, ``compiled.py``),
+    # "shader" (the interpreter) or "python" (a user Python module);
+    # the last two keep the eager step
+    kind: str = "python"
 
     def render(self, inputs: PassInputs) -> Planes:
         out = inputs.prev
@@ -338,7 +346,9 @@ class StreamColors:
     shape, left-padded to ``ndim`` dimensions. The expressions run on
     the host once for each distinct stream, and the result (passed
     through ``derive`` when given) is cached by the pipe values, so a
-    frame whose values did not change costs one hash.
+    frame whose values did not change costs one hash. ``last`` is the
+    result of the latest call: a step captured into a CUDA graph reads
+    those tensors, and keeps them alive once the cache lets them go.
     """
 
     CACHE = 8     # distinct pipe values kept
@@ -351,6 +361,8 @@ class StreamColors:
         self.derive = derive
         self.variables = variables
         self._cache: dict = {}
+        self.last = None
+        ctx.colors.append(self)
 
     def __call__(self, pipe: dict | None):
         rows = {k: _host_f32(v) for k, v in (pipe or {}).items()}
@@ -361,6 +373,7 @@ class StreamColors:
             if len(self._cache) >= self.CACHE:
                 self._cache.pop(next(iter(self._cache)))
             self._cache[key] = hit
+        self.last = hit
         return hit
 
     def _build(self, rows: dict[str, np.ndarray]):

@@ -127,4 +127,5 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
     # bars/2.frag: premultiply, compiled only when USE_ALPHA == 1
     if use_alpha and ctx.cfg.premultiply_alpha:
         passes.append(base.premultiply_pass)
-    return base.ModuleBuild("bars", passes, batched=True, banded=True)
+    return base.ModuleBuild("bars", passes, batched=True, banded=True,
+                            kind="native")

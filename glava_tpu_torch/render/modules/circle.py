@@ -143,4 +143,4 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
         return tuple(o_cl[c] * coef for c in range(4))
 
     return base.ModuleBuild("circle", [pass_fused], [lookup], batched=True,
-                            banded=True)
+                            banded=True, kind="native")

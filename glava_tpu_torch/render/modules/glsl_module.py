@@ -264,4 +264,4 @@ def _build(name: str, files: list[Path], ctx: base.ModuleContext,
 
     if not passes:
         raise ShaderError(f"module '{name}': every pass disabled")
-    return base.ModuleBuild(name, passes)
+    return base.ModuleBuild(name, passes, kind="shader")

@@ -222,4 +222,5 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
     if ctx.cfg.premultiply_alpha:
         passes.append(base.premultiply_pass)  # graph/4.frag
 
-    return base.ModuleBuild("graph", passes, batched=True, banded=True)
+    return base.ModuleBuild("graph", passes, batched=True, banded=True,
+                            kind="native")

@@ -203,5 +203,5 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
     if ctx.cfg.premultiply_alpha:
         passes.append(base.premultiply_pass)  # radial/2.frag
     return base.ModuleBuild("radial", passes, [lookup_v], batched=True,
-                            banded=True)
+                            banded=True, kind="native")
 

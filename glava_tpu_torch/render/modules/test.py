@@ -34,4 +34,5 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
     passes = [pass1, pass2]
     if ctx.cfg.premultiply_alpha:
         passes.append(base.premultiply_pass)  # test/3.frag
-    return base.ModuleBuild("test", passes, batched=True, banded=True)
+    return base.ModuleBuild("test", passes, batched=True, banded=True,
+                            kind="native")

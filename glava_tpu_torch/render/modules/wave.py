@@ -81,7 +81,8 @@ def build(ctx: base.ModuleContext) -> base.ModuleBuild:
         return neighbor_outline_pass(inputs.prev, outline, edge_columns=True,
                                      halo=halo)
 
-    return base.ModuleBuild("wave", [pass1, pass2], batched=True, banded=True)
+    return base.ModuleBuild("wave", [pass1, pass2], batched=True, banded=True,
+                            kind="native")
 
 
 def crop_rows(plane, halo: tuple[int, int]):

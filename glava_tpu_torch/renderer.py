@@ -2,9 +2,12 @@
 
 The device-side equivalent of ``rd_update`` (glava/render.c:1743-2417):
 per frame it runs the audio update when a new ring snapshot arrived,
-rasterizes the module's pass chain and composites the result. Torch
-runs eagerly, so the JAX package's ``lax.cond`` on ``modified`` is a
-Python ``if`` here and there is no compile step. On the CPU path with
+rasterizes the module's pass chain and composites the result. The
+eager step (:meth:`Renderer.step_planes` and its wire forms) takes the
+JAX package's ``lax.cond`` on ``modified`` as a Python ``if``;
+:meth:`Renderer.jit_step` is the compiled step, the counterpart of the
+JAX ``jit_step``: captured into a CUDA graph a branch and replayed
+(``compiled.py``). On the CPU path with
 ``setinterpolate`` on, the feed blends the two newest keyframes by
 ``interp_mod`` and the update runs every frame (render.c:1792-1809,
 glava_tpu/renderer.py:154-162).
@@ -26,6 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from glava_tpu_torch import compiled
 from glava_tpu_torch.config.loader import LoadedConfig, builtin_variables
 from glava_tpu_torch.device import resolve
 from glava_tpu_torch.ops import transforms
@@ -84,6 +88,7 @@ class Renderer:
             channels=1 if cfg.mirror_input else 2,
             rows=self.rows,
         )
+        self.module_ctx = mctx
         self.module = build_module(self.loaded.module, mctx, overrides)
         # the band a module drew over the whole frame is cut from it
         self._cut = self.rows is not None and not self.module.banded
@@ -172,23 +177,36 @@ class Renderer:
                                       device=self.device)
         else:
             key_start, key_end = state.key_start, state.key_end
+        chains, feed = self._update(state.chains, key_start, key_end,
+                                    modified, interp_mod,
+                                    gravity_g=gravity_g)
+        planes = self._planes(chains, feed, time, pipe, bg)
+        if profiling.nan_guard_enabled():
+            profiling.check_nans(planes)
+        return RenderState(chains, key_start, key_end), planes
+
+    def _update(self, chains, key_start, key_end, modified: bool, interp_mod,
+                gravity_g=None, rows=None):
+        """The audio update of one frame -> (chains, feed)."""
         cfg = self.cfg
         if cfg.interpolate and not cfg.accel_fft:
             # CPU-path interpolation; the accel path force-disables it
             # (render.c:2161-2173). The feed changes every frame, so the
             # transforms rerun every frame.
             feed = transforms.interpolate(key_start, key_end, interp_mod)
-            chains = self.pipeline.advance(
-                state.chains, feed[..., 0, :], feed[..., 1, :],
-                gravity_g=gravity_g)
         else:
             feed = key_end
             # transforms run only when new audio arrived (render.c:2122);
             # otherwise the carried state is reused (render.c:2268-2272)
-            chains = (self.pipeline.advance(
-                state.chains, feed[..., 0, :], feed[..., 1, :],
-                gravity_g=gravity_g) if modified else state.chains)
+            if not modified:
+                return chains, feed
+        chains = self.pipeline.advance(chains, feed[..., 0, :],
+                                       feed[..., 1, :], gravity_g=gravity_g,
+                                       rows=rows)
+        return chains, feed
 
+    def _planes(self, chains, feed, time, pipe, bg) -> tuple:
+        """The frame's channel planes from the (updated) chains."""
         # stateless uniforms (wave) read the feed
         textures = self.pipeline.textures_from(
             chains, feed[..., 0, :], feed[..., 1, :])
@@ -198,12 +216,8 @@ class Renderer:
                 k: np.asarray(v, np.float32)[None] for k, v in pipe.items()}
             planes = self.render_planes(
                 {k: t[None] for k, t in textures.items()}, time, rows, bg)
-            planes = tuple(p[0] if np.ndim(p) == 3 else p for p in planes)
-        else:
-            planes = self.render_planes(textures, time, None, bg)
-        if profiling.nan_guard_enabled():
-            profiling.check_nans(planes)
-        return RenderState(chains, key_start, key_end), planes
+            return tuple(p[0] if np.ndim(p) == 3 else p for p in planes)
+        return self.render_planes(textures, time, None, bg)
 
     def render_planes(self, textures: dict, time, pipe: dict | None,
                       bg: tuple | None = None) -> tuple:
@@ -254,6 +268,31 @@ class Renderer:
         st, planes = self.step_planes(*args, **kwargs)
         return st, yuv420_buffer(planes, h, w, self.device)
 
+    # -- the compiled step -------------------------------------------------
+
+    def jit_step(self, quantize: bool = False, yuv420: bool = False):
+        """The compiled step, the counterpart of the JAX ``jit_step``:
+        ``step(state, audio, modified, time, interp_mod=1.0,
+        gravity_g=None, pipe=None) -> (state, frame)``, the frame as
+        :meth:`step` gives it, or :meth:`step_u8`'s with ``quantize``,
+        or :meth:`step_yuv420`'s with ``yuv420``. The state is donated.
+        On a card each branch (``modified`` or not) is captured into a
+        CUDA graph once and replayed; on the CPU the same static-buffer
+        step runs eagerly (``compiled.py``). Raises ``ValueError`` for a
+        module that keeps the eager step (a shader or user Python
+        module)."""
+        compiled.check_native(self.module)
+        h, w = self.height, self.screen[0]
+        if yuv420:
+            if h % 2 or w % 2:
+                raise ValueError("yuv420 packing needs even dimensions")
+            return CompiledStep(
+                self, lambda p: yuv420_buffer(p, h, w, self.device))
+        if quantize:
+            return CompiledStep(
+                self, lambda p: interleave_u8(p, h, w, self.device))
+        return CompiledStep(self, lambda p: interleave(p, h, w, self.device))
+
     # -- golden-frame evaluation (render.c:2419-2453) -----------------------
 
     def test_evaluate(self, frame) -> bool:
@@ -268,6 +307,74 @@ class Renderer:
             got = got.astype(np.float64)
         want = np.asarray(expect, dtype=np.float64)
         return bool(np.all(np.abs(got - want) <= 0.5 / 255.0 + 1e-9))
+
+
+class CompiledStep:
+    """:meth:`Renderer.jit_step`'s callable. Per call: the audio
+    snapshot, ``time``, ``interp_mod`` and the parameter rows (from
+    ``gravity_g``) go into static inputs in one host-to-device copy; the
+    ``__bg__`` wallpaper planes into static planes, copied only when the
+    caller hands over another tensor; the pipe rows (host values) pick
+    the graphs, captured anew when they change. A branch is ``(modified,
+    wallpaper given, NaN guard on)``. The keyframe push, the update and
+    the raster run in place on the donated state (:meth:`_body`)."""
+
+    def __init__(self, rend: Renderer, pack):
+        self.rend = rend
+        self.pack = pack
+        self.rows_b = len(rend.pipeline.fft_uniforms)
+        self.bg = None          # static (4, H, W) wallpaper planes
+        self._bg_src = None
+        colors = rend.module_ctx.colors
+        self.step = compiled.Step(
+            rend.device,
+            {"audio": torch.float32, "time": torch.float32,
+             "interp": torch.float32, "rows": torch.float32},
+            keep=lambda: [c.last for c in colors])
+
+    def __call__(self, state, audio, modified, time, interp_mod=1.0,
+                 gravity_g=None, pipe=None):
+        rend = self.rend
+        st = self.step.donate(state)
+        pipe = dict(pipe or {})
+        bg = pipe.pop("__bg__", None)
+        if bg is not None and bg is not self._bg_src:
+            if self.bg is None:
+                self.bg = torch.empty((4,) + tuple(bg.shape[1:]),
+                                      dtype=torch.float32, device=rend.device)
+            self.bg.copy_(torch.as_tensor(bg, dtype=torch.float32))
+            self._bg_src = bg
+        self.step.load(audio=audio, time=np.float32(time),
+                       interp=np.float32(interp_mod),
+                       rows=rend.pipeline.host_rows(self.rows_b,
+                                                    gravity_g=gravity_g))
+        rows = {k: np.asarray(v, np.float32) for k, v in pipe.items()}
+        guard = profiling.nan_guard_enabled()
+        out = self.step.run((bool(modified), bg is not None, guard),
+                            self._body, scope=rows,
+                            scope_key=compiled.pipe_key(rows))
+        frame, nan = out if guard else (out, None)
+        if nan is not None and bool(nan):
+            raise FloatingPointError("NaN in frame")
+        return st, frame
+
+    def _body(self, branch, pipe):
+        modified, with_bg, guard = branch
+        rend, st, inp = self.rend, self.step.state, self.step.inputs
+        if modified:
+            # keyframe push in place (render.c:2348-2353)
+            st.key_start.copy_(st.key_end)
+            st.key_end.copy_(inp["audio"])
+        chains, feed = rend._update(st.chains, st.key_start, st.key_end,
+                                    modified, inp["interp"], rows=inp["rows"])
+        bg = rend.band_of(self.bg[i] for i in range(4)) if with_bg else None
+        planes = rend._planes(chains, feed, inp["time"], pipe, bg)
+        frame = self.pack(planes)
+        if not guard:
+            return frame
+        flags = [torch.isnan(p).any() for p in planes
+                 if isinstance(p, torch.Tensor)]
+        return frame, torch.stack(flags).any()
 
 
 def load_pipe_values(env, pipe: dict) -> None:

@@ -20,9 +20,14 @@ Loop mechanics carried over from the JAX package's engine:
   takes (YUV420 packed on the device for a ``yuv420`` sink at large
   even sizes, else RGBA8) and up to ``inflight`` frames in flight, each
   copied on a side stream into pinned host memory while newer steps
-  run.
+  run;
+* the compiled step: a native module's frame is ``renderer.jit_step``'s
+  (a CUDA graph a branch, replayed, ``compiled.py``), as the JAX engine
+  runs ``jit_step``; a shader or user Python module runs its eager step,
+  and the engine says so once (``compiled.note_eager``).
 
-Not carried over: the XLA compile cache (torch runs eagerly).
+Not carried over: the XLA compile cache (a graph is captured at a
+branch's first frame, in the process).
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from glava_tpu_torch import compiled
 from glava_tpu_torch.config import loader as config_loader
 from glava_tpu_torch.renderer import Renderer
 from glava_tpu_torch.runtime import audio as audio_mod
@@ -95,18 +101,21 @@ class FrameFetch:
     """Device frames to host frames, oldest first, up to ``depth`` in
     flight.
 
-    On CUDA each pushed frame is copied on a side stream, after the
-    compute stream's work so far, into a fresh pinned host tensor
-    (``non_blocking``), and an event marks the copy's end. A frame is
-    handed out only after its event completed, once more than ``depth``
-    frames are queued or on :meth:`drain`. The queue holds the device
-    frame until then, so the caching allocator cannot give its memory to
-    a newer step while the side stream still reads it. Each host tensor
+    On CUDA each pushed frame is first copied on the compute stream
+    into a ring of ``depth + 1`` device buffers, then from its ring
+    buffer on a side stream, after the compute stream's work so far,
+    into a fresh pinned host tensor (``non_blocking``), and an event
+    marks the copy's end. A frame is handed out only after its event
+    completed, once more than ``depth`` frames are queued or on
+    :meth:`drain`. A step may write its frame into the same static
+    buffer every call (a replayed CUDA graph's output): the ring buffer
+    the side stream reads is written again only ``depth + 1`` pushes
+    later, when its copy has been handed out. Each host tensor
     comes from the caching host allocator and is never written again
     after it is handed out: a sink may keep it (``LatestFrameSink``,
     ``AsyncSink``'s queue). A failed pinned allocation or copy raises;
-    nothing falls back to a pageable copy. On the CPU the copy is the
-    identity and the queue logic the same.
+    nothing falls back to a pageable copy. On the CPU the copy is a
+    clone and the queue logic the same.
 
     ``wire`` is :func:`choose_wire`'s: a yuv420 frame is one contiguous
     uint8 buffer (Y, then U, then V) handed out as three (H, W),
@@ -120,6 +129,8 @@ class FrameFetch:
         self._pending: collections.deque = collections.deque()
         self._copy = (torch.cuda.Stream(self.device)
                       if self.device.type == "cuda" else None)
+        self._ring: list[torch.Tensor] = []
+        self._pushes = 0
 
     def __len__(self) -> int:
         return len(self._pending)
@@ -128,16 +139,26 @@ class FrameFetch:
         """Queue ``frame`` (time ``t``); -> the (host frame, t) pairs now
         due, oldest first."""
         if self._copy is None:
-            self._pending.append((frame, frame, None, t, self.wire))
+            # a copy: the step may write its next frame into this buffer
+            host = frame.clone()
+            self._pending.append((host, host, None, t, self.wire))
         else:
             compute = torch.cuda.current_stream(self.device)
+            k = self._pushes % (self.depth + 1)
+            if (not self._ring or self._ring[0].shape != frame.shape
+                    or self._ring[0].dtype != frame.dtype):
+                self._ring = [torch.empty_like(frame)
+                              for _ in range(self.depth + 1)]
+            slot = self._ring[k]
+            slot.copy_(frame)
             host = torch.empty(frame.shape, dtype=frame.dtype, pin_memory=True)
             with torch.cuda.stream(self._copy):
                 self._copy.wait_stream(compute)
-                host.copy_(frame, non_blocking=True)
+                host.copy_(slot, non_blocking=True)
                 done = torch.cuda.Event()
                 done.record(self._copy)
-            self._pending.append((frame, host, done, t, self.wire))
+            self._pending.append((slot, host, done, t, self.wire))
+        self._pushes += 1
         out = []
         while len(self._pending) > self.depth:
             out.append(self._finish(self._pending.popleft()))
@@ -228,8 +249,14 @@ class Engine:
         w, h = renderer.screen
         self._wire = choose_wire(getattr(self.sink, "wire_format", "rgba8"),
                                  w, h, self.opts.test_mode)
-        self._step = (renderer.step_yuv420 if self._wire[0] == "yuv420"
-                      else renderer.step_u8)
+        yuv = self._wire[0] == "yuv420"
+        if renderer.module.kind == "native":
+            # the JAX engine's jit_step (glava_tpu/runtime/engine.py:116)
+            self._step = renderer.jit_step(quantize=not yuv, yuv420=yuv)
+        else:
+            compiled.note_eager(renderer.module)
+            self._step = (renderer.step_yuv420 if yuv
+                          else renderer.step_u8)
         self._init_bg()
 
     # -- live wallpaper (bg_changed recopy, render.c:1832-1837) ------------
@@ -384,7 +411,7 @@ class Engine:
                     self._poll_bg()
                     pipe["__bg__"] = self._bg_dev
                 self.state, frame = self._step(
-                    self.state, torch.from_numpy(snap), bool(modified),
+                    self.state, snap, bool(modified),
                     tnow, float(np.float32(interp_mod)), gravity_g, pipe,
                 )
                 # up to `depth` frames stay in flight: older frames'

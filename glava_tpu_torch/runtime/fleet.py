@@ -23,6 +23,13 @@ block of streams and a band of rows: a frame makes one host-to-device
 copy a device of its block's snapshots, one step a device, launched
 back to back, and one pinned (S, H, W, 4) host buffer that every
 device's frames are copied into at their streams and rows.
+
+The step is the compiled fleet step (``jit_step`` of the renderer: a
+CUDA graph, one a device block on a mesh, replayed a frame,
+``compiled.py``), as the JAX fleet jits its step
+(glava_tpu/runtime/fleet.py:185-191): the snapshots go straight into
+its static input. A fleet with a shader or user Python module variant
+runs the eager step, and says so once (``compiled.note_eager``).
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from glava_tpu_torch import compiled
 from glava_tpu_torch.config.loader import LoadedConfig
 from glava_tpu_torch.parallel.batch import (
     BatchedRenderer, MixedBatchedRenderer, ShardedRenderer,
@@ -156,6 +164,7 @@ class FleetEngine:
             for n in names
         }
         self.state = self.br.init_state()
+        self._step = self._make_step()
         self.alive = False
         self.frames_rendered = 0
         self.fps = 0.0
@@ -167,6 +176,17 @@ class FleetEngine:
                 return np.zeros_like(np.asarray(s.pipe[name], np.float32))
         return 0.0
 
+    def _make_step(self):
+        """The compiled fleet step, or the eager step (said once) when a
+        variant keeps it."""
+        eager = [r.module for r in self.br.used_renderers()
+                 if r.module.kind != "native"]
+        if eager:
+            for m in eager:
+                compiled.note_eager(m)
+            return lambda *a: self.br.step(*a, quantize=True)
+        return self.br.jit_step(quantize=True)
+
     def set_pipe(self, stream: int, name: str, value) -> None:
         """Live per-stream uniform update (no rebuild)."""
         self._pipe_host[name][stream] = np.asarray(value, np.float32)
@@ -176,13 +196,13 @@ class FleetEngine:
         """One fleet frame from host snapshots (S, 2, bufsize): the
         snapshots go to the device in one copy (one a mesh device);
         returns the (S, H, W, 4) uint8 frames on the device (on a mesh, a
-        list of each device's (S_i, H_band, W, 4) frames on it)."""
+        list of each device's (S_i, H_band, W, 4) frames on it), the
+        compiled step's static output: the next step overwrites it."""
         S = len(self.streams)
-        audio = snaps if self.mesh is not None else \
-            torch.from_numpy(snaps).to(self.device)
-        self.state, frames = self.br.step(
+        audio = snaps if self.mesh is not None else torch.from_numpy(snaps)
+        self.state, frames = self._step(
             self.state, audio, mods, np.full((S,), tnow, np.float32), interp,
-            gravity_g, self._pipe_host, quantize=True)
+            gravity_g, self._pipe_host)
         return frames
 
     def run(self, max_frames: int | None = None,
@@ -242,7 +262,10 @@ class FleetEngine:
         Every copy lands in a contiguous block of the buffer: one a
         device, or, for a band of a rows mesh, one a stream (a strided
         pinned destination would be copied through a pageable
-        temporary). A failed pinned allocation or copy raises."""
+        temporary). The copies run on each device's current stream, the
+        one the step replays on, and end in a synchronize: the next step
+        cannot overwrite a frame while it is copied. A failed pinned
+        allocation or copy raises."""
         parts = frames if isinstance(frames, (list, tuple)) else [frames]
         S = len(self.streams)
         blocks = getattr(self.br, "blocks", [(slice(0, S), None)])

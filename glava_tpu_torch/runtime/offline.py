@@ -4,9 +4,12 @@ With compute decoupled from presentation, a recorded track renders as
 fast as the device allows: the exact realtime schedule — hop-cadence
 ring updates (fifo.c:91-92) and nominal-UPS gravity decay
 (render.c:728) — is precomputed on the host, then frames run one by one
-through :meth:`Renderer.step_u8`, each copied to the host while the
-next one renders (``FrameFetch``). Offline output is deterministic for
-a given track and config.
+through the compiled step (:meth:`Renderer.jit_step`, a CUDA graph a
+branch replayed a frame; the JAX package scans a chunk of 64 frames in
+one executable), each copied to the host while the next one renders
+(``FrameFetch``). A shader or user Python module runs its eager step
+(:meth:`Renderer.step_u8`), said once. Offline output is deterministic
+for a given track and config.
 
     glava-tpu-torch --offline -a wav -r 'setsource "track.wav"' \
                     --sink y4m:out.y4m
@@ -19,6 +22,7 @@ import time as _time
 import numpy as np
 import torch
 
+from glava_tpu_torch import compiled
 from glava_tpu_torch.config.loader import LoadedConfig
 from glava_tpu_torch.pipeline import frame_windows
 from glava_tpu_torch.renderer import Renderer
@@ -82,6 +86,11 @@ def render_wav(loaded: LoadedConfig, wav_path: str, sink: FrameSink,
     g = float(np.float32(cfg.gravity_step / sched["ups"]))
 
     r = Renderer(loaded, screen=screen, device=device)
+    if r.module.kind == "native":
+        step = r.jit_step(quantize=True)
+    else:
+        compiled.note_eager(r.module)
+        step = r.step_u8
     state = r.init_state()
     # one frame in flight: its pinned copy overlaps the next step
     fetch = FrameFetch(r.device, 1)
@@ -90,9 +99,9 @@ def render_wav(loaded: LoadedConfig, wav_path: str, sink: FrameSink,
     for k in range(sched["n_frames"]):
         i = sched["widx"][k]
         audio = torch.from_numpy(np.stack([wl[i], wr[i]]))
-        state, frame = r.step_u8(state, audio, bool(sched["modified"][k]),
-                                 float(sched["time"][k]),
-                                 float(sched["interp"][k]), g)
+        state, frame = step(state, audio, bool(sched["modified"][k]),
+                            float(sched["time"][k]),
+                            float(sched["interp"][k]), g)
         for host, t in fetch.push(frame, float(sched["time"][k])):
             sink.submit(host, t)
         written += 1
