@@ -7,9 +7,10 @@ code is non-zero and no result line is printed):
 
 1. device    — needs ``torch.cuda.is_available()``; prints the card's
                name and power limit (nvidia-smi).
-2. build     — builds the six CUDA sources from ``csrc/``
+2. build     — builds the seven CUDA sources from ``csrc/``
                (fused_update, table_lookup, rowwise_lookup, latch_scan,
-               bars_raster, smooth_scan), the nvcc runs side by side.
+               bars_raster, smooth_scan, graph_while), the nvcc runs
+               side by side.
 3. kernel    — each kernel vs its plain torch version on the card.
                fused_update at every n in {256, ..., 65536} (clusters of
                1 to 16 CTAs), B in {1, 2, 128}, F in {1, 6, 16}, and F 24
@@ -57,16 +58,26 @@ code is non-zero and no result line is printed):
                call, the zero positions (NaN -> 0 and the input's zeros)
                identical, the values within 1e-5 of the plain version,
                and the rows each walk finished as the case requires.
+               The while node's setter (graph_while) equal to its plain
+               version (``condition_plain``) on 1080p, 800x600, 97x131
+               and 1x7 planes with no pixel active, the first, the last
+               and many, the fuel below and at the cap; then a loop and
+               a loop nested in it captured once (a conditional while
+               node, the inner one in its body) and replayed at trip
+               counts a device tensor sets (9, 30, 0 and the fuel cap
+               100), under ``sync_errors``, equal to the host-driven
+               loop.
 4. main path — ``Engine`` with the synth backend and a null sink, the
                kernel counts set to 0 just before each run and read
                just after: bars (the shipped rc.glsl) at 800x600 and
                1920x1080, radial and circle at 800x600 and 1920x1080
-               (bufsize 4096), wave and graph at 800x600, and three user
+               (bufsize 4096), wave and graph at 800x600, and five user
                GLSL shader modules written into a temporary config dir
                (``SHADER_MODULES``: docs/examples/rings, a first-hit
-               anti-alias walk, a fetch at run-time rows and a `window,
-               smooth` uniform, one smooth_scan a frame) at 800x600
-               and 1920x1080. The CPU path (``CPU_PATH_RUNS``: bars with
+               anti-alias walk, a fetch at run-time rows, a `window,
+               smooth` uniform, one smooth_scan a frame, and a loop
+               whose trip count the audio sets, a while node) at
+               800x600 and 1920x1080, each through its compiled step. The CPU path (``CPU_PATH_RUNS``: bars with
                ``setaccelfft false``, ``setinterpolate`` on and off)
                through ``Engine``: the chain route, no fused_update
                launch; its cuda frame after 24 frames (audio every
@@ -75,7 +86,9 @@ code is non-zero and no result line is printed):
                audio updates of fft modules; table_lookup launches and
                rowwise_lookup and latch_scan launches by channel count
                C the frames times each module's launches a frame
-               (``LAUNCHES``; bars launches the raster once a frame).
+               (``LAUNCHES``; bars launches the raster once a frame;
+               the audio loop's fetch and setter launches, which its
+               data sets, ``DATA_LAUNCHES``, must be nonzero).
                ``FleetEngine`` with 64 bars streams (the shipped rc.glsl,
                bufsize 4096, per-stream synth tones and ``fg`` colours) at
                800x600 and 1920x1080: one fused_update launch a frame over
@@ -177,17 +190,22 @@ code is non-zero and no result line is printed):
                dependent launch captured), ``jit_update`` at 131072 and
                at 2^25 (the chain route), and bars on the CPU path; the
                S 64 bars and circle fleets and a mixed S 24 fleet, a
-               pipe write at frame 12 (a new capture); the bars fleet
-               sharded over ``[cuda:0, cuda:0]`` on streams and on rows
-               2; ``render_wav`` and ``entry()``: 24 replays of each
+               pipe write every frame (one capture, the values static
+               inputs); the bars fleet sharded over ``[cuda:0,
+               cuda:0]`` on streams and on rows 2; ``render_wav`` and
+               ``entry()``; every GLSL shader module at 800x600 and
+               rings and colfetch at 1920x1080 (a pipe write every
+               frame on every single-stream case): 24 replays of each
                byte-equal to the eager step on the same inputs, each
                replay under ``torch.cuda.set_sync_debug_mode("error")``,
                the captures where the case puts them (each branch's
-               first call, the pipe write), the replays' launch counts
-               the frames times ``LAUNCHES`` (the fused update once an
-               update), and a profile of a few replays showing those
-               kernels; then the shader modules that keep the eager
-               step, and why.
+               first call), the replays' launch counts the frames times
+               ``LAUNCHES`` (the fused update once an update), and a
+               profile of a few replays showing those kernels (the
+               table lookup, the row-wise lookup, the latch scan, the
+               smooth scan and the while setter inside the graphs);
+               then the user Python module that keeps the eager step,
+               and why.
 5. times     — device times of each kernel and its plain version at
                the main path's shapes, and of one PyTorch call computing
                the same function where there is one: fused_update
@@ -235,11 +253,15 @@ code is non-zero and no result line is printed):
                step and the pinned copy, with the copy's rate, each by
                the compiled step and by the eager step in its place.
                Eager against captured (``_compiled_times``): each native
-               module's frame at 800x600 and circle's at 1920x1080 (host
+               module's frame at 800x600 and circle's at 1920x1080, bars
+               with a pipe write every frame, each shader module's at
+               800x600 and rings' and colfetch's at 1920x1080 (host
                clock and device time under the profiler, busy share,
-               CUDA events), the split route's update in and out of a
-               graph (each kernel's profiler time, events, host time),
-               and the S 64 bars and circle fleets at both sizes.
+               each kernel's device time, CUDA events), the split
+               route's update in and out of a graph (each kernel's
+               profiler time, events, host time), and the S 64 bars and
+               circle fleets at both sizes. The while setter's time on
+               a 1080p plane against its plain version and its bound.
 
 The second-to-last line is the kernels JSON, the last the device JSON.
 
@@ -256,8 +278,8 @@ beside the compiled one (``_eager_scaling_table``).
 
     python3 chip_smoke.py --compiled [PARENT]
 
-runs only the build, ``phase_compiled`` and the eager-against-captured
-times; with PARENT (another tree, for example the parent commit, whose
+runs only the build, the while node's checks, ``phase_compiled`` and
+the eager-against-captured times; with PARENT (another tree, for example the parent commit, whose
 bench runs every step eagerly) the ``glava_tpu_torch.bench`` line and
 ``bench.windows_spread()`` of PARENT and of this tree, each in a
 process of its own tree (parent, this, this, parent).
@@ -292,6 +314,8 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -309,13 +333,13 @@ from glava_tpu_torch.utils.timing import (
 TOL = 2e-5           # spectra (the JAX suite's fused-vs-unfused tolerance)
 ROOT = Path(__file__).resolve().parent
 KERNELS = ("fused_update", "table_lookup", "rowwise_lookup", "latch_scan",
-           "bars_raster", "smooth_scan")
+           "bars_raster", "smooth_scan", "graph_while")
 # what the main path launches, a kernel for each C it takes: the kernels
 # JSON has one entry each; "rowwise_lookup C=1" (checked, timed) must
 # stay off the path
 PATH = ("fused_update", "fused_update split", "table_lookup",
         "rowwise_lookup C=4", "latch_scan C=0", "latch_scan C=4",
-        "bars_raster", "smooth_scan")
+        "bars_raster", "smooth_scan", "graph_while")
 COUNTED = PATH + ("rowwise_lookup C=1",)
 MODULES = ("bars", "radial", "circle", "wave", "graph", "test")
 
@@ -466,12 +490,70 @@ void main() {
 }
 """
 
+AUDIO_LOOP_FRAG = """
+/* A loop whose trip count the audio sets: each column climbs while the
+ * spectrum, read again one bin further at each step, stays above the
+ * step's level. The condition reads a texture, so the loop is the
+ * general masked loop (a while node in a captured step), its trip
+ * count changing from frame to frame; the colour takes the pipe's
+ * `fg` where it is bound. */
+in vec4 gl_FragCoord;
+#request uniform "screen" screen
+uniform ivec2 screen;
+#request uniform "time" time
+uniform float time;
+#request uniform "audio_l" audio_l
+#request transform audio_l "window"
+#request transform audio_l "fft"
+#request transform audio_l "gravity"
+#request transform audio_l "avg"
+uniform sampler1D audio_l;
+out vec4 fragment;
+
+#define LEVEL_COLOR @fg:vec4(0.2, 0.6, 1.0, 1.0)
+
+void main() {
+    float x = gl_FragCoord.x / screen.x;
+    float level = 0.0;
+    float n = 0.0;
+    while (n < 48.0 && texture(audio_l, x + n / 512.0).r * 40.0 > n) {
+        level += 1.0 / 48.0;
+        n += 1.0;
+    }
+    float t = 0.75 + 0.25 * sin(time * 2.0 + x * 6.0);
+    if (gl_FragCoord.y / screen.y < level) {
+        fragment = LEVEL_COLOR * vec4(t, t, t, 1.0);
+    } else {
+        fragment = vec4(0, 0, 0, 0);
+    }
+}
+"""
+
+# a loop each pixel runs min(x, 6) times (gl_FragCoord.x from 0.5): at a
+# fuel cap of FUEL_CAP every pixel right of x = FUEL_CAP is truncated
+FUEL_FRAG = """
+in vec4 gl_FragCoord;
+out vec4 fragment;
+void main() {
+    float acc = 0.0;
+    float i = 0.0;
+    while (i < gl_FragCoord.x) {
+        acc += 2.0;
+        i += 1.0;
+        if (acc > 10.0) break;
+    }
+    fragment = vec4(acc / 16.0, 0, 0, 1);
+}
+"""
+FUEL_CAP = 4
+
 RINGS = ROOT / "docs" / "examples" / "rings"
 SHADER_MODULES = {
     "rings": lambda: tuple((RINGS / f"{i}.frag").read_text() for i in (1, 2)),
     "aawalk": lambda: (BASE_FRAG, AA_WALK_FRAG),
     "colfetch": lambda: (BASE_FRAG, COL_FETCH_FRAG),
     "smoothy": lambda: (SMOOTH_FRAG,),
+    "audioloop": lambda: (AUDIO_LOOP_FRAG,),
 }
 
 # kernel launches a frame (fused_update: one an audio update instead).
@@ -492,7 +574,12 @@ LAUNCHES = {
     "colfetch": {"table_lookup": 2, "rowwise_lookup C=4": 2,
                  "latch_scan C=0": 1},
     "smoothy": {"table_lookup": 1, "smooth_scan": 1},
+    "audioloop": {},
 }
+# kernels whose launches a frame the data sets: audioloop's texture
+# fetch runs once before its loop and once an iteration, its while
+# setter once before the node and once an iteration (checked nonzero)
+DATA_LAUNCHES = {"audioloop": ("table_lookup", "graph_while")}
 
 
 # the modules with no fft uniform: wave reads the feed, smoothy's one
@@ -1143,6 +1230,120 @@ def phase_smooth() -> float:
     return worst
 
 
+WHILE_SHAPES = ((1080, 1920), (600, 800), (97, 131), (1, 7))
+WHILE_CAP = 10
+
+
+def _while_plane(shape, where: str) -> torch.Tensor:
+    if where == "many":
+        return torch.rand(shape, device="cuda") < 0.3
+    a = torch.zeros(shape, dtype=torch.bool, device="cuda")
+    if where != "none":
+        a.view(-1)[0 if where == "first" else -1] = True
+    return a
+
+
+def _while_loop(n_t: torch.Tensor, nested: bool):
+    """A loop whose trip count the device tensor ``n_t`` sets (x counts
+    up to n_t per element, an inner loop in each iteration when
+    ``nested``) through ``graph_while.run`` -> (x, fuel), its state."""
+    from glava_tpu_torch.ops import graph_while
+
+    x = torch.zeros(4, device="cuda")
+    act = torch.zeros(16, dtype=torch.bool, device="cuda")
+    fuel = torch.zeros(1, dtype=torch.int32, device="cuda")
+    act[:4].copy_(x < n_t)
+
+    def body():
+        y = x + 1.0
+        if nested:
+            inner = torch.zeros(4, device="cuda")
+            iact = torch.zeros(16, dtype=torch.bool, device="cuda")
+            ifuel = torch.zeros(1, dtype=torch.int32, device="cuda")
+            iact[:4].copy_(inner < 2.0)
+
+            def ibody():
+                inner.add_(torch.where(iact[:4], 1.0, 0.0))
+                iact[:4].copy_(iact[:4] & (inner < 2.0))
+                ifuel.add_(1)
+
+            graph_while.run(iact, ifuel, 100, ibody)
+            y = x + inner * 0.5
+        x.copy_(torch.where(act[:4], y, x))
+        act[:4].copy_(act[:4] & (x < n_t))
+        fuel.add_(1)
+
+    graph_while.run(act, fuel, 100, body)
+    return x, fuel
+
+
+def _while_node_check() -> str:
+    """A loop and a loop nested in it, each captured once into a CUDA
+    graph (a while node, the nested one inside its body) and replayed at
+    trip counts a device tensor sets, under ``sync_errors``, against the
+    same loop run from the host; the fuel cap stops a loop that would
+    run on."""
+    from glava_tpu_torch import compiled
+
+    out = []
+    for nested in (False, True):
+        n_t = torch.zeros(4, device="cuda")
+        step = compiled.Step("cuda", {})
+        graph = torch.cuda.CUDAGraph()
+        pool = torch.cuda.graph_pool_handle()
+        with torch.cuda.graph(graph, pool=pool, stream=torch.cuda.Stream(),
+                              capture_error_mode="thread_local"), \
+                compiled._body_of(step, "capture", pool):
+            x, fuel = _while_loop(n_t, nested)
+        trips = []
+        for vals in ([5, 9, 0, 3], [1, 2, 30, 4], [0, 0, 0, 0],
+                     [500, 9, 0, 3]):
+            n_t.copy_(torch.tensor(vals, dtype=torch.float32))
+            with sync_errors():
+                graph.replay()
+            ex, ef = _while_loop(n_t, nested)
+            if not (torch.equal(x, ex) and torch.equal(fuel, ef)):
+                raise AssertionError(
+                    f"while node{' (nested)' if nested else ''} at {vals}: "
+                    f"replay x {x.tolist()} fuel {fuel.item()}, host-driven "
+                    f"x {ex.tolist()} fuel {ef.item()}")
+            trips.append(int(fuel.item()))
+        if trips != [9, 30, 0, 100]:
+            raise AssertionError(f"while node trips {trips}")
+        out.append(f"{'nested ' if nested else ''}trips {trips}")
+    return ", ".join(out)
+
+
+def phase_while() -> float:
+    """The while setter (``graph_while.set_condition``) against its plain
+    version on planes with no pixel active, the first, the last and
+    many, the fuel below and at the cap; then ``_while_node_check``."""
+    from glava_tpu_torch.ops import graph_while
+
+    err = 0.0
+    for shape in WHILE_SHAPES:
+        for where in ("none", "first", "last", "many"):
+            a = _while_plane(shape, where)
+            for f in (0, WHILE_CAP - 1, WHILE_CAP):
+                fuel = torch.full((1,), f, dtype=torch.int32, device="cuda")
+                sync = torch.zeros(2, dtype=torch.int32, device="cuda")
+                go = torch.full((1,), -1, dtype=torch.int32, device="cuda")
+                graph_while.set_condition(a, fuel, WHILE_CAP, sync, go)
+                want = graph_while.condition_plain(a, fuel, WHILE_CAP)
+                err = max(err, abs(float(go[0]) - float(want)))
+                if bool(sync.any()):
+                    raise AssertionError(f"while setter {shape} {where}: "
+                                         f"sync words left {sync.tolist()}")
+    if err:
+        raise AssertionError(f"while setter differs from its plain version "
+                             f"by {err}")
+    node = _while_node_check()
+    print(f"[3 kernel] graph_while setter vs plain, equal on {len(WHILE_SHAPES)} "
+          f"plane shapes x 4 patterns x 3 fuels; while node replays equal to "
+          f"the host-driven loop: {node}")
+    return err
+
+
 def _fixed_frame(device: str, screen=None, reqs=(), module="bars",
                  user_dir=None, with_renderer: bool = False):
     """The final uint8 frame of 24 updates of fixed stereo tones
@@ -1194,12 +1395,15 @@ def tone_snapshot(cfg, k: int) -> np.ndarray:
 
 
 def _counts() -> dict:
-    from glava_tpu_torch.ops import fused, latch, lookup, raster, smooth
+    from glava_tpu_torch.ops import (
+        fused, graph_while, latch, lookup, raster, smooth,
+    )
 
     counts = {"fused_update": fused.launches,
               "fused_update split": fused.split_launches,
               "table_lookup": lookup.launches,
-              "bars_raster": raster.launches, "smooth_scan": smooth.launches}
+              "bars_raster": raster.launches, "smooth_scan": smooth.launches,
+              "graph_while": graph_while.launches}
     counts.update({f"rowwise_lookup C={C}": n
                    for C, n in lookup.rowwise_launches.items()})
     counts.update({f"latch_scan C={C}": n for C, n in latch.launches.items()})
@@ -1207,14 +1411,25 @@ def _counts() -> dict:
 
 
 def _zero_counts() -> None:
-    from glava_tpu_torch.ops import fused, latch, lookup, raster, smooth
+    from glava_tpu_torch.ops import (
+        fused, graph_while, latch, lookup, raster, smooth,
+    )
 
-    fused.launches = fused.split_launches = 0
+    fused.launches = fused.split_launches = graph_while.launches = 0
     lookup.launches = raster.launches = smooth.launches = 0
     smooth.reset_rows_by_walk()
     lookup.rowwise_launches = dict.fromkeys(lookup.rowwise_launches, 0)
     lookup.rowwise_routes = dict.fromkeys(lookup.rowwise_routes, 0)
     latch.launches = dict.fromkeys(latch.launches, 0)
+
+
+def _data_launches(name: str, counts: dict, want: dict) -> None:
+    """Kernels whose launches the data sets (``DATA_LAUNCHES``): each
+    must have launched, and is then expected at its count."""
+    for k in DATA_LAUNCHES.get(name, ()):
+        if counts[k] == 0:
+            raise AssertionError(f"{name}: no {k} launch")
+        want[k] = counts[k]
 
 
 def _engine_run(frames: int, screen=None, module=None, user_dir=None,
@@ -1251,6 +1466,7 @@ def _engine_run(frames: int, screen=None, module=None, user_dir=None,
                              f"{'chain' if cpu_path else 'kernel'}")
     want = {k: frames * LAUNCHES[name].get(k, 0) for k in COUNTED}
     want["fused_update"] = eng.updates if fft else 0
+    _data_launches(name, counts, want)
     # every row-wise fetch of the smoke's planes (T = h <= 1080) stages
     staged = counts["rowwise_lookup C=1"] + counts["rowwise_lookup C=4"]
     if counts != want or (fft and eng.updates == 0) or routes != {
@@ -1454,6 +1670,7 @@ RUNS = (
     ("aawalk", None, 40), ("aawalk", (1920, 1080), 20),
     ("colfetch", None, 40), ("colfetch", (1920, 1080), 20),
     ("smoothy", None, 40), ("smoothy", (1920, 1080), 20),
+    ("audioloop", None, 40), ("audioloop", (1920, 1080), 20),
 )
 
 # the CPU path (`setaccelfft false`) of the shipped rc.glsl, keyframe
@@ -2005,10 +2222,17 @@ COMPILED_FRAMES = 24     # replays a case checks against the eager step
 KERNEL_NAMES = {"fused_update": "fused_update_kernel",
                 "fused_update split": "split_stage_kernel",
                 "table_lookup": "table_lookup_kernel",
-                "bars_raster": "bars_raster_kernel"}
+                "bars_raster": "bars_raster_kernel",
+                "rowwise_lookup C=1": "rowwise_",
+                "rowwise_lookup C=4": "rowwise_",
+                "latch_scan C=0": "latch_scan_kernel",
+                "latch_scan C=4": "latch_scan_kernel",
+                "smooth_scan": "smooth_scan_kernel",
+                "graph_while": "while_set_kernel"}
 SPLIT_N = 131072         # the split route's first bufsize
 CHAIN_N = 1 << 25        # above the split plans: the chain route
-PIPE_WRITE = 12          # the fleets' pipe write (a new capture)
+# the shader modules the compiled phase runs at 1920x1080 too
+SHADER_1080 = ("rings", "colfetch")
 
 
 @contextlib.contextmanager
@@ -2114,8 +2338,10 @@ def _render_case(label: str, module: str, screen=None, reqs=(),
     g0 = cfg.gravity_step / cfg.nominal_ups
 
     def inputs(k):
+        # a pipe write every frame: a step input, no new capture
         return (snaps[k], k % 3 != 2, 0.05 * k, 0.5 if k % 2 else 1.0,
-                float(np.float32(g0 * (1.0 + 0.1 * (k % 4)))))
+                float(np.float32(g0 * (1.0 + 0.1 * (k % 4)))),
+                {"fg": np.float32([0.2 + 0.03 * k, 0.9 - 0.02 * k, 0.4, 1.0])})
 
     replayed = _replays(label, step, eager, r.init_state, inputs, {0, 2})
     updates = sum(k % 3 != 2 for k in range(COMPILED_FRAMES + 2)
@@ -2125,6 +2351,7 @@ def _render_case(label: str, module: str, screen=None, reqs=(),
     fft = r.pipeline.route == "kernel"
     want["fused_update"] = updates if fft and not split else 0
     want["fused_update split"] = updates if split else 0
+    _data_launches(module, replayed, want)
     if replayed != want:
         raise AssertionError(f"{label}: the replays launched {replayed}, "
                              f"expected {want}")
@@ -2138,8 +2365,9 @@ def _render_case(label: str, module: str, screen=None, reqs=(),
             f"{' ' + ', '.join(reqs) if reqs else ''} (update route "
             f"{r.pipeline.route}{', split' if split else ''}): "
             f"{COMPILED_FRAMES} replays byte-equal to the eager step, no host "
-            f"sync inside a replay, 2 graphs (modified, carried), replay "
-            f"launches { {k: v for k, v in replayed.items() if v} }{shown}")
+            f"sync inside a replay, a pipe write every frame, 2 graphs "
+            f"(modified, carried), replay launches "
+            f"{ {k: v for k, v in replayed.items() if v} }{shown}")
 
 
 def _update_case(n: int, streams: int = 1) -> str:
@@ -2178,29 +2406,29 @@ def _update_case(n: int, streams: int = 1) -> str:
 def _fleet_inputs(n: int, cfg, pipe: bool = True):
     """Seeded per-frame fleet inputs: four snapshot sets in turn,
     staggered clocks (stream s updates every (1 + s % 3)-th frame),
-    per-stream time and gravity, fg/bg rows whose fg changes at frame
-    ``PIPE_WRITE``."""
+    per-stream time and gravity, fg/bg rows written anew every frame."""
     rng = np.random.default_rng(n)
     pool = [(rng.standard_normal((n, 2, cfg.bufsize)) * 0.3).astype(np.float32)
             for _ in range(4)]
-    rows = [{"fg": rng.uniform(0.3, 1.0, (n, 4)).astype(np.float32),
-             "bg": rng.uniform(0.0, 0.5, (n, 4)).astype(np.float32)}
-            for _ in range(2)]
+    rows = {"fg": rng.uniform(0.3, 1.0, (n, 4)).astype(np.float32),
+            "bg": rng.uniform(0.0, 0.5, (n, 4)).astype(np.float32)}
     g0 = cfg.gravity_step / cfg.nominal_ups
 
     def inputs(k):
         mods = np.array([k % (1 + s % 3) == 0 for s in range(n)])
+        write = {"fg": np.roll(rows["fg"], k, axis=0) * (1.0 - 0.01 * k),
+                 "bg": rows["bg"]}
         return (pool[k % 4], mods, np.full(n, 0.05 * k, np.float32),
                 np.full(n, 0.5, np.float32),
                 (g0 * (1.0 + 0.1 * (np.arange(n) % 4))).astype(np.float32),
-                rows[k >= PIPE_WRITE] if pipe else None)
+                write if pipe else None)
 
     return inputs
 
 
 def _fleet_case(kind: str, n: int, screen=None) -> str:
     """``jit_step`` of a (mixed) batched renderer against its eager step,
-    a pipe write at frame ``PIPE_WRITE`` (a new capture)."""
+    a pipe write every frame and one capture."""
     from glava_tpu_torch.parallel.batch import (
         BatchedRenderer, MixedBatchedRenderer,
     )
@@ -2214,8 +2442,7 @@ def _fleet_case(kind: str, n: int, screen=None) -> str:
     step = br.jit_step(quantize=True)
     replayed = _replays(f"{kind} fleet S {n}", step,
                         lambda st, *a: br.step(st, *a, quantize=True),
-                        br.init_state, _fleet_inputs(n, br.cfg),
-                        {0, PIPE_WRITE})
+                        br.init_state, _fleet_inputs(n, br.cfg), {0})
     want = {k: v for k, v in _fleet_want(kind, n, COMPILED_FRAMES).items()}
     if replayed != want:
         raise AssertionError(f"{kind} fleet S {n}: the replays launched "
@@ -2223,12 +2450,12 @@ def _fleet_case(kind: str, n: int, screen=None) -> str:
     st = step.step.state
     inputs = _fleet_inputs(n, br.cfg)
     shown = _check_profile(f"{kind} fleet S {n}",
-                           lambda: step(st, *inputs(PIPE_WRITE)), replayed)
+                           lambda: step(st, *inputs(1)), replayed)
     w, h = br.screen
     return (f"{kind} fleet S {n} ({', '.join(FLEET_KINDS[kind])}) {w}x{h}: "
             f"{COMPILED_FRAMES} replays byte-equal to the eager fleet step "
-            f"(staggered clocks, a pipe write at frame {PIPE_WRITE}: a new "
-            f"capture), no host sync inside a replay, replay launches "
+            f"(staggered clocks, a pipe write every frame, one capture), no "
+            f"host sync inside a replay, replay launches "
             f"{ {k: v for k, v in replayed.items() if v} }; a profile of 3 "
             f"replays shows {shown}")
 
@@ -2244,17 +2471,17 @@ def _sharded_case(label: str, devices, kw: dict, n: int = 16) -> str:
     step = sr.jit_step(quantize=True)
     replayed = _replays(f"bars fleet S {n} over {label}", step,
                         lambda st, *a: sr.step(st, *a, quantize=True),
-                        sr.init_state, _fleet_inputs(n, sr.cfg),
-                        {0, PIPE_WRITE})
+                        sr.init_state, _fleet_inputs(n, sr.cfg), {0})
     want = {k: v * len(sr.shards)
             for k, v in _fleet_want("bars", 1, COMPILED_FRAMES).items()}
     if replayed != want:
         raise AssertionError(f"bars fleet S {n} over {label}: the replays "
                              f"launched {replayed}, expected {want}")
     return (f"bars fleet S {n} sharded over {label} (blocks {sr.blocks}): "
-            f"{COMPILED_FRAMES} replays of one graph a device block, "
-            f"byte-equal to the eager sharded step, no host sync inside a "
-            f"replay, replay launches "
+            f"{COMPILED_FRAMES} replays of one graph a device block (a pipe "
+            f"write every frame, one capture a block), byte-equal to the "
+            f"eager sharded step, no host sync inside a replay, replay "
+            f"launches "
             f"{ {k: v for k, v in replayed.items() if v} }")
 
 
@@ -2366,11 +2593,79 @@ def _entry_case() -> str:
             f"sync inside a replay")
 
 
+def _fuel_case(tmp: Path, frames: int = 4) -> str:
+    """The fuel counter on the card: an Engine on ``cuda`` (the current
+    card, no index) runs ``FUEL_FRAG`` at a fuel cap of ``FUEL_CAP``
+    through its compiled step, which counts the truncated pixels on the
+    device; the Engine reports them (at most once a second, and at the
+    end of the run), every one; under GLAVA_TPU_WHILE_FUEL_STRICT=1 the
+    run raises."""
+    from glava_tpu_torch.config import glsl_shader
+    from glava_tpu_torch.renderer import CompiledStep
+    from glava_tpu_torch.runtime.engine import Engine, EngineOptions
+    from glava_tpu_torch.runtime.sinks import NullSink
+
+    root = tmp / "fuel"
+    (root / "fuelloop").mkdir(parents=True, exist_ok=True)
+    (root / "fuelloop" / "1.frag").write_text(FUEL_FRAG)
+    w, h = 320, 240
+
+    def engine():
+        return Engine(EngineOptions(audio_backend="synth", screen=(w, h),
+                                    force_module="fuelloop",
+                                    user_dir=str(root), device="cuda",
+                                    requests=("setprintframes false",)),
+                      sink=NullSink())
+
+    saved = {k: os.environ.get(k) for k in (
+        "GLAVA_TPU_WHILE_FUEL", "GLAVA_TPU_WHILE_FUEL_STRICT",
+        "GLAVA_TPU_WHILE_FUEL_WARN")}
+    report = glsl_shader._fuel_report
+    reports = []
+    try:
+        os.environ["GLAVA_TPU_WHILE_FUEL"] = str(FUEL_CAP)
+        os.environ.pop("GLAVA_TPU_WHILE_FUEL_STRICT", None)
+        os.environ.pop("GLAVA_TPU_WHILE_FUEL_WARN", None)
+        glsl_shader.fuel_check(force=True)
+        glsl_shader._fuel_report = lambda n, cap: reports.append((n, cap))
+        eng = engine()
+        if not isinstance(eng._step, CompiledStep):
+            raise AssertionError(f"fuel: the Engine's step is {eng._step!r}")
+        eng.run(max_frames=frames)
+        got = sum(n for n, _ in reports)
+        want = frames * h * (w - FUEL_CAP)
+        if got != want or {c for _, c in reports} != {FUEL_CAP}:
+            raise AssertionError(f"fuel: the Engine on {eng.renderer.device} "
+                                 f"reported {reports}, expected {want} "
+                                 f"pixels at cap {FUEL_CAP}")
+        glsl_shader._fuel_report = report
+        os.environ["GLAVA_TPU_WHILE_FUEL_STRICT"] = "1"
+        try:
+            engine().run(max_frames=2)
+        except RuntimeError as e:
+            if "fuel cap" not in str(e):
+                raise
+        else:
+            raise AssertionError("fuel: GLAVA_TPU_WHILE_FUEL_STRICT=1 did "
+                                 "not raise")
+    finally:
+        glsl_shader._fuel_report = report
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return (f"fuel: Engine on {eng.renderer.device}, {frames} frames of "
+            f"{w}x{h} at cap {FUEL_CAP}: {got} truncated pixels reported "
+            f"in {len(reports)} read(s) (expected {want}); STRICT raised")
+
+
 def phase_compiled(user_dir: str, tmp: Path) -> list:
     """The compiled steps on the card: every case's replays byte-equal
     to the eager steps on the same inputs, under ``sync_errors``, with
-    their launch counts and a profile of the replays; then which modules
-    keep the eager step, and why. Returns the result lines."""
+    their launch counts and a profile of the replays, native and GLSL
+    shader modules; then the module kind that keeps the eager step (a
+    user Python module), and why. Returns the result lines."""
     from glava_tpu_torch.config import loader
     from glava_tpu_torch.renderer import Renderer
 
@@ -2400,15 +2695,29 @@ def phase_compiled(user_dir: str, tmp: Path) -> list:
         lines.append(_sharded_case(label, devices, kw))
     lines.append(_render_wav_case(tmp))
     lines.append(_entry_case())
-    for name in SHADER_MODULES:
-        r = Renderer(loader.load(force_module=name, user_dir=user_dir),
-                     device="cuda")
-        try:
-            r.jit_step(quantize=True)
-        except ValueError as e:
-            lines.append(f"eager: {e}")
-        else:
-            raise AssertionError(f"shader module {name} has a compiled step")
+    # GLSL shader modules: the interpreter's compiled step (a
+    # data-dependent loop a while node), every kernel of its routes in
+    # the graphs' profile
+    for module in SHADER_MODULES:
+        lines.append(_render_case("shader", module, user_dir=user_dir,
+                                  profile=True))
+    for module in SHADER_1080:
+        lines.append(_render_case("shader", module, (1920, 1080),
+                                  user_dir=user_dir, profile=True))
+    lines.append(_fuel_case(tmp))
+    vu = tmp / "vu"
+    (vu / "modules").mkdir(parents=True, exist_ok=True)
+    shutil.copy(ROOT / "glava_tpu_torch" / "examples" / "vu_meter.py",
+                vu / "modules" / "vu_meter.py")
+    r = Renderer(loader.load(force_module="vu_meter", user_dir=str(vu)),
+                 device="cuda")
+    try:
+        r.jit_step(quantize=True)
+    except ValueError as e:
+        lines.append(f"eager: {e}")
+    else:
+        raise AssertionError("the user Python module vu_meter has a "
+                             "compiled step")
     return lines
 
 
@@ -3282,11 +3591,12 @@ def _latch_times():
 
 
 def _frame_ms(screen, module="bars", user_dir=None, iters=200, requests=(),
-              compiled: bool = False):
+              compiled: bool = False, pipe: bool = False):
     """CUDA events around ``iters`` frames of ``module`` (fresh audio on
     the card, the update every frame, uint8, ``FrameFetch`` to the host)
-    by the eager ``step_u8`` or, ``compiled``, by ``jit_step``; -> (ms a
-    frame, renderer, the frame function)."""
+    by the eager ``step_u8`` or, ``compiled``, by ``jit_step``; with
+    ``pipe``, a new ``fg`` value every frame; -> (ms a frame, renderer,
+    the frame function)."""
     from glava_tpu_torch.config import loader
     from glava_tpu_torch.renderer import Renderer
 
@@ -3301,8 +3611,11 @@ def _frame_ms(screen, module="bars", user_dir=None, iters=200, requests=(),
     step = r.jit_step(quantize=True) if compiled else r.step_u8
 
     def frame():
-        box["s"], f = step(box["s"], audio[box["k"] % 64], True, 0.0,
-                           1.0, 0.05)
+        k = box["k"]
+        write = ({"fg": np.float32([0.3 + 0.001 * (k % 500), 0.8, 0.4, 1.0])}
+                 if pipe else None)
+        box["s"], f = step(box["s"], audio[k % 64], True, 0.0, 1.0, 0.05,
+                           write)
         box["k"] += 1
         return to_host(f)
 
@@ -3358,6 +3671,28 @@ def _print_kernel_time(name: str, t: dict, card: str) -> None:
     print(f"[5 times] {name} {t['what']}: device time kernel "
           f"{t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} us, "
           f"library {lib}, bound {t['bound_ms'] * 1e3:.2f} us (bytes) ({card})")
+
+
+def _while_times() -> dict:
+    """The while setter on 1920x1080 active planes with no pixel set (it
+    reads every byte), 32 planes in turn (64 MB, past the L2), against
+    its plain version; bytes: the plane, the fuel, the two sync words
+    and ``go``."""
+    from glava_tpu_torch.ops import graph_while
+
+    planes = [torch.zeros((1080, 1920), dtype=torch.bool, device="cuda")
+              for _ in range(32)]
+    fuel = torch.zeros(1, dtype=torch.int32, device="cuda")
+    sync = torch.zeros(2, dtype=torch.int32, device="cuda")
+    go = torch.zeros(1, dtype=torch.int32, device="cuda")
+    ms = event_ms(lambda i: graph_while.set_condition(
+        planes[i % 32], fuel, WHILE_CAP, sync, go), 200)
+    plain = event_ms(lambda i: graph_while.condition_plain(
+        planes[i % 32], fuel, WHILE_CAP), 200)
+    return {"what": "1920x1080 plane, no pixel active", "ms": ms,
+            "plain_ms": plain, "library_ms": None,
+            "bound_ms": bound_ms(planes[0].numel() + 4 + 8 + 4),
+            "bound_by": "bytes"}
 
 
 def _raster_times(S: int, H: int, W: int):
@@ -3578,24 +3913,33 @@ def _circle_mesh_times(card: str, user_dir: str) -> None:
               f"visible ({card})")
 
 
-def _compiled_times(card: str) -> None:
+def _compiled_times(card: str, user_dir: str) -> None:
     """Eager against captured, side by side in this process: each native
-    module's frame at 800x600 and circle's at 1920x1080 (the update
-    every frame, uint8, ``FrameFetch`` to the host): the host clock and
-    the device time a frame and the device's busy share under the
-    profiler, and CUDA events around 100 frames; the split route's
-    update (n 131072, B 2) in and out of a graph; the S 64 bars and
-    circle fleets at both sizes."""
-    for module, screen in ([(m, None) for m in MODULES]
-                           + [("circle", (1920, 1080))]):
+    module's frame at 800x600 and circle's at 1920x1080, each GLSL
+    shader module's at 800x600 and rings' and colfetch's at 1920x1080,
+    and bars with a pipe write every frame (the update every frame,
+    uint8, ``FrameFetch`` to the host): the host clock and the device
+    time a frame and the device's busy share under the profiler, each
+    kernel's device time, and CUDA events around the frames; the split
+    route's update (n 131072, B 2) in and out of a graph; the S 64 bars
+    and circle fleets at both sizes."""
+    cases = ([(m, None, False) for m in MODULES]
+             + [("circle", (1920, 1080), False), ("bars", None, True)]
+             + [(m, None, False) for m in SHADER_MODULES]
+             + [(m, (1920, 1080), False) for m in SHADER_1080])
+    for module, screen, pipe in cases:
         row = {}
-        names = [KERNEL_NAMES[k] for k in ("fused_update",
-                                           *LAUNCHES[module])]
+        shader = module in SHADER_MODULES
+        names = list(dict.fromkeys(
+            KERNEL_NAMES[k] for k in ("fused_update", *LAUNCHES[module],
+                                      *DATA_LAUNCHES.get(module, ()))))
         if module in NO_FFT:
             names = names[1:]
         for mode in ("eager", "captured"):
-            ms, r, frame = _frame_ms(screen, module, iters=100,
-                                     compiled=mode == "captured")
+            ms, r, frame = _frame_ms(screen, module,
+                                     user_dir if shader else None,
+                                     iters=20 if shader else 100,
+                                     compiled=mode == "captured", pipe=pipe)
             busy, dev_us = _profile(frame, f"{module} {mode}", card,
                                     show=False)
             each = kernel_ms(frame, names, 20) if names else {}
@@ -3605,8 +3949,9 @@ def _compiled_times(card: str) -> None:
         w, h = r.screen
         (we, de, be, ee, ke), (wc, dc, bc, ec, kc) = (row["eager"],
                                                       row["captured"])
-        print(f"[5 times] compiled {module} {w}x{h} frame (update + raster + "
-              f"uint8 + FrameFetch): eager {we:.1f} us wall, {de:.1f} us "
+        print(f"[5 times] compiled {module} {w}x{h} frame"
+              f"{' with a pipe write every frame' if pipe else ''} (update + "
+              f"raster + uint8 + FrameFetch): eager {we:.1f} us wall, {de:.1f} us "
               f"device, busy {be:.1%}, {ee:.1f} us by CUDA events"
               f"{f' ({ke}, profiler)' if ke else ''}; captured "
               f"{wc:.1f} us wall, {dc:.1f} us device, busy {bc:.1%}, "
@@ -3739,6 +4084,8 @@ def phase_times(card: str, user_dir: str) -> dict:
               f"{bound_ms(nbytes) * 1e3:.2f} us (bytes) ({card})")
     out["smooth_scan"] = _smooth_times(card)
     _print_kernel_time("smooth_scan", out["smooth_scan"], card)
+    out["graph_while"] = _while_times()
+    _print_kernel_time("graph_while", out["graph_while"], card)
     for reqs in CPU_PATH_RUNS:
         ms8 = _frame_ms(None, "bars", requests=reqs)[0]
         ms10 = _frame_ms((1920, 1080), "bars", requests=reqs)[0]
@@ -3772,7 +4119,7 @@ def phase_times(card: str, user_dir: str) -> dict:
                      module="circle")
     _sharded_fleet_times(card, user_dir)
     _circle_mesh_times(card, user_dir)
-    _compiled_times(card)
+    _compiled_times(card, user_dir)
     return out
 
 
@@ -3899,6 +4246,9 @@ REPLACES = {
     "bars_raster": "scripts/exp_pallas_bars.py:138",
     # no pallas_call: the counterpart of the JAX package's lax.scan
     "smooth_scan": "glava_tpu/ops/transforms.py:145",
+    # no pallas_call: the counterpart of the JAX interpreter's
+    # lax.while_loop
+    "graph_while": "glava_tpu/config/glsl_shader.py:2147",
 }
 
 
@@ -3909,7 +4259,8 @@ def main() -> int:
             "fused_update split": phase_split(),
             "table_lookup": phase_lookup(),
             "latch_scan": phase_latch(), "rowwise_lookup": phase_rowwise(),
-            "bars_raster": phase_raster(), "smooth_scan": phase_smooth()}
+            "bars_raster": phase_raster(), "smooth_scan": phase_smooth(),
+            "graph_while": phase_while()}
     with tempfile.TemporaryDirectory() as td:
         user_dir = str(write_shader_modules(Path(td)))
         launches = phase_main_path(user_dir)
@@ -4031,11 +4382,12 @@ def compiled_run(parent: str | None = None) -> int:
     this, parent."""
     card = phase_device()
     phase_build()
+    phase_while()
     with tempfile.TemporaryDirectory() as td:
         user_dir = str(write_shader_modules(Path(td)))
         for line in phase_compiled(user_dir, Path(td)):
             print(f"[4 compiled] {line}")
-    _compiled_times(card)
+        _compiled_times(card, user_dir)
     if parent is not None:
         tree = Path(parent).resolve()
         code = ("import json, sys; from glava_tpu_torch import bench; "

@@ -23,13 +23,13 @@ JAX bench's scan, probe and slope:
 * the K inputs of a timed run are made on the device before it, fresh
   for each step (``audio * (1 + 1e-3 k)``, as the JAX scan bodies make
   them), so no step reads what the one before left in the cache;
-* every section but the interpreted one times the compiled step, what
-  the Engine and the fleet run (``jit_step``, ``jit_update``: a CUDA
-  graph replayed a call, ``glava_tpu_torch.compiled``), where the JAX
-  bench times a jitted function: each call copies its fresh input into
-  the step's static buffer, then replays; the first (warm-up) call
-  captures. The interpreted section runs shader modules, which keep the
-  eager step;
+* every section times the compiled step, what the Engine and the
+  fleet run (``jit_step``, ``jit_update``: a CUDA graph replayed a
+  call, ``glava_tpu_torch.compiled``), where the JAX bench times a
+  jitted function: each call copies its fresh input into the step's
+  static buffer, then replays; the first (warm-up) call captures. The
+  interpreted section's shader modules run theirs too, a data-dependent
+  loop as a while node of the graph;
 * the steps run back to back with no probe: ``torch.cuda.synchronize()``
   returns when the card is done;
 * fps, windows a second and the ``p50_pcm_to_frame_ms`` keys are host
@@ -398,7 +398,7 @@ def interpreted(module_dir, name: str | None = None, knobs: str = "",
                 device="cuda", screen=(1920, 1080), frames: int = 8,
                 builds: int = 3, system_dir=None) -> dict:
     """``{min, median, best, builds}`` fps of a GLSL shader module
-    through the interpreter: the ``.frag`` files of ``module_dir`` copied
+    through the interpreter's compiled step: the ``.frag`` files of ``module_dir`` copied
     into a config dir as module ``name`` (the directory's name by
     default), with ``knobs`` as its ``<name>.glsl``, at bufsize 1024
     (``scripts/bench_interpreted.py``)."""
@@ -419,7 +419,8 @@ def interpreted(module_dir, name: str | None = None, knobs: str = "",
             r = Renderer(lc, device=dev)
         snap = torch.as_tensor(np.random.default_rng(0).standard_normal(
             (2, 1024)).astype(np.float32) * 0.3, device=dev)
-        ms = _steps_ms(lambda s, a: r.step(s, a, True, 0.0, 1.0, 0.05)[0],
+        step = r.jit_step()
+        ms = _steps_ms(lambda s, a: step(s, a, True, 0.0, 1.0, 0.05)[0],
                        r.init_state(), _fresh(snap, frames), 1, dev)
         vals.append(1e3 / ms)
     vals.sort()

@@ -13,21 +13,30 @@ compiled step shares:
   pinned staging buffer (one of a ring the step owns, reused once the
   copy from it is done) and reach the device in ONE host-to-device copy
   of the span they cover, made before the replay and outside the
-  graph; a value already on the device is copied device to device;
+  graph; a value already on the device is copied device to device.
+  Live pipe values are static inputs too, one slot a pipe name
+  (``pipe:<name>``), so one graph serves every value, as JAX traces
+  them as arguments; a new set of names or shapes is a new input
+  layout, and the next call captures anew (JAX retraces on a new
+  pytree structure);
 * **the donated state** (:meth:`Step.donate`): the step keeps the state
   in static buffers, the body updates them in place, and the call
   returns them. A state that is not the step's own is copied in;
-* **branches**: a choice the host makes (whether new audio arrived, the
-  pipe values a knob evaluates on the host) picks one graph of several.
-  Each graph has its own memory pool, and every tensor that passes
-  between graphs (the state, the inputs) is static, so replays in any
-  order are safe. A change of the host values the graphs were captured
-  with (``scope_key``) drops them, and the next call captures anew;
+* **branches**: a choice the host makes (whether new audio arrived, a
+  wallpaper was given) picks one graph of several. Each graph has its
+  own memory pool, and every tensor that passes between graphs (the
+  state, the inputs) is static, so replays in any order are safe;
 * **warm-up, then capture**: the first call of a branch runs the body
   eagerly on a side stream (that call's own result: it builds the
   kernels, makes their shared-memory opt-ins, fills the twiddle, cuFFT
-  plan and colour caches), then captures the body; every later call
-  replays the graph;
+  plan and constant caches), then captures the body; every later call
+  replays the graph. :attr:`Step.captures` counts the captures;
+* **host constants** (:func:`const`): a value a body makes from host
+  data (a GLSL shader's coordinate planes, a plan's index rows) is
+  uploaded once, in the warm-up, into a cache the step owns, and every
+  later run of the body (the capture, and every CPU call) takes the
+  cached tensor; one first met in a capture raises. :func:`hold`
+  keeps alive what a graph reads from a cache outside the step;
 * **on the CPU** (the tests) the same body runs eagerly on the same
   static buffers, its outputs copied into one static output a branch,
   as a replay leaves them. There is no graph on the CPU.
@@ -44,11 +53,10 @@ frame out before that). A replay adds to each kernel's launch count
 (``ops.fused.launches`` and the others, :data:`COUNTERS`) the launches
 its graph holds; the capture itself launches nothing and counts
 nothing. A failed capture or replay raises: nothing runs the eager step
-in its place. A module whose passes read the host (a GLSL shader
-module, whose interpreter's data-dependent loops read back, or a user
-Python module, whose code is unknown) has no compiled step
-(:func:`check_native`); the Engine runs its eager step and says so once
-(:func:`note_eager`).
+in its place. A data-dependent GLSL loop is a conditional while node of
+the graph (``ops.graph_while``). Only a user Python module, whose code
+is unknown, has no compiled step (:func:`check_capturable`); the Engine
+runs its eager step and says so once (:func:`note_eager`).
 """
 
 from __future__ import annotations
@@ -62,17 +70,17 @@ from typing import Callable
 import numpy as np
 import torch
 
-# the kernel launch counters a replay advances: (module of
-# glava_tpu_torch.ops, attribute), an int or a dict of ints
+# the counters a replay advances (module of glava_tpu_torch.ops or the
+# renderer, attribute), an int or a dict of ints: kernel launches, the
+# row-wise lookup's routes and the renderer's whole-frame band renders
 COUNTERS = (("fused", "launches"), ("fused", "split_launches"),
             ("lookup", "launches"), ("lookup", "rowwise_launches"),
-            ("latch", "launches"), ("raster", "launches"),
-            ("smooth", "launches"))
+            ("lookup", "rowwise_routes"), ("latch", "launches"),
+            ("raster", "launches"), ("smooth", "launches"),
+            ("graph_while", "launches"), ("renderer", "whole_frame_bands"))
 
 # why a module kind keeps the eager step
 EAGER_REASONS = {
-    "shader": "a GLSL shader module: the interpreter's data-dependent loops "
-              "read the device from the host",
     "python": "a user Python module: its code is unknown",
 }
 
@@ -82,16 +90,25 @@ _NOTED: set = set()
 _MODULES: dict = {}
 # captures underway, and whether the garbage collector ran before them
 _GC = {"captures": 0, "was_enabled": True, "lock": threading.Lock()}
+# the step whose body this thread runs (.step), the run's phase (.phase:
+# "warm", "capture" or "cpu"), the capture's memory pool (.pool) and
+# whether the pool takes every allocation of the thread (.by_thread)
+_LOCAL = threading.local()
 
 
-def check_native(module) -> None:
-    """Raise ``ValueError`` naming ``module`` (a ``ModuleBuild``) unless
-    it is a native module, the kind whose step is captured."""
-    if module.kind != "native":
+def check_capturable(module) -> None:
+    """Raise ``ValueError`` naming ``module`` (a ``ModuleBuild``) when
+    its kind keeps the eager step (a user Python module)."""
+    if module.kind in EAGER_REASONS:
         raise ValueError(
             f"module '{module.name}' has no compiled step "
             f"({EAGER_REASONS.get(module.kind, module.kind)}); run its eager "
             "step")
+
+
+class Uncapturable(ValueError):
+    """A compiled step's capture met what it cannot take (a host value
+    the warm-up did not make): the module is refused by name."""
 
 
 def note_eager(module) -> str:
@@ -105,15 +122,30 @@ def note_eager(module) -> str:
     return line
 
 
+def choose_step(modules, make_compiled: Callable, eager: Callable):
+    """The step a runtime loop calls: ``eager`` when one of ``modules``
+    keeps the eager step (said once, :func:`note_eager`), else
+    ``make_compiled()``, whose first call of a branch raises what its
+    capture cannot take (:class:`Uncapturable`, naming the module)."""
+    keep = [m for m in modules if m.kind in EAGER_REASONS]
+    for m in keep:
+        note_eager(m)
+    return eager if keep else make_compiled()
+
+
 # -- launch counters -----------------------------------------------------
 
 
 def _counter_modules() -> dict:
     if not _MODULES:
-        from glava_tpu_torch.ops import fused, latch, lookup, raster, smooth
+        from glava_tpu_torch import renderer
+        from glava_tpu_torch.ops import (
+            fused, graph_while, latch, lookup, raster, smooth,
+        )
 
-        _MODULES.update(fused=fused, latch=latch, lookup=lookup,
-                        raster=raster, smooth=smooth)
+        _MODULES.update(fused=fused, graph_while=graph_while, latch=latch,
+                        lookup=lookup, raster=raster, smooth=smooth,
+                        renderer=renderer)
     return _MODULES
 
 
@@ -183,14 +215,92 @@ def tree_map(fn: Callable, x):
     return x
 
 
-def pipe_key(rows: dict | None) -> tuple:
-    """The host pipe rows (name -> float32 array) as a hashable key."""
-    return tuple((k, a.shape, a.tobytes()) for k, a in sorted((rows or {})
-                                                               .items()))
-
-
 # the numpy type of each static input type
 NP = {torch.float32: np.float32, torch.bool: np.bool_, torch.int32: np.int32}
+
+
+def in_step() -> bool:
+    """Whether this thread runs a compiled step's body."""
+    return getattr(_LOCAL, "step", None) is not None
+
+
+def warming() -> bool:
+    """Whether this thread runs a compiled step's warm-up call (the
+    eager run before a capture)."""
+    return getattr(_LOCAL, "phase", None) == "warm"
+
+
+def pool_by_thread(device) -> None:
+    """Route every allocation this thread makes, on any stream, to the
+    memory pool of the capture it runs, for the rest of the capture (a
+    while node's body is captured on a stream of its own, which the
+    capture's own routing, by its capture id, does not take). The
+    allocator keeps one routing a pool: the capture's is ended, and the
+    capture's end ends this one."""
+    if getattr(_LOCAL, "phase", None) != "capture":
+        raise RuntimeError("a while node is captured only inside a "
+                           "compiled step's capture")
+    if _LOCAL.by_thread:
+        return
+    idx = torch.device(device).index
+    torch._C._cuda_endAllocateToPool(idx, _LOCAL.pool)
+    torch._C._cuda_beginAllocateCurrentThreadToPool(idx, _LOCAL.pool)
+    # the routing took a reference to the pool; the graph holds its own
+    torch._C._cuda_releasePool(idx, _LOCAL.pool)
+    _LOCAL.by_thread = True
+
+
+_FINGERPRINT = 4096   # elements of a constant that key its cache entry
+
+
+def const(x, device=None) -> torch.Tensor:
+    """``torch.as_tensor(x, device=device)`` for host data ``x`` (a
+    Python number or a numpy array; float64 and int64 stay as given,
+    the caller narrows). Inside a compiled step's body the tensor comes
+    from the step's cache, keyed by the value: made in the warm-up call
+    (or a CPU step's first), then reused, so a capture makes none (a
+    host-to-device copy inside a graph would freeze a pageable read). A
+    value first met in a capture raises :class:`Uncapturable`."""
+    step = getattr(_LOCAL, "step", None)
+    if step is None:
+        return torch.as_tensor(x, device=device)
+    dev = torch.device(device if device is not None else "cpu")
+    a = np.asarray(x)
+    flat = a.reshape(-1)
+    stride = max(1, flat.size // _FINGERPRINT)
+    key = (str(dev), type(x).__name__ if not isinstance(x, np.ndarray)
+           else "", a.dtype.str, a.shape, flat[::stride].tobytes())
+    for host, t in step._consts.get(key, ()):
+        if np.array_equal(host, a):
+            return t
+    if _LOCAL.phase == "capture":
+        raise Uncapturable(
+            f"a host value of shape {a.shape} ({a.dtype}) first met inside "
+            "a capture: the warm-up call did not make it")
+    t = torch.as_tensor(x, device=dev)
+    step._consts.setdefault(key, []).append((a.copy(), t))
+    return t
+
+
+def hold(obj) -> None:
+    """Keep ``obj`` (a tensor or what holds tensors, from a cache outside
+    the step) alive as long as the step whose body this thread runs:
+    its graphs may read it."""
+    step = getattr(_LOCAL, "step", None)
+    if step is not None:
+        step._held[id(obj)] = obj
+
+
+@contextlib.contextmanager
+def _body_of(step, phase: str, pool=None):
+    saved = (getattr(_LOCAL, "step", None), getattr(_LOCAL, "phase", None),
+             getattr(_LOCAL, "pool", None), getattr(_LOCAL, "by_thread", False))
+    _LOCAL.step, _LOCAL.phase, _LOCAL.pool = step, phase, pool
+    _LOCAL.by_thread = False
+    try:
+        yield
+    finally:
+        (_LOCAL.step, _LOCAL.phase, _LOCAL.pool, _LOCAL.by_thread) = saved
 
 
 @contextlib.contextmanager
@@ -212,29 +322,33 @@ def _no_gc():
 
 
 class Step:
-    """One compiled step (module docstring): the owner's ``body(branch,
-    scope)``, given to each :meth:`run`, reads :attr:`inputs` and the
-    donated :attr:`state` and returns its outputs (a tensor, or a tuple
-    or dict of them). ``dtypes`` names the per-call inputs and their
-    types; their shapes are the first call's. ``keep`` returns what a
-    graph reads that its owner may let go
-    (``render.base.StreamColors.last``); each graph holds it."""
+    """One compiled step (module docstring): the owner's ``body(branch)``,
+    given to each :meth:`run`, reads :attr:`inputs` and the donated
+    :attr:`state` and returns its outputs (a tensor, or a tuple or dict
+    of them). ``dtypes`` names the per-call inputs and their types;
+    :meth:`load` adds a ``pipe:<name>`` float32 input a pipe name. The
+    shapes are the call's: a new layout captures anew. ``name`` (the
+    modules the step renders) names them when a capture refuses the
+    body (:class:`Uncapturable`)."""
 
-    def __init__(self, device, dtypes: dict, keep: Callable | None = None):
+    def __init__(self, device, dtypes: dict, name: str | None = None):
         self.device = torch.device(device)
+        self.name = name
+        self.base = dict(dtypes)
         self.dtypes = dict(dtypes)
-        self.keep = keep
         self.inputs: dict[str, torch.Tensor] = {}
         self.state = None
-        self.captures = 0         # graphs captured so far
+        self.captures = 0         # graphs captured (CPU: branches first run)
         self._layout: dict = {}   # name -> (offset, nbytes, shape)
+        self._key = None          # the layout's (name, shape) key
         self._flat = None
         # [pinned staging buffer, the event after its copy, recorded?]
         self._stages: list = []
         self._calls = 0
-        self._graphs: dict = {}   # branch -> (graph, outputs, counts, kept)
+        self._graphs: dict = {}   # branch -> (graph, outputs, counts)
         self._outs: dict = {}     # branch -> static outputs (CPU)
-        self._scope_key = None
+        self._consts: dict = {}   # const(): key -> [(host value, tensor)]
+        self._held: dict = {}     # hold(): what the graphs read elsewhere
         self._capture_stream = None
 
     # -- the donated state ------------------------------------------------
@@ -257,11 +371,17 @@ class Step:
     # -- static inputs ----------------------------------------------------
 
     def _allocate(self, shapes: dict) -> None:
+        """A new input layout: new static buffers, and every graph (which
+        reads the old ones) dropped."""
+        self._graphs.clear()
+        self._outs.clear()
+        self._stages = []
+        self._layout = {}
+        self.inputs = {}
         off = 0
-        for name in self.dtypes:
+        for name, dtype in self.dtypes.items():
             shape = tuple(shapes[name])
-            nbytes = (int(np.prod(shape, dtype=np.int64))
-                      * self.dtypes[name].itemsize)
+            nbytes = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
             self._layout[name] = (off, nbytes, shape)
             off += -(-nbytes // _ALIGN) * _ALIGN
         self._flat = torch.zeros(max(off, _ALIGN), dtype=torch.uint8,
@@ -270,24 +390,25 @@ class Step:
             self.inputs[name] = (self._flat[o:o + n].view(self.dtypes[name])
                                  .view(shape))
 
-    def load(self, **values) -> None:
-        """Copy one call's inputs (every name of ``dtypes``) into the
-        static buffers: host values (numbers, numpy arrays, CPU
-        tensors) through one pinned staging buffer and one
-        host-to-device copy, device tensors device to device; all
-        before the replay, outside the graph."""
-        if set(values) != set(self.dtypes):
-            raise ValueError(f"a compiled step takes {sorted(self.dtypes)}, "
+    def load(self, pipe: dict | None = None, **values) -> None:
+        """Copy one call's inputs (every name of the step's ``dtypes``,
+        and the pipe values, name -> value, each into ``pipe:<name>``)
+        into the static buffers: host values (numbers, numpy arrays, CPU
+        tensors) through one pinned staging buffer and one host-to-device
+        copy, device tensors device to device; all before the replay,
+        outside the graph."""
+        if set(values) != set(self.base):
+            raise ValueError(f"a compiled step takes {sorted(self.base)}, "
                              f"got {sorted(values)}")
+        values.update({f"pipe:{k}": v for k, v in sorted((pipe or {})
+                                                          .items())})
         shapes = {k: tuple(np.shape(v)) if not isinstance(v, torch.Tensor)
                   else tuple(v.shape) for k, v in values.items()}
-        if self._flat is None:
+        key = tuple((k, shapes[k]) for k in values)
+        if key != self._key:
+            self.dtypes = {k: self.base.get(k, torch.float32) for k in values}
             self._allocate(shapes)
-        for k, s in shapes.items():
-            if s != self._layout[k][2]:
-                raise ValueError(f"a compiled step keeps its first call's "
-                                 f"shapes: {k} {s}, captured with "
-                                 f"{self._layout[k][2]}")
+            self._key = key
         on_dev = {k: v for k, v in values.items()
                   if isinstance(v, torch.Tensor) and v.device.type != "cpu"}
         host = {k: v for k, v in values.items() if k not in on_dev}
@@ -313,6 +434,11 @@ class Step:
         for k, v in on_dev.items():
             self.inputs[k].copy_(v)
 
+    def pipe(self) -> dict:
+        """The pipe values' static inputs: name -> tensor."""
+        return {k[5:]: t for k, t in self.inputs.items()
+                if k.startswith("pipe:")}
+
     def _stage(self) -> list:
         """The next pinned staging buffer of the ring, once the copy
         made from it before has finished (a wait only when the host runs
@@ -331,42 +457,50 @@ class Step:
 
     # -- run: warm-up and capture, or replay -------------------------------
 
-    def run(self, branch, body: Callable, scope=None, scope_key=None):
+    def run(self, branch, body: Callable):
         """``body``'s outputs for ``branch`` on the loaded inputs:
         replayed from its graph on the card, after a first call that
-        runs it eagerly and captures it; run eagerly on the CPU.
-        ``scope`` is the host data the body reads (pipe rows); a new
-        ``scope_key`` drops every graph."""
-        if scope_key != self._scope_key:
-            self._graphs.clear()
-            self._outs.clear()
-            self._scope_key = scope_key
+        runs it eagerly and captures it; run eagerly on the CPU. What
+        the capture cannot take raises :class:`Uncapturable` naming
+        the step's modules."""
+        try:
+            return self._run(branch, body)
+        except Uncapturable as e:
+            if self.name is None:
+                raise
+            raise Uncapturable(f"module '{self.name}' has no compiled "
+                               f"step: {e}") from None
+
+    def _run(self, branch, body: Callable):
         if self.device.type == "cpu":
-            out = body(branch, scope)
+            # a branch's first run is its warm-up, as on the card
             held = self._outs.get(branch)
+            with _body_of(self, "cpu" if held is not None else "warm"):
+                out = body(branch)
             if held is None:
                 held = self._outs[branch] = tree_map(torch.clone, out)
+                self.captures += 1
             else:
                 for h, o in zip(leaves(held), leaves(out)):
                     h.copy_(o)
             return held
         entry = self._graphs.get(branch)
         if entry is None:
-            return self._warm_and_capture(branch, body, scope)
-        graph, out, counts, _kept = entry
+            return self._warm_and_capture(branch, body)
+        graph, out, counts = entry
         with torch.cuda.device(self.device):
             graph.replay()
         _add_counters(counts)
         return out
 
-    def _warm_and_capture(self, branch, body, scope):
+    def _warm_and_capture(self, branch, body):
         dev = self.device
         with torch.cuda.device(dev):
             cur = torch.cuda.current_stream(dev)
             side = torch.cuda.Stream(dev)
             side.wait_stream(cur)
-            with torch.cuda.stream(side):
-                out = body(branch, scope)
+            with torch.cuda.stream(side), _body_of(self, "warm"):
+                out = body(branch)
             cur.wait_stream(side)
             for t in leaves(out):
                 t.record_stream(cur)
@@ -374,14 +508,16 @@ class Step:
                 self._capture_stream = torch.cuda.Stream(dev)
             before = read_counters()
             graph = torch.cuda.CUDAGraph()
+            pool = torch.cuda.graph_pool_handle()
             try:
                 # thread_local: another thread's engine may make calls
                 # that a global capture forbids (an api.entry engine runs
                 # on a thread of its own)
                 with _no_gc(), torch.cuda.graph(
-                        graph, stream=self._capture_stream,
-                        capture_error_mode="thread_local"):
-                    gout = body(branch, scope)
+                        graph, pool=pool, stream=self._capture_stream,
+                        capture_error_mode="thread_local"), \
+                        _body_of(self, "capture", pool):
+                    gout = body(branch)
             except RuntimeError as e:
                 free, total = torch.cuda.mem_get_info(dev)
                 raise RuntimeError(
@@ -391,7 +527,6 @@ class Step:
                     f"reserved): {e}") from e
             counts = _counter_delta(before, read_counters())
             _restore_counters(before)
-        kept = self.keep() if self.keep is not None else None
-        self._graphs[branch] = (graph, gout, counts, kept)
+        self._graphs[branch] = (graph, gout, counts)
         self.captures += 1
         return out

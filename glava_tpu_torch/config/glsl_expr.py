@@ -33,6 +33,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from glava_tpu_torch import compiled
+
 from glava_tpu_torch.config.colors import parse_color
 
 
@@ -208,14 +210,20 @@ def _is_torch(x) -> bool:
 
 def _tensor(x, device=None) -> torch.Tensor:
     """Value -> tensor; numpy float64/int64 narrow to 32 bits (the
-    jnp-without-x64 promotion the JAX package's evaluator sees)."""
+    jnp-without-x64 promotion the JAX package's evaluator sees). Host
+    data goes through ``compiled.const``: inside a compiled step's body
+    it is uploaded once and reused."""
     if isinstance(x, torch.Tensor):
         return x
     if not isinstance(x, (bool, int, float)):
         x = np.asarray(x)
-        if not x.flags.writeable:   # e.g. a broadcast view
+        if x.dtype == np.float64:
+            x = x.astype(np.float32)
+        elif x.dtype == np.int64:
+            x = x.astype(np.int32)
+        elif not x.flags.writeable:   # e.g. a broadcast view
             x = x.copy()
-    t = torch.as_tensor(x, device=device)
+    t = compiled.const(x, device)
     if t.dtype == torch.float64:
         return t.to(torch.float32)
     if t.dtype == torch.int64:
@@ -987,6 +995,8 @@ class Env:
     variables: dict[str, Any] = field(default_factory=dict)  # runtime values
     pipe_values: dict[str, Any] = field(default_factory=dict)  # live --pipe uniforms
     functions: dict[str, Any] = field(default_factory=dict)  # extra callables
+    # when a set: the names of pipe_values an evaluation read go in
+    reads: set | None = None
     _cache: dict[str, Any] = field(default_factory=dict)
     _expanding: set = field(default_factory=set)
 
@@ -1355,6 +1365,8 @@ class _Parser:
         if name in self.env.pipe_values:
             if has_default:
                 self._skip_default()
+            if self.env.reads is not None:
+                self.env.reads.add(name)
             return self.env.pipe_values[name]
         if not has_default:
             raise ExprError(

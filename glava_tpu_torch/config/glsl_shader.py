@@ -34,12 +34,18 @@ tensor's device (CPU tensors take each kernel's plain version):
 * 1-D texel fetches use ``ops.lookup`` (``StaticLookup`` for numpy
   index planes, ``fetch_1d`` for runtime ones).
 
-Data-dependent loops run eagerly, one host synchronisation per
-iteration, until no pixel is active or the fuel cap
-``4*(H+W)+4096`` (``GLAVA_TPU_WHILE_FUEL``) is reached; exhaustion warns
-on stderr with the truncated-pixel count (``GLAVA_TPU_WHILE_FUEL_WARN=0``
-silences it) and raises under ``GLAVA_TPU_WHILE_FUEL_STRICT=1``.
-Unsupported constructs raise a clear error at load time.
+Data-dependent loops (``ops.graph_while``) run until no pixel is
+active or the fuel cap ``4*(H+W)+4096`` (``GLAVA_TPU_WHILE_FUEL``) is
+reached: eagerly, one host synchronisation per iteration, or inside a
+compiled step's capture as a conditional while node of the graph, with
+no host read (their state in buffers made before the loop, a walk's
+row offset a device int32). Exhaustion counts the truncated pixels on
+the device; the eager step reports them at once, a compiled step's
+caller with :func:`fuel_check` (a stderr line at most once a second,
+``GLAVA_TPU_WHILE_FUEL_WARN=0`` silences it; raises under
+``GLAVA_TPU_WHILE_FUEL_STRICT=1``). Host values a frame turns into
+tensors go through ``compiled.const`` (uploaded once inside a compiled
+step). Unsupported constructs raise a clear error at load time.
 """
 
 from __future__ import annotations
@@ -57,8 +63,10 @@ from typing import Any
 import numpy as np
 import torch
 
+from glava_tpu_torch import compiled
 from glava_tpu_torch.config import glsl_expr
 from glava_tpu_torch.config.glsl_expr import ExprError, tokenize
+from glava_tpu_torch.ops import graph_while
 from glava_tpu_torch.ops import latch as latch_ops
 from glava_tpu_torch.ops import lookup as lookup_ops
 
@@ -1165,6 +1173,16 @@ class _Exec:
     def _stmt(self, stmt) -> None:
         try:
             self._stmt_exec(stmt)
+        except compiled.Uncapturable as e:
+            # a capture's refusal names the statement that met it
+            ln = getattr(stmt, "line", 0)
+            if ln and not getattr(e, "located", False):
+                fname, sl = _resolve_srcline(self.src_info[0],
+                                             self.src_info[1], ln)
+                err = compiled.Uncapturable(f"{fname}:{sl}: {e}")
+                err.located = True
+                raise err from None
+            raise
         except (ShaderError, ExprError) as e:
             ln = getattr(stmt, "line", 0)
             if ln and not (isinstance(e, ShaderError)
@@ -1728,7 +1746,7 @@ class _Exec:
                 _plan_cache_put(plan_key, plan)
             condIN, key_in, out_first, oob_col_first = plan
             sl = slice(k - lo, k - lo + h)
-            oob_first = torch.as_tensor(oob_col_first[sl], device=dev)
+            oob_first = compiled.const(oob_col_first[sl], dev)
 
             ext = ext_fn(("shift", 0), frac > 0, -1, h)     # (h+1, w) x4
             if ext is None:
@@ -1741,9 +1759,9 @@ class _Exec:
             if a.dtype != torch.bool:
                 a = a != 0
             predB = a.expand(h + 1, w)
-            cond_t = torch.as_tensor(condIN, device=dev)      # (h+1, 1)
+            cond_t = compiled.const(condIN, dev)      # (h+1, 1)
             event_in = ~cond_t | (cond_t & predB)
-            kin = torch.where(event_in, torch.as_tensor(key_in, device=dev),
+            kin = torch.where(event_in, compiled.const(key_in, dev),
                               float(SENT)).contiguous()
             in_scan = latch_ops.latch_scan(kin, (), d > 0, float(SENT))[0]
             # pixel row r starts at ext row e0 = r + k -> IN index
@@ -1755,7 +1773,7 @@ class _Exec:
                           if d > 0 else in_scan[-1:].expand(k, w))
                 in_scan = torch.cat([in_scan, padrow], dim=0)
             in_part = in_scan[k + 1:k + 1 + h]
-            out_part = torch.as_tensor(out_first[sl], device=dev)  # (h, 1)
+            out_part = compiled.const(out_first[sl], dev)  # (h, 1)
             fkI = (torch.minimum if d > 0 else torch.maximum)(in_part,
                                                               out_part)
             latch_maker = self._make_latch_maker(
@@ -1786,25 +1804,24 @@ class _Exec:
                 cols = np.arange(w) + px[1]
                 oobc = (cols < 0) | (cols >= w)
                 if oobc.any():
-                    fk = torch.where(torch.as_tensor(oobc, device=dev)[None, :],
+                    fk = torch.where(compiled.const(oobc, dev)[None, :],
                                      oob_first, fk)
 
         no_event = fk == float(SENT)
         fki = fk.to(torch.int32)
         jstar = fki >> 1
         cond_evt = (fki & 1) == bit_cond
-        j0 = torch.as_tensor(
+        j0 = compiled.const(
             (np.arange(h, dtype=np.int64) + (k - lo)).astype(np.int32),
-            device=dev)[:, None]
+            dev)[:, None]
         raw = (jstar - j0) * int(d)
         fuelled = no_event | (raw >= fuel_cap)
-        i_eff = torch.where(fuelled, torch.tensor(fuel_cap, dtype=torch.int32,
-                                                  device=dev), raw)
+        i_eff = torch.where(fuelled, fuel_cap, raw)
         brk_evt = ~fuelled & ~cond_evt
         # the entry plane keeps its broadcastable shape ((h, 1) for a
         # row coordinate): no (h, w) host plane to build and upload
         y0 = np.asarray(env.variables[yname], np.float64).astype(np.float32)
-        y0_t = torch.as_tensor(y0, device=dev)
+        y0_t = compiled.const(y0, dev)
         yf = (y0_t + float(d) * i_eff.to(torch.float32)
               + float(adj) * brk_evt.to(torch.float32))
         committed = _where(self.mask, yf, y0_t)
@@ -1821,8 +1838,7 @@ class _Exec:
                                 "latch_px": px}))
         self._prov_merge(committed, self.mask, yf, y0)
         _WALK_HITS[0] += 1
-        if _fuel_warn():
-            _fuel_report(int(_band(fuelled, self.mask).sum()), fuel_cap)
+        _fuel_add(_band(fuelled, self.mask), fuel_cap)
         return True
 
     def _make_latch_maker(self, *, kin, ext, condIN, out_np, fkI, d, k,
@@ -1883,7 +1899,7 @@ class _Exec:
             ext[r + 1])."""
             planes = [torch.zeros((h, w), device=dev) for _ in range(4)]
             for r0, m in groups:
-                mt = torch.as_tensor(m, device=dev)
+                mt = compiled.const(m, dev)
                 planes = [torch.where(mt, ext[ch][r0 + 1][None, :], p)
                           for ch, p in enumerate(planes)]
             return planes
@@ -1904,7 +1920,7 @@ class _Exec:
             # encodes the row -1 truncation), cond exits tex[e]
             cands = []
             n = h + 1
-            cond_t = torch.as_tensor(condIN, device=dev)
+            cond_t = compiled.const(condIN, dev)
             for ch in range(4):
                 t = ext[ch]
                 if adj_i == 0:
@@ -1933,13 +1949,12 @@ class _Exec:
             fki = fkI.to(torch.int32)
             no_event = fkI == float(SENT)
             jstar = fki >> 1
-            j0 = torch.as_tensor((np.arange(h, dtype=np.int64)
-                                  + (k - lo)).astype(np.int32),
-                                 device=dev)[:, None]
+            j0 = compiled.const((np.arange(h, dtype=np.int64)
+                                 + (k - lo)).astype(np.int32), dev)[:, None]
             raw = (jstar - j0) * int(d)
             fuelled = no_event | (raw >= fuel_cap)
-            took_out = (~no_event) & (fkI == torch.as_tensor(
-                out_np.astype(np.float32), device=dev)[:, None])
+            took_out = (~no_event) & (fkI == compiled.const(
+                out_np.astype(np.float32), dev)[:, None])
             outp = row_select_planes(outg)
             fuelp = row_select_planes(fuelg)
 
@@ -1960,7 +1975,7 @@ class _Exec:
                     cols = np.arange(w) + px_f[1]
                     oobc = (cols < 0) | (cols >= w)
                     if oobc.any():
-                        ob = torch.as_tensor(oobc, device=dev)[None, :]
+                        ob = compiled.const(oobc, dev)[None, :]
                         vals = [torch.where(ob, 0.0, v) for v in vals]
             _LATCH_HITS[0] += 1
             return tuple(vals)
@@ -1968,16 +1983,18 @@ class _Exec:
         return latch
 
     def _while_loop(self, stmt: WhileLoop) -> None:
-        """Masked data-dependent iteration, run eagerly.
+        """Masked data-dependent iteration (``ops.graph_while``).
 
         Per-pixel semantics (GLava runs real GLSL, e.g. graph's
         anti-alias column walk, graph/3.frag:24-54): each pixel iterates
         until its condition goes false or it breaks; the loop runs until
-        every pixel has retired or the fuel cap is reached, one host
-        synchronisation per iteration. Variables assigned in the body
-        that exist outside it are carried (canonicalized to (H, W)
-        float32/bool planes); body-local declarations are rebuilt every
-        iteration and discarded afterwards."""
+        every pixel has retired or the fuel cap is reached: eagerly, one
+        host synchronisation per iteration, or, inside a capture, as a
+        conditional while node with no host read. Variables assigned in
+        the body that exist outside it are carried (canonicalized to
+        (H, W) float32/bool planes, in buffers the body rewrites in
+        place); body-local declarations are rebuilt every iteration and
+        discarded afterwards."""
         # a VALUED return inside the loop merges into the enclosing
         # function's return value, which must then ride the loop state
         fr = self._fn_stack[-1] if self._fn_stack else None
@@ -2042,12 +2059,15 @@ class _Exec:
         for n in carried:
             env.variables[n] = canon(env.variables[n])
         outer_mask = self.mask
-        # hang-proofing: pixels still active at the fuel cap retire with
-        # their current values (reported below)
+        # the loop state lives in buffers made before the loop, written
+        # in place by every iteration: a captured body (a while node,
+        # ops.graph_while) replays at fixed addresses. Pixels still
+        # active at the fuel cap retire with their current values
+        # (hang-proofing, counted below)
         active = _bool_t(_band(outer_mask, self._cond_mask(stmt.cond)),
-                         dev).expand(h, w)
-        fuel = 0
-        vars_ = {n: env.variables[n] for n in carried}
+                         dev).expand(h, w).clone()
+        fuel = torch.zeros(1, dtype=torch.int32, device=dev)
+        vars_ = {n: _fresh(env.variables[n]) for n in carried}
         returned = torch.zeros((h, w), dtype=torch.bool, device=dev) \
             if has_ret else None
         fnval = None
@@ -2056,9 +2076,9 @@ class _Exec:
                 rt = fr.get("rettype", "float")
                 fr["value"] = (self._zero_struct(rt) if rt in self._structs
                                else _zero_retval(rt, h, w, dev))
-            fnval = canon(fr["value"])
+            fnval = _fresh(canon(fr["value"]))
 
-        while fuel < fuel_cap and bool(active.any()):
+        def body():
             for n in carried:
                 env.variables[n] = vars_[n]
             if carry_val:
@@ -2070,9 +2090,10 @@ class _Exec:
             self._ret_stack.append(rctx)
             self.mask = active
             # register pristine walk-variable states: fetches indexed
-            # by these exact objects are row-shifted slices
+            # by these exact objects are row-shifted slices, at the
+            # device offset k + d * fuel
             _WALK_STACK.append([
-                _WalkEntry(vars_[n], k + d * fuel, frac > 0)
+                _WalkEntry(vars_[n], fuel[0] * d + k, frac > 0)
                 for n, (k, d, frac) in walk_info.items()
             ])
             try:
@@ -2090,19 +2111,26 @@ class _Exec:
                 _WALK_STACK.pop()
                 self._loop_stack.pop()
                 self._ret_stack.pop()
-            active = _bool_t(_band(self.mask, self._cond_mask(stmt.cond)),
-                             dev).expand(h, w)
-            vars_ = {n: canon(env.variables[n]) for n in carried}
+            dst = [active] + [vars_[n] for n in carried]
+            src = [_bool_t(_band(self.mask, self._cond_mask(stmt.cond)),
+                           dev).expand(h, w)]
+            src += [canon(env.variables[n]) for n in carried]
             if has_ret:
-                returned = returned | _bool_t(rctx["mask"], dev)
+                dst.append(returned)
+                src.append(returned | _bool_t(rctx["mask"], dev))
             if carry_val:
-                fnval = canon(fr["value"])
-            fuel += 1
+                dst.append(fnval)
+                src.append(canon(fr["value"]))
+            _write_in_place(dst, src)
+            fuel.add_(1)
+
+        graph_while.run(active, fuel, fuel_cap, body,
+                        warm=compiled.warming())
         # loud fuel-cap exhaustion: pixels still active when the cap
-        # tripped were truncated mid-walk; warn with the count (raise
-        # under GLAVA_TPU_WHILE_FUEL_STRICT=1)
-        if _fuel_warn() and fuel >= fuel_cap:
-            _fuel_report(int(active.sum()), fuel_cap)
+        # tripped were truncated mid-walk (a loop that ended before the
+        # cap has none active); counted on the device, read on the host
+        # by fuel_check (raises under GLAVA_TPU_WHILE_FUEL_STRICT=1)
+        _fuel_add(active, fuel_cap)
         # loop-local writes vanish; carried writes commit
         for n, (had, old) in pre.items():
             if n in carried:
@@ -2374,7 +2402,7 @@ _CURRENT_EXEC = None          # the _Exec whose pass is running
 @dataclass
 class _WalkEntry:
     obj: object       # the iteration-start state plane (matched with `is`)
-    offset: int       # floor(c0) + d*i at this iteration
+    offset: Any       # floor(c0) + d*i at this iteration: an int32 tensor
     fracpos: bool     # frac(c0) > 0: int(-0.5) == 0 needs the -1 row
 
 
@@ -2567,13 +2595,68 @@ def _scalar_like(v) -> bool:
 
 
 
-_FUEL_WARN_STATE = {"last": 0.0}
+_FUEL_WARN_STATE = {"last": 0.0, "read": 0.0}
+# device (with its index, _fuel_device) -> [int64 count of truncated
+# pixels, the last fuel cap]
+_FUEL: dict = {}
+
+
+def _fuel_device(device) -> torch.device:
+    """``device`` as the counters are keyed: a card with its index
+    (``cuda`` is the current card, as a tensor made there says)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _fuel_add(plane: torch.Tensor, cap: int) -> None:
+    """Add the pixels of ``plane`` (those a loop truncated at the fuel
+    cap) to its device's counter, on the device. The eager step reads
+    it at once; a compiled step's caller reads it with
+    :func:`fuel_check` (the counterpart of the JAX interpreter's
+    ``jax.debug.callback``)."""
+    if not _fuel_warn():
+        return
+    key = _fuel_device(plane.device)
+    entry = _FUEL.get(key)
+    if entry is None:
+        entry = _FUEL[key] = [
+            torch.zeros((), dtype=torch.int64, device=plane.device), cap]
+    entry[0].add_(plane.sum())
+    entry[1] = cap
+    if not compiled.in_step():
+        fuel_check(plane.device, force=True)
+
+
+def fuel_check(device=None, force: bool = False) -> int:
+    """Read the truncated-pixel counters (of ``device``, or of every
+    device), zero them and report their sum (:func:`_fuel_report`:
+    raises under GLAVA_TPU_WHILE_FUEL_STRICT=1); one host
+    synchronisation, at most once a second unless ``force``. Returns
+    the count read (0 when held off)."""
+    now = _time.monotonic()
+    if not force and now - _FUEL_WARN_STATE["read"] < 1.0:
+        return 0
+    _FUEL_WARN_STATE["read"] = now
+    total, cap = 0, 0
+    want = None if device is None else _fuel_device(device)
+    for dev, entry in _FUEL.items():
+        if want is not None and dev != want:
+            continue
+        n = int(entry[0])
+        if n:
+            entry[0].zero_()
+            total += n
+            cap = entry[1]
+    _fuel_report(total, cap)
+    return total
 
 
 def _fuel_report(count: int, cap: int) -> None:
-    """Loud fuel-cap exhaustion (count of truncated pixels), run
-    eagerly after the loop. Raises under GLAVA_TPU_WHILE_FUEL_STRICT=1;
-    otherwise one stderr line, throttled to one a second."""
+    """Loud fuel-cap exhaustion (count of truncated pixels). Raises
+    under GLAVA_TPU_WHILE_FUEL_STRICT=1; otherwise one stderr line,
+    throttled to one a second."""
     if count == 0:
         return
     msg = (f"glava_tpu_torch: while-loop fuel cap ({int(cap)}) exhausted "
@@ -2649,6 +2732,44 @@ def _merge_masked(mask, new, old):
     return glsl_expr._map2(sel, sel, new, old)
 
 
+def _fresh(v):
+    """A loop buffer for a canonical carried value (tensors, tuples,
+    arrays and structs of them): new contiguous tensors with its value."""
+    if isinstance(v, glsl_expr.GlslArray):
+        return glsl_expr.GlslArray([_fresh(e) for e in v.elems])
+    if isinstance(v, glsl_expr.GlslStruct):
+        return glsl_expr.GlslStruct(v.typename, v.names,
+                                    [_fresh(c) for c in v.vals])
+    if isinstance(v, tuple):
+        return tuple(_fresh(c) for c in v)
+    return v.clone(memory_format=torch.contiguous_format)
+
+
+def _leaves(v) -> list:
+    if isinstance(v, glsl_expr.GlslArray):
+        v = v.elems
+    elif isinstance(v, glsl_expr.GlslStruct):
+        v = v.vals
+    if isinstance(v, (tuple, list)):
+        return [t for c in v for t in _leaves(c)]
+    return [v]
+
+
+def _write_in_place(dst: list, src: list) -> None:
+    """``d.copy_(s)`` for each buffer and its new value (matching
+    structures), every new value that shares memory with a buffer
+    copied first (a carried swap must not read a buffer it wrote)."""
+    dl = [t for d in dst for t in _leaves(d)]
+    sl = [t for s in src for t in _leaves(s)]
+    if len(dl) != len(sl):
+        raise ShaderError("a loop-carried value changed its structure")
+    mem = {t.untyped_storage().data_ptr() for t in dl}
+    sl = [t.clone() if t.untyped_storage().data_ptr() in mem else t
+          for t in sl]
+    for d, t in zip(dl, sl):
+        d.copy_(t)
+
+
 def _np_like_val(x) -> bool:
     """Per-pixel or runtime data (a plane, or any tensor) as opposed to
     a host scalar: decides static for-loop bounds and array sizes."""
@@ -2714,8 +2835,10 @@ def _static_lookup_cached(idx: np.ndarray, size: int, device):
     hit = _STATIC_LK_CACHE.get(key)
     if hit is not None and np.array_equal(hit[0], idx):
         _STATIC_LK_CACHE.move_to_end(key)
+        compiled.hold(hit[1])    # the cache may let it go; a graph may not
         return hit[1]
     lk = lookup_ops.StaticLookup(idx, size, device)
+    compiled.hold(lk)
     _STATIC_LK_CACHE[key] = (idx, lk)
     while len(_STATIC_LK_CACHE) > _STATIC_LK_CACHE_MAX:
         _STATIC_LK_CACHE.popitem(last=False)
@@ -2862,7 +2985,7 @@ def make_builtins(prev, sz: int, h: int, w: int, smooth_fetch, device):
     def plane(p):
         # every route reads (h, w) float32 planes of one layout (the
         # row-wise lookup takes its four tables in one layout)
-        return torch.as_tensor(p, dtype=torch.float32, device=dev) \
+        return glsl_expr._tensor(p, dev).to(torch.float32) \
             .expand(h, w).contiguous()
 
     if prev is not None:
@@ -2870,6 +2993,10 @@ def make_builtins(prev, sz: int, h: int, w: int, smooth_fetch, device):
     memo: dict = {}
 
     def cached(key, make):
+        # a value made while a loop body is captured lives in that
+        # body's graph: made anew there, never kept for later
+        if graph_while.capturing_body():
+            return memo[key] if key in memo else make()
         if key not in memo:
             memo[key] = make()
         return memo[key]
@@ -2966,11 +3093,15 @@ def make_builtins(prev, sz: int, h: int, w: int, smooth_fetch, device):
         # clip range [-(h+1), h]: offsets beyond either end are fully
         # out of range for EVERY row, and -(h+1) keeps one all-black
         # row below the fracpos near row so a deeper-than-h walk does
-        # not alias onto the int(-0.5)==0 row-0 copy
-        s = min(max(int(e.offset), -(h + 1)), h)
+        # not alias onto the int(-0.5)==0 row-0 copy. The offset is a
+        # device int32 (it moves with the loop's fuel), so the rows are
+        # gathered, not sliced
+        s = torch.clamp(e.offset, -(h + 1), h)
+        rows = torch.arange(h + 1, 2 * h + 1, dtype=torch.int32,
+                            device=dev) + s
         planes = cached(("walk", px, e.fracpos), padded)
         _WALK_HITS[0] += 1
-        return tuple(p[h + 1 + s:h + 1 + s + h] for p in planes)
+        return tuple(torch.index_select(p, 0, rows) for p in planes)
 
     def _ext_texels(px, fracpos: bool, lo: int, hi: int):
         """Texel planes of the column-patterned prev over EXTENDED
@@ -3169,8 +3300,7 @@ def make_builtins(prev, sz: int, h: int, w: int, smooth_fetch, device):
     # difference (coarse derivatives)
     def _quad_diff(v, axis):
         def one(p):
-            p = torch.as_tensor(p, dtype=torch.float32,
-                                device=dev).expand(h, w)
+            p = glsl_expr._tensor(p, dev).to(torch.float32).expand(h, w)
             n = p.shape[axis] - p.shape[axis] % 2
             even = [slice(None)] * 2
             even[axis] = slice(0, n, 2)

@@ -26,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # every kernel of the package, one source each
 KERNELS = ("fused_update", "table_lookup", "rowwise_lookup", "latch_scan",
-           "bars_raster", "smooth_scan")
+           "bars_raster", "smooth_scan", "graph_while")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "glava_tpu_torch"
 # dynamic shared memory one CTA may use on the target (sm_90a: 227 KB);
 # the kernels' plans (ops/fused.py, ops/lookup.py) size their layouts to it

@@ -204,11 +204,14 @@ def rowwise_lookup_plain(tabs, idx: torch.Tensor) -> tuple:
     tabs a tuple of C (N, T) float32, idx (N, P) integer in [0, T)
     (raises otherwise) -> a tuple of C (N, P) float32."""
     T = tabs[0].shape[1]
-    if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= T):
-        raise ValueError(f"rowwise_lookup: indices must lie in [0, {T}), got "
-                         f"[{int(idx.min())}, {int(idx.max())}]")
     il = idx.long()
-    return tuple(torch.gather(t, 1, il) for t in tabs)
+    try:
+        # the gather checks the range itself: no read of the indices on
+        # the host unless one is out of it
+        return tuple(torch.gather(t, 1, il) for t in tabs)
+    except RuntimeError as e:
+        raise ValueError(f"rowwise_lookup: indices must lie in [0, {T}), got "
+                         f"[{int(idx.min())}, {int(idx.max())}]") from e
 
 
 def rowwise_lookup(tabs, idx: torch.Tensor) -> tuple:

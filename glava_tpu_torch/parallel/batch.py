@@ -12,9 +12,9 @@ writes the stream axis out:
   call of its pass chain, the knobs it evaluates inside a pass taking
   each stream's pipe values;
 * a user shader module renders one stream at a time inside the same
-  step, each stream's pipe row loaded into the module's env before its
-  render: the eager form of the JAX ``vmap``
-  (glava_tpu/parallel/batch.py:98-116).
+  step, each stream's pipe row (device tensors) loaded into the
+  module's env before its render: the written-out form of the JAX
+  ``vmap`` (glava_tpu/parallel/batch.py:98-116).
 
 Per-stream update gating follows the JAX step: every row advances and
 :meth:`AudioPipeline.select_updated` keeps the carried rows of the
@@ -32,7 +32,8 @@ counterpart of the JAX fleet's ``jax.jit(step, donate_argnums=(0,))``
 (glava_tpu/runtime/fleet.py:185-191): captured into a CUDA graph and
 replayed a frame (``compiled.py``). Inside it every stream advances and
 the update is selected on the device by the mask, as the JAX step
-computes it; the pipe rows, host values, pick the graph.
+computes it; the pipe rows are static inputs, so one graph serves every
+value.
 
 :class:`ShardedRenderer` is the counterpart of the JAX
 ``BatchedRenderer.sharded_step``/``shard_state`` and
@@ -53,7 +54,7 @@ from glava_tpu_torch.ops import transforms
 from glava_tpu_torch.pipeline import (
     AudioPipeline, FusedChainState, UniformSpec, clone_state,
 )
-from glava_tpu_torch.render.base import interleave, interleave_u8
+from glava_tpu_torch.render.base import device_plane, interleave, interleave_u8
 from glava_tpu_torch.renderer import Renderer, RenderState, load_pipe_values
 from glava_tpu_torch.utils import profiling
 
@@ -125,12 +126,11 @@ def _raster(rend: Renderer, textures: dict, time, pipe: dict | None,
     for s in range(n):
         if pipe:
             load_pipe_values(rend.module_env,
-                             {k: v[s] for k, v in pipe.items()})
+                             {k: v[s] for k, v in pipe.items()}, rend.device)
         per.append(rend.render_planes(
-            {k: t[s] for k, t in textures.items()}, float(time[s]), None))
+            {k: t[s] for k, t in textures.items()}, time[s], None))
     return tuple(
-        torch.stack([torch.as_tensor(p[c], dtype=torch.float32,
-                                     device=rend.device).expand(h, w)
+        torch.stack([device_plane(p[c], rend.device).expand(h, w)
                      for p in per])
         for c in range(4))
 
@@ -196,7 +196,7 @@ class BatchedRenderer:
         """The compiled fleet step (:class:`CompiledFleetStep`), frames
         as :meth:`step` gives them. Raises ``ValueError`` for a module
         that keeps the eager step."""
-        compiled.check_native(self.renderer.module)
+        compiled.check_capturable(self.renderer.module)
         return CompiledFleetStep(self, self.renderer.pipeline,
                                  [self.renderer], quantize)
 
@@ -320,7 +320,9 @@ class MixedBatchedRenderer:
             rows_t = self._group_rows[k]
             sub_tex = {un: textures[cn][rows_t]
                        for un, cn in self._variant_tex[k].items()}
-            sub_pipe = {n: v[rows] for n, v in pipe.items()} if pipe else None
+            sub_pipe = {n: v[rows_t] if isinstance(v, torch.Tensor)
+                        else v[rows] for n, v in pipe.items()} if pipe \
+                else None
             planes = _raster(rend, sub_tex, time[rows_t]
                              if isinstance(time, torch.Tensor)
                              else time[rows], sub_pipe, len(rows))
@@ -340,7 +342,7 @@ class MixedBatchedRenderer:
         as :meth:`step` gives them. Raises ``ValueError`` when a variant
         keeps the eager step."""
         for rend in self.used_renderers():
-            compiled.check_native(rend.module)
+            compiled.check_capturable(rend.module)
         return CompiledFleetStep(self, self.pipeline, self.renderers, quantize)
 
     def _static_frames(self, st: RenderState, inp: dict, pipe,
@@ -447,23 +449,22 @@ class CompiledFleetStep:
     interp_mod, gravity_g, pipe=None) -> (state, frames)`` with the
     eager step's arguments, (S, ...) on the host or the device. The
     state is donated; the audio (S, 2, bufsize), the mask, the
-    per-stream scalars and the parameter rows go into static inputs in
-    one host-to-device copy (``compiled.Step``); the pipe rows, host
-    values, pick the graph, captured anew when they change. The NaN
-    guard, when it is on, checks the frame's planes after the replay."""
+    per-stream scalars, the parameter rows and the pipe rows go into
+    static inputs in one host-to-device copy (``compiled.Step``). The
+    NaN guard, when it is on, checks the frame's planes after the
+    replay."""
 
     def __init__(self, br, pipeline: AudioPipeline, renderers: list,
                  quantize: bool):
         self.br = br
         self.pipeline = pipeline
         self.quantize = quantize
-        colors = [c for r in renderers for c in r.module_ctx.colors]
         self.step = compiled.Step(
             br.device,
             {"audio": torch.float32, "modified": torch.bool,
              "time": torch.float32, "interp": torch.float32,
              "rows": torch.float32},
-            keep=lambda: [c.last for c in colors])
+            name=", ".join(dict.fromkeys(r.module.name for r in renderers)))
 
     def __call__(self, state, audio, modified, time, interp_mod, gravity_g,
                  pipe: dict | None = None):
@@ -480,18 +481,17 @@ class CompiledFleetStep:
         self.step.load(audio=audio, modified=per_stream(modified, torch.bool),
                        time=per_stream(time, torch.float32),
                        interp=per_stream(interp_mod, torch.float32),
-                       rows=rows)
-        rows_pipe = _pipe_rows(pipe)
+                       rows=rows, pipe=pipe)
         guard = profiling.nan_guard_enabled()
-        frames, nan = self.step.run(guard, self._body, rows_pipe,
-                                    compiled.pipe_key(rows_pipe))
+        frames, nan = self.step.run(guard, self._body)
         if nan is not None and bool(nan):
             raise FloatingPointError("NaN in frame")
         return st, frames
 
-    def _body(self, guard: bool, pipe):
+    def _body(self, guard: bool):
         planes, frames = self.br._static_frames(
-            self.step.state, self.step.inputs, pipe, self.quantize)
+            self.step.state, self.step.inputs, self.step.pipe() or None,
+            self.quantize)
         if not guard:
             return frames, None
         flags = [torch.isnan(p).any() for p in planes

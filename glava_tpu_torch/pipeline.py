@@ -330,7 +330,7 @@ class CompiledUpdate:
         self.step.load(audio_l=audio_l, audio_r=audio_r, rows=rows)
         return st, self.step.run(None, self._body)
 
-    def _body(self, _branch, _scope):
+    def _body(self, _branch):
         p, st, inp = self.pipeline, self.step.state, self.step.inputs
         p.advance(st, inp["audio_l"], inp["audio_r"], rows=inp["rows"])
         return p.textures_from(st, inp["audio_l"], inp["audio_r"])

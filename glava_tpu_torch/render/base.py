@@ -38,6 +38,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from glava_tpu_torch import compiled
 from glava_tpu_torch.config import glsl_expr
 from glava_tpu_torch.config.state import RenderConfig
 from glava_tpu_torch.ops import smoothing
@@ -51,10 +52,12 @@ Planes = tuple
 class PassInputs(NamedTuple):
     prev: Planes | None                 # previous pass output channel planes
     textures: dict[str, torch.Tensor]   # uniform name -> (sz,) texture
-    time: float                         # seconds (wraps at `timecycle`)
-    # pipe uniform name -> (S, ...) float32 host array, one row a stream
-    # (batched modules only; None: every `@name:default` takes its default)
-    pipe: dict[str, np.ndarray] | None = None
+    time: Any                           # seconds (wraps at `timecycle`):
+    #                                     a float, or a device tensor
+    # pipe uniform name -> (S, ...) float32 values, one row a stream, on
+    # the host or the device (batched modules only; None: every
+    # `@name:default` takes its default)
+    pipe: dict | None = None
 
 
 PassFn = Callable[[PassInputs], Any]
@@ -104,8 +107,16 @@ def cut_rows(plane, r0: int, r1: int):
     return plane[..., r0:r1, :]
 
 
+def device_plane(p, device) -> torch.Tensor:
+    """A channel plane as a float32 tensor on ``device``: a host value
+    through ``compiled.const`` (made once inside a compiled step)."""
+    if isinstance(p, torch.Tensor):
+        return p.to(device=device, dtype=torch.float32)
+    return compiled.const(np.asarray(p, np.float32), device)
+
+
 def _full_plane(p, shape: tuple, device) -> torch.Tensor:
-    return torch.as_tensor(p, dtype=torch.float32, device=device).expand(shape)
+    return device_plane(p, device).expand(shape)
 
 
 def interleave(planes: Planes, h: int, w: int, device,
@@ -144,9 +155,6 @@ class ModuleContext:
     # the band of frame rows [r0, r1) the module renders (row 0 at the
     # bottom); None: the whole frame
     rows: tuple[int, int] | None = None
-    # every StreamColors the build made (a compiled step keeps the colours
-    # its graph reads alive, StreamColors.last)
-    colors: list = field(default_factory=list)
 
     @property
     def band(self) -> tuple[int, int]:
@@ -187,10 +195,12 @@ class ModuleContext:
         """
         return lambda **vars: self.eval_color(name, None, **vars)
 
-    def eval_color(self, name: str, pipe_values: dict | None, **vars):
+    def eval_color(self, name: str, pipe_values: dict | None,
+                   reads: set | None = None, **vars):
         """Evaluate a colour knob with ``pipe_values`` (name -> value)
         bound over the load's own: ``@name:default`` takes the bound
-        value, else its default expression."""
+        value, else its default expression. The names it read go into
+        ``reads`` when given."""
         expr = self.env.defines.get(name)
         if expr is None:
             raise KeyError(f"module knob '{name}' is not defined")
@@ -198,6 +208,7 @@ class ModuleContext:
             defines=self.env.defines,
             variables={**self.env.variables, **vars},
             pipe_values={**self.env.pipe_values, **(pipe_values or {})},
+            reads=reads,
         )
         return glsl_expr.evaluate(expr, env)
 
@@ -249,10 +260,9 @@ class ModuleBuild:
     batched: bool = False
     # the planes cover the context's band of rows only (module docstring)
     banded: bool = False
-    # "native" (a built-in module: its passes read no host value and no
-    # tensor on the host, so its step is captured, ``compiled.py``),
-    # "shader" (the interpreter) or "python" (a user Python module);
-    # the last two keep the eager step
+    # "native" (a built-in module), "shader" (the interpreter) or
+    # "python" (a user Python module): the first two are captured
+    # (``compiled.py``), the last keeps the eager step
     kind: str = "python"
 
     def render(self, inputs: PassInputs) -> Planes:
@@ -318,40 +328,46 @@ def color_tensors(value, device) -> list[torch.Tensor]:
             for c in color_planes(value, device)]
 
 
-def _host_f32(v) -> np.ndarray:
+def f32_tensor(v, device) -> torch.Tensor:
+    """A per-frame value (time, a pipe value; host or device) as a
+    float32 tensor on ``device``: a device tensor passes through (a
+    compiled step's static input)."""
     if isinstance(v, torch.Tensor):
-        v = v.detach().cpu().numpy()
-    return np.ascontiguousarray(np.asarray(v, np.float32))
+        return v.to(device=device, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(v, np.float32), device=device)
 
 
-def _pipe_value(row: np.ndarray):
-    """One stream's pipe value -> what ``@name`` evaluates to: float32
-    scalars on the host (a vecN is a component tuple), as the JAX
-    package's traced float32 values."""
-    if row.ndim == 0:
-        return torch.tensor(row)
-    return tuple(torch.tensor(row[i]) for i in range(row.shape[0]))
+def pipe_components(v: torch.Tensor, lead: int = 0, ndim: int = 0):
+    """What ``@name`` evaluates to, from a value tensor whose first
+    ``lead`` axes are kept (the stream axis): a float32 tensor (a vecN
+    is a component tuple), each padded with ``ndim`` trailing unit axes
+    so that it broadcasts against a knob's per-pixel variables."""
+    pad = (1,) * ndim
+    if v.ndim == lead:
+        return v.reshape(tuple(v.shape) + pad)
+    return tuple(v[..., i].reshape(tuple(v.shape[:lead]) + pad)
+                 for i in range(v.shape[-1]))
 
 
 class StreamColors:
-    """Colour knobs evaluated from each stream's pipe values.
+    """Colour knobs evaluated from each stream's pipe values, on the
+    device.
 
     A knob such as bars' ``COLOR`` (``@fg:mix(...)``) takes the pipe
-    value ``fg`` where a stream binds it and its default expression
+    value ``fg`` where the step binds it and its default expression
     elsewhere; ``variables`` are the per-pixel values the knobs read
-    (``d``), as float32 host tensors. A call with the step's ``pipe``
-    (``PassInputs.pipe``) returns ``{knob: [r, g, b, a]}``, each
-    component a float32 tensor on the device with a leading stream axis
-    (S, or 1 when every stream evaluates alike) and the knob's own
-    shape, left-padded to ``ndim`` dimensions. The expressions run on
-    the host once for each distinct stream, and the result (passed
-    through ``derive`` when given) is cached by the pipe values, so a
-    frame whose values did not change costs one hash. ``last`` is the
-    result of the latest call: a step captured into a CUDA graph reads
-    those tensors, and keeps them alive once the cache lets them go.
+    (``d``). A call with the step's ``pipe`` (``PassInputs.pipe``: name
+    -> (S, ...) values, a compiled step's static inputs) returns
+    ``{knob: [r, g, b, a]}``, each component a float32 tensor on the
+    device with a leading stream axis (S, or 1 when it reads no pipe
+    value) and the knob's own shape, left-padded to ``ndim`` dimensions
+    (passed through ``derive`` when given). The expressions run once
+    for every stream, the stream axis leading: elementwise GLSL gives
+    each stream the value it gets alone, as the JAX fleet's ``vmap``.
+    They run every call only when a knob reads a bound name (the first
+    call with a set of names finds out which it reads); otherwise the
+    result depends on the load alone and is kept from the first call.
     """
-
-    CACHE = 8     # distinct pipe values kept
 
     def __init__(self, ctx: ModuleContext, knobs: tuple, ndim: int = 2,
                  derive: Callable | None = None, **variables):
@@ -359,52 +375,43 @@ class StreamColors:
         self.knobs = tuple(knobs)
         self.ndim = ndim
         self.derive = derive
-        self.variables = variables
-        self._cache: dict = {}
-        self.last = None
-        ctx.colors.append(self)
+        self.variables = {k: f32_tensor(v, ctx.device)
+                          for k, v in variables.items()}
+        self._fixed = None
+        self._reads: dict = {}    # the names bound -> the names read
 
     def __call__(self, pipe: dict | None):
-        rows = {k: _host_f32(v) for k, v in (pipe or {}).items()}
-        key = tuple((k, a.shape, a.tobytes()) for k, a in sorted(rows.items()))
-        hit = self._cache.get(key)
-        if hit is None:
-            hit = self._build(rows)
-            if len(self._cache) >= self.CACHE:
-                self._cache.pop(next(iter(self._cache)))
-            self._cache[key] = hit
-        self.last = hit
-        return hit
+        pipe = pipe or {}
+        names = frozenset(pipe)
+        reads = self._reads.get(names)
+        if reads is None:
+            got: set = set()
+            out = self._build(pipe, got)
+            self._reads[names] = reads = names & got
+            if not reads:
+                self._fixed = out
+            return out
+        if not reads:
+            if self._fixed is None:
+                self._fixed = self._build({})
+            return self._fixed
+        return self._build({k: pipe[k] for k in reads})
 
-    def _build(self, rows: dict[str, np.ndarray]):
-        n = max((a.shape[0] for a in rows.values()), default=1)
-        streams = [{k: a[s] for k, a in rows.items()} for s in range(n)]
-        keys = [tuple((k, r[k].tobytes()) for k in sorted(r)) for r in streams]
-        distinct = list(dict.fromkeys(keys))
-        which = torch.as_tensor([distinct.index(k) for k in keys])
-        evals = []
-        for k in distinct:
-            vals = {name: _pipe_value(streams[keys.index(k)][name])
-                    for name in rows}
-            evals.append({
-                knob: [torch.as_tensor(c, dtype=torch.float32) for c in
-                       color_planes(self.ctx.eval_color(knob, vals,
-                                                        **self.variables),
-                                    "cpu")]
-                for knob in self.knobs
-            })
+    def _build(self, pipe: dict, reads: set | None = None):
+        dev = self.ctx.device
+        vals = {}
+        for name, v in pipe.items():
+            t = f32_tensor(v, dev)
+            vals[name] = pipe_components(t, 1, self.ndim)
         out = {}
         for knob in self.knobs:
             comps = []
-            for c in range(4):
-                parts = [e[knob][c] for e in evals]
-                # numpy's: torch.broadcast_shapes imports sympy on first
-                # use, a second on the first frame
-                shape = np.broadcast_shapes(*(tuple(p.shape) for p in parts))
-                shape = (1,) * (self.ndim - len(shape)) + tuple(shape)
-                st = torch.stack([p.expand(shape) for p in parts])
-                if len(distinct) > 1:
-                    st = st[which]
-                comps.append(st.to(self.ctx.device))
+            for c in color_planes(self.ctx.eval_color(knob, vals, reads,
+                                                      **self.variables), dev):
+                c = device_plane(c, dev)
+                if c.ndim <= self.ndim:
+                    c = c.reshape((1,) * (self.ndim + 1 - c.ndim)
+                                  + tuple(c.shape))
+                comps.append(c)
             out[knob] = comps
         return self.derive(out) if self.derive is not None else out

@@ -10,8 +10,8 @@ the pass is one spectrum gather per channel and one raster launch
 The module is batched (``ModuleBuild.batched``): textures (S, sz) in,
 (S, H, W) planes out. The COLOR / BAR_OUTLINE knobs depend only on the
 row (``d``) and on the ``@fg``/``@bg`` pipe values, so each stream's
-colours are one (H, 4) table, evaluated on the host and cached by the
-pipe values (``base.StreamColors``).
+colours are one (H, 4) table, evaluated on the device from the step's
+pipe inputs (``base.StreamColors``).
 
 Built for a band of rows (``ModuleContext.rows``), the row tables are
 the band's; under MIRROR_YX the frame's rows are the pre-transpose

@@ -220,7 +220,10 @@ def _build(name: str, files: list[Path], ctx: base.ModuleContext,
                     elif src == "audio_sz":
                         variables[uname] = float(sz)
                     elif src == "time":
-                        variables[uname] = inputs.time
+                        # a device float32 scalar, as the JAX step's
+                        # traced argument (a compiled step's input)
+                        variables[uname] = base.f32_tensor(inputs.time,
+                                                           dev)
                     elif src == "prev":
                         variables[uname] = "prev"
                 variables.update({

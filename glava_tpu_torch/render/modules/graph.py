@@ -18,8 +18,8 @@ Every column-only quantity is baked in numpy; per frame the passes are
 (S, W, 3) spectrum gathers and (S, H, W) masks. The module is batched
 (``ModuleBuild.batched``). The COLOR knob depends only on the row
 (``pos``) and on each stream's pipe values (``@fg``, read in the pass
-as the JAX module does), evaluated on the host once for each distinct
-stream and cached by the values (``base.StreamColors``); OUTLINE is
+as the JAX module does), evaluated on the device for every stream at
+once from the step's pipe inputs (``base.StreamColors``); OUTLINE is
 evaluated at build time, as in the JAX module, and keeps the load's
 values.
 

@@ -6,8 +6,8 @@ premultiply pass radial/2.frag. The per-pixel polar math is static, so
 bar ids, in-bar masks and alias factors bake to numpy constants. Pipe
 values reach the knobs as in the JAX module: COLOR and BAR_OUTLINE,
 which it evaluates inside the pass (at the static distance ``d``), take
-each stream's ``@fg``/``@bg`` values, evaluated on the host and cached
-by the pipe values with the planes made from them
+each stream's ``@fg``/``@bg`` values, evaluated on the device from the
+step's pipe inputs, with the planes made from them
 (``base.StreamColors``); OUTLINE is evaluated once at build time and
 keeps the load's values.
 

@@ -35,8 +35,8 @@ from glava_tpu_torch.device import resolve
 from glava_tpu_torch.ops import transforms
 from glava_tpu_torch.pipeline import AudioPipeline, FusedChainState, UniformSpec
 from glava_tpu_torch.render.base import (
-    ModuleContext, PassInputs, _host_f32, cut_rows, interleave,
-    interleave_u8, mul,
+    ModuleContext, PassInputs, cut_rows, interleave, interleave_u8, mul,
+    pipe_components, f32_tensor,
 )
 from glava_tpu_torch.render.modules import build_module, module_uniforms
 from glava_tpu_torch.utils import profiling
@@ -167,8 +167,6 @@ class Renderer:
             pipe = dict(pipe)
             bg = pipe.pop("__bg__")
             bg = self.band_of(bg[i] for i in range(4))
-        if pipe and not self.module.batched:
-            load_pipe_values(self.module_env, pipe)
         # Keyframe push on update (render.c:2348-2353): start <- end,
         # end <- new buffers.
         if modified:
@@ -213,10 +211,12 @@ class Renderer:
         if self.module.batched:
             # one stream of a module that takes a stream axis
             rows = None if not pipe else {
-                k: np.asarray(v, np.float32)[None] for k, v in pipe.items()}
+                k: f32_tensor(v, self.device)[None] for k, v in pipe.items()}
             planes = self.render_planes(
                 {k: t[None] for k, t in textures.items()}, time, rows, bg)
             return tuple(p[0] if np.ndim(p) == 3 else p for p in planes)
+        if pipe:
+            load_pipe_values(self.module_env, pipe, self.device)
         return self.render_planes(textures, time, None, bg)
 
     def render_planes(self, textures: dict, time, pipe: dict | None,
@@ -279,9 +279,8 @@ class Renderer:
         On a card each branch (``modified`` or not) is captured into a
         CUDA graph once and replayed; on the CPU the same static-buffer
         step runs eagerly (``compiled.py``). Raises ``ValueError`` for a
-        module that keeps the eager step (a shader or user Python
-        module)."""
-        compiled.check_native(self.module)
+        module that keeps the eager step (a user Python module)."""
+        compiled.check_capturable(self.module)
         h, w = self.height, self.screen[0]
         if yuv420:
             if h % 2 or w % 2:
@@ -312,12 +311,15 @@ class Renderer:
 class CompiledStep:
     """:meth:`Renderer.jit_step`'s callable. Per call: the audio
     snapshot, ``time``, ``interp_mod`` and the parameter rows (from
-    ``gravity_g``) go into static inputs in one host-to-device copy; the
-    ``__bg__`` wallpaper planes into static planes, copied only when the
-    caller hands over another tensor; the pipe rows (host values) pick
-    the graphs, captured anew when they change. A branch is ``(modified,
-    wallpaper given, NaN guard on)``. The keyframe push, the update and
-    the raster run in place on the donated state (:meth:`_body`)."""
+    ``gravity_g``) and the pipe values go into static inputs in one
+    host-to-device copy; the ``__bg__`` wallpaper planes into static
+    planes, copied only when the caller hands over another tensor. A
+    branch is ``(modified, wallpaper given, NaN guard on)``. The
+    keyframe push, the update and the raster run in place on the
+    donated state (:meth:`_body`). A GLSL shader module's loops count
+    the pixels they truncate at the fuel cap on the device: the caller
+    reads the count with ``glsl_shader.fuel_check`` (the Engine after
+    each frame, at most once a second, and at the end of a run)."""
 
     def __init__(self, rend: Renderer, pack):
         self.rend = rend
@@ -325,12 +327,11 @@ class CompiledStep:
         self.rows_b = len(rend.pipeline.fft_uniforms)
         self.bg = None          # static (4, H, W) wallpaper planes
         self._bg_src = None
-        colors = rend.module_ctx.colors
         self.step = compiled.Step(
             rend.device,
             {"audio": torch.float32, "time": torch.float32,
              "interp": torch.float32, "rows": torch.float32},
-            keep=lambda: [c.last for c in colors])
+            name=rend.module.name)
 
     def __call__(self, state, audio, modified, time, interp_mod=1.0,
                  gravity_g=None, pipe=None):
@@ -347,19 +348,19 @@ class CompiledStep:
         self.step.load(audio=audio, time=np.float32(time),
                        interp=np.float32(interp_mod),
                        rows=rend.pipeline.host_rows(self.rows_b,
-                                                    gravity_g=gravity_g))
-        rows = {k: np.asarray(v, np.float32) for k, v in pipe.items()}
+                                                    gravity_g=gravity_g),
+                       pipe=pipe)
         guard = profiling.nan_guard_enabled()
         out = self.step.run((bool(modified), bg is not None, guard),
-                            self._body, scope=rows,
-                            scope_key=compiled.pipe_key(rows))
+                            self._body)
         frame, nan = out if guard else (out, None)
         if nan is not None and bool(nan):
             raise FloatingPointError("NaN in frame")
         return st, frame
 
-    def _body(self, branch, pipe):
+    def _body(self, branch):
         modified, with_bg, guard = branch
+        pipe = self.step.pipe()
         rend, st, inp = self.rend, self.step.state, self.step.inputs
         if modified:
             # keyframe push in place (render.c:2348-2353)
@@ -377,16 +378,15 @@ class CompiledStep:
         return frame, torch.stack(flags).any()
 
 
-def load_pipe_values(env, pipe: dict) -> None:
+def load_pipe_values(env, pipe: dict, device) -> None:
     """Load one stream's pipe values (name -> value) into a module's env,
     as the JAX step does: a module without a stream axis reads them
     there, in the knobs it evaluates inside the pass (a shader module's
-    ``@name`` knobs); build-time knobs keep the load's values. vecN
-    values become component tuples of float32 host scalars."""
-    vals = {}
-    for k, v in pipe.items():
-        a = _host_f32(v)
-        vals[k] = tuple(a[i] for i in range(a.shape[0])) if a.ndim else a[()]
+    ``@name`` knobs); build-time knobs keep the load's values. Each
+    value is a float32 tensor on ``device`` (a compiled step binds its
+    static inputs), a vecN a component tuple of them."""
+    vals = {k: pipe_components(f32_tensor(v, device))
+            for k, v in pipe.items()}
     env.pipe_values.clear()
     env.pipe_values.update(vals)
 

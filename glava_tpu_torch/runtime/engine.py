@@ -21,10 +21,14 @@ Loop mechanics carried over from the JAX package's engine:
   even sizes, else RGBA8) and up to ``inflight`` frames in flight, each
   copied on a side stream into pinned host memory while newer steps
   run;
-* the compiled step: a native module's frame is ``renderer.jit_step``'s
-  (a CUDA graph a branch, replayed, ``compiled.py``), as the JAX engine
-  runs ``jit_step``; a shader or user Python module runs its eager step,
-  and the engine says so once (``compiled.note_eager``).
+* the compiled step: a frame is ``renderer.jit_step``'s (a CUDA graph
+  a branch, replayed, ``compiled.py``), as the JAX engine runs
+  ``jit_step``, for native and GLSL shader modules alike; a user Python
+  module runs its eager step, and the engine says so once
+  (``compiled.choose_step``). A shader's loops count the pixels they
+  truncate at the fuel cap on the device; the engine reads the count at
+  most once a second and at the end of a run
+  (``glsl_shader.fuel_check``).
 
 Not carried over: the XLA compile cache (a graph is captured at a
 branch's first frame, in the process).
@@ -43,6 +47,7 @@ import numpy as np
 import torch
 
 from glava_tpu_torch import compiled
+from glava_tpu_torch.config import glsl_shader
 from glava_tpu_torch.config import loader as config_loader
 from glava_tpu_torch.renderer import Renderer
 from glava_tpu_torch.runtime import audio as audio_mod
@@ -250,13 +255,11 @@ class Engine:
         self._wire = choose_wire(getattr(self.sink, "wire_format", "rgba8"),
                                  w, h, self.opts.test_mode)
         yuv = self._wire[0] == "yuv420"
-        if renderer.module.kind == "native":
-            # the JAX engine's jit_step (glava_tpu/runtime/engine.py:116)
-            self._step = renderer.jit_step(quantize=not yuv, yuv420=yuv)
-        else:
-            compiled.note_eager(renderer.module)
-            self._step = (renderer.step_yuv420 if yuv
-                          else renderer.step_u8)
+        # the JAX engine's jit_step (glava_tpu/runtime/engine.py:116)
+        self._step = compiled.choose_step(
+            [renderer.module],
+            lambda: renderer.jit_step(quantize=not yuv, yuv420=yuv),
+            renderer.step_yuv420 if yuv else renderer.step_u8)
         self._init_bg()
 
     # -- live wallpaper (bg_changed recopy, render.c:1832-1837) ------------
@@ -414,6 +417,8 @@ class Engine:
                     self.state, snap, bool(modified),
                     tnow, float(np.float32(interp_mod)), gravity_g, pipe,
                 )
+                if self.renderer.module.kind == "shader":
+                    glsl_shader.fuel_check(self.renderer.device)
                 # up to `depth` frames stay in flight: older frames'
                 # copies overlap newer frames' device work
                 self._submit(fetch.push(frame, tnow))
@@ -455,6 +460,8 @@ class Engine:
             self.audio.terminate = True
             audio_thread.join(timeout=2.0)
             self.audio.terminate = False
+        if self.renderer.module.kind == "shader":
+            glsl_shader.fuel_check(self.renderer.device, force=True)
 
     # -- golden test mode (render.c:2419-2453, glava.c:548-562) ---------------
 

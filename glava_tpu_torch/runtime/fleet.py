@@ -28,8 +28,10 @@ The step is the compiled fleet step (``jit_step`` of the renderer: a
 CUDA graph, one a device block on a mesh, replayed a frame,
 ``compiled.py``), as the JAX fleet jits its step
 (glava_tpu/runtime/fleet.py:185-191): the snapshots go straight into
-its static input. A fleet with a shader or user Python module variant
-runs the eager step, and says so once (``compiled.note_eager``).
+its static input. A fleet with a user Python module variant runs the
+eager step, and says so once (``compiled.choose_step``); GLSL shader
+modules take the compiled step, their fuel counts read at most once a
+second and at the end of a run (``glsl_shader.fuel_check``).
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ import numpy as np
 import torch
 
 from glava_tpu_torch import compiled
+from glava_tpu_torch.config import glsl_shader
 from glava_tpu_torch.config.loader import LoadedConfig
 from glava_tpu_torch.parallel.batch import (
     BatchedRenderer, MixedBatchedRenderer, ShardedRenderer,
@@ -179,13 +182,11 @@ class FleetEngine:
     def _make_step(self):
         """The compiled fleet step, or the eager step (said once) when a
         variant keeps it."""
-        eager = [r.module for r in self.br.used_renderers()
-                 if r.module.kind != "native"]
-        if eager:
-            for m in eager:
-                compiled.note_eager(m)
-            return lambda *a: self.br.step(*a, quantize=True)
-        return self.br.jit_step(quantize=True)
+        mods = [r.module for r in self.br.used_renderers()]
+        self._shader = any(m.kind == "shader" for m in mods)
+        return compiled.choose_step(
+            mods, lambda: self.br.jit_step(quantize=True),
+            lambda *a: self.br.step(*a, quantize=True))
 
     def set_pipe(self, stream: int, name: str, value) -> None:
         """Live per-stream uniform update (no rebuild)."""
@@ -203,6 +204,8 @@ class FleetEngine:
         self.state, frames = self._step(
             self.state, audio, mods, np.full((S,), tnow, np.float32), interp,
             gravity_g, self._pipe_host)
+        if self._shader:
+            glsl_shader.fuel_check()
         return frames
 
     def run(self, max_frames: int | None = None,
@@ -251,6 +254,8 @@ class FleetEngine:
                 t.join(timeout=2.0)
             for s in self.sinks:
                 s.close()
+        if self._shader:
+            glsl_shader.fuel_check(force=True)
 
     def fetch(self, frames) -> np.ndarray:
         """The (S, H, W, 4) uint8 frames on the host: on CUDA copied into

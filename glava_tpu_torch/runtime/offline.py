@@ -7,9 +7,10 @@ ring updates (fifo.c:91-92) and nominal-UPS gravity decay
 through the compiled step (:meth:`Renderer.jit_step`, a CUDA graph a
 branch replayed a frame; the JAX package scans a chunk of 64 frames in
 one executable), each copied to the host while the next one renders
-(``FrameFetch``). A shader or user Python module runs its eager step
-(:meth:`Renderer.step_u8`), said once. Offline output is deterministic
-for a given track and config.
+(``FrameFetch``). A user Python module runs its eager step
+(:meth:`Renderer.step_u8`), said once; a GLSL shader module's fuel
+count is read once, at the end. Offline output is deterministic for a
+given track and config.
 
     glava-tpu-torch --offline -a wav -r 'setsource "track.wav"' \
                     --sink y4m:out.y4m
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from glava_tpu_torch import compiled
+from glava_tpu_torch.config import glsl_shader
 from glava_tpu_torch.config.loader import LoadedConfig
 from glava_tpu_torch.pipeline import frame_windows
 from glava_tpu_torch.renderer import Renderer
@@ -86,11 +88,8 @@ def render_wav(loaded: LoadedConfig, wav_path: str, sink: FrameSink,
     g = float(np.float32(cfg.gravity_step / sched["ups"]))
 
     r = Renderer(loaded, screen=screen, device=device)
-    if r.module.kind == "native":
-        step = r.jit_step(quantize=True)
-    else:
-        compiled.note_eager(r.module)
-        step = r.step_u8
+    step = compiled.choose_step([r.module], lambda: r.jit_step(quantize=True),
+                                r.step_u8)
     state = r.init_state()
     # one frame in flight: its pinned copy overlaps the next step
     fetch = FrameFetch(r.device, 1)
@@ -107,6 +106,8 @@ def render_wav(loaded: LoadedConfig, wav_path: str, sink: FrameSink,
         written += 1
     for host, t in fetch.drain():
         sink.submit(host, t)
+    if r.module.kind == "shader":
+        glsl_shader.fuel_check(r.device, force=True)
     if verbose:
         dt = _time.monotonic() - t0
         print(f"offline: {written} frames in {dt:.2f}s "

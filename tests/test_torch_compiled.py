@@ -23,7 +23,8 @@ Each case feeds both packages the same seeded numpy inputs:
   and the body run with ``torch.as_tensor``/``torch.tensor``/
   ``torch.from_numpy`` of host data patched to raise (a host-to-device
   copy inside a graph);
-* the refusal of a shader and a user Python module, by name;
+* the refusal of a user Python module, by name, and the compiled step
+  of a shader module;
 * on the card (``cuda``-marked, skipped here): replays against eager.
 """
 
@@ -397,27 +398,45 @@ def _vu_root(d: Path) -> Path:
     return d
 
 
-def test_shader_and_python_modules_have_no_compiled_step(tmp_path):
-    lc, _ = _loads("eq", tmp_path)
-    r = Renderer(lc, device="cpu")
-    assert r.module.kind == "shader"
-    with pytest.raises(ValueError, match="module 'eq' has no compiled step"):
-        r.jit_step(quantize=True)
-    with pytest.raises(ValueError, match="'eq'"):
-        BatchedRenderer(lc, 2, device="cpu").jit_step()
+def test_python_modules_have_no_compiled_step(tmp_path):
     vu = Renderer(loader.load(user_dir=_vu_root(tmp_path / "vu")),
                   device="cpu")
     assert vu.module.kind == "python"
     with pytest.raises(ValueError, match="module 'vu_meter'.*unknown"):
         vu.jit_step()
+    with pytest.raises(ValueError, match="module 'vu_meter'.*unknown"):
+        BatchedRenderer(loader.load(user_dir=_vu_root(tmp_path / "vu2")), 2,
+                        device="cpu").jit_step()
+    assert compiled.EAGER_REASONS.keys() == {"python"}
     for m in NATIVE:
         assert Renderer(_loads(m, tmp_path)[0], device="cpu").module.kind \
             == "native"
 
 
+def test_shader_modules_have_a_compiled_step(tmp_path):
+    """The shader module ``eq`` (an ``@fg`` knob) gets a compiled step,
+    one stream and a fleet, byte-equal to the eager step."""
+    lc, _ = _loads("eq", tmp_path, (), _bound())
+    r = Renderer(lc, device="cpu")
+    assert r.module.kind == "shader"
+    step = r.jit_step(quantize=True)
+    cs, es = r.init_state(), r.init_state()
+    for k, snap in enumerate(_snaps(3)):
+        cs, got = step(cs, snap, True, 0.1 * k, 1.0, 0.05, _pipe(4 * k))
+        es, want = r.step_u8(es, snap, True, 0.1 * k, 1.0, 0.05, _pipe(4 * k))
+        assert torch.equal(got, want), f"frame {k}"
+    br = BatchedRenderer(lc, 2, device="cpu")
+    fs = br.jit_step()
+    inputs = _fleet_inputs(np.random.default_rng(0), 0)
+    _, got = fs(br.init_state(), *(x[:2] for x in inputs))
+    _, want = br.step(br.init_state(), *(x[:2] for x in inputs),
+                      quantize=True)
+    assert torch.equal(got, want)
+
+
 def test_engine_runs_the_compiled_step_or_says_why_not(tmp_path, capsys):
-    """A native module's Engine step is the compiled step; a shader
-    module's is its eager step, said once on stderr."""
+    """A native or shader module's Engine step is the compiled step; a
+    user Python module's is its eager step, said once on stderr."""
     eng = Engine(EngineOptions(audio_backend="synth", screen=(64, 48),
                                device="cpu", force_module="bars",
                                requests=("setprintframes false",)),
@@ -425,19 +444,29 @@ def test_engine_runs_the_compiled_step_or_says_why_not(tmp_path, capsys):
     assert isinstance(eng._step, CompiledStep)
     eng.run(max_frames=3)
     assert eng.frames_rendered == 3
-    compiled._NOTED.discard("eq")
     d = tmp_path / "shaders"
     (d / "eq").mkdir(parents=True)
     (d / "eq" / "1.frag").write_text(EQ_FRAG)
+    eng = Engine(EngineOptions(audio_backend="synth", screen=(64, 48),
+                               device="cpu", force_module="eq",
+                               user_dir=str(d),
+                               requests=("setprintframes false",)),
+                 sink=sinks.NullSink())
+    assert isinstance(eng._step, CompiledStep)
+    eng.run(max_frames=2)
+    assert eng.frames_rendered == 2
+    compiled._NOTED.discard("vu_meter")
+    root = _vu_root(tmp_path / "vu")
     for _ in range(2):
         eng = Engine(EngineOptions(audio_backend="synth", screen=(64, 48),
-                                   device="cpu", force_module="eq",
-                                   user_dir=str(d),
+                                   device="cpu", user_dir=str(root),
                                    requests=("setprintframes false",)),
                      sink=sinks.NullSink())
         eng.run(max_frames=2)
     err = capsys.readouterr().err
-    assert err.count("module 'eq' runs its eager step (a GLSL shader") == 1
+    assert "module 'eq'" not in err
+    assert err.count("module 'vu_meter' runs its eager step (a user "
+                     "Python module") == 1
 
 
 def test_fleet_engine_frames_equal_the_eager_fleet(tmp_path):
