@@ -66,7 +66,9 @@ code is non-zero and no result line is printed):
                node, the inner one in its body) and replayed at trip
                counts a device tensor sets (9, 30, 0 and the fuel cap
                100), under ``sync_errors``, equal to the host-driven
-               loop.
+               loop; the setter's time on 1920x1080 planes by CUDA
+               events and by torch.profiler inside replays of a
+               captured 30-trip loop.
 4. main path — ``Engine`` with the synth backend and a null sink, the
                kernel counts set to 0 just before each run and read
                just after: bars (the shipped rc.glsl) at 800x600 and
@@ -204,8 +206,14 @@ code is non-zero and no result line is printed):
                profile of a few replays showing those kernels (the
                table lookup, the row-wise lookup, the latch scan, the
                smooth scan and the while setter inside the graphs);
-               then the user Python module that keeps the eager step,
-               and why.
+               then the user Python module vu_meter (one stream, a
+               fleet of 8, a mixed bars/vu_meter fleet of 8 and the
+               fleet sharded over ``[cuda:0] x 2`` on rows 2) the same
+               way, one capture a branch (a device block), and a user
+               module that reads a tensor on the host and one that
+               synchronises the card inside its capture, each refused
+               by name (``compiled.Uncapturable``), no stream left
+               capturing, and bars' compiled step after each.
 5. times     — device times of each kernel and its plain version at
                the main path's shapes, and of one PyTorch call computing
                the same function where there is one: fused_update
@@ -255,7 +263,8 @@ code is non-zero and no result line is printed):
                Eager against captured (``_compiled_times``): each native
                module's frame at 800x600 and circle's at 1920x1080, bars
                with a pipe write every frame, each shader module's at
-               800x600 and rings' and colfetch's at 1920x1080 (host
+               800x600 and rings' and colfetch's at 1920x1080, the user
+               module vu_meter's at 800x600 (host
                clock and device time under the profiler, busy share,
                each kernel's device time, CUDA events), the split
                route's update in and out of a graph (each kernel's
@@ -295,6 +304,12 @@ holds a tree's ``ops/fused.py`` and ``csrc/fused_update.cu``.
 times the smooth transform of other trees beside this checkout's
 (``smooth_ab``): each DIR holds a tree's ``ops/smooth.py`` and
 ``csrc/smooth_scan.cu``.
+
+    python3 chip_smoke.py --while-ab DIR [DIR ...]
+
+times the while node's setter of other trees beside this checkout's
+(``while_ab``): each DIR holds a tree's ``ops/graph_while.py`` and
+``csrc/graph_while.cu``.
 
     python3 chip_smoke.py --ab PARENT
 
@@ -575,6 +590,8 @@ LAUNCHES = {
                  "latch_scan C=0": 1},
     "smoothy": {"table_lookup": 1, "smooth_scan": 1},
     "audioloop": {},
+    # user Python modules: their passes are torch operations only
+    "vu_meter": {}, "timed": {}, "timedb": {},
 }
 # kernels whose launches a frame the data sets: audioloop's texture
 # fetch runs once before its loop and once an iteration, its while
@@ -1314,10 +1331,11 @@ def _while_node_check() -> str:
     return ", ".join(out)
 
 
-def phase_while() -> float:
-    """The while setter (``graph_while.set_condition``) against its plain
-    version on planes with no pixel active, the first, the last and
-    many, the fuel below and at the cap; then ``_while_node_check``."""
+def _setter_err() -> float:
+    """The largest difference of the while setter from its plain
+    version (``condition_plain``) on every ``WHILE_SHAPES`` plane with
+    no pixel active, the first, the last and many, the fuel below and
+    at the cap; raises if a launch leaves its sync words set."""
     from glava_tpu_torch.ops import graph_while
 
     err = 0.0
@@ -1334,6 +1352,77 @@ def phase_while() -> float:
                 if bool(sync.any()):
                     raise AssertionError(f"while setter {shape} {where}: "
                                          f"sync words left {sync.tolist()}")
+    return err
+
+
+def _setter_profile(fn, calls: int) -> tuple[float, float]:
+    """The while setter's launches a call of ``fn`` and device us a
+    launch, by torch.profiler over ``calls`` calls (inside a graph's
+    replay, each launch of the setter a kernel of its own)."""
+    from glava_tpu_torch.utils.timing import _profiled
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    rows = [e for e in _profiled(fn, calls) if "while_set_kernel" in e.key]
+    n = sum(e.count for e in rows)
+    if not n:
+        raise AssertionError("the profile recorded no while setter launch")
+    return n / calls, sum(e.self_device_time_total for e in rows) / n
+
+
+WHILE_TRIPS = 30
+
+
+def _setter_in_replay(replays: int = 20) -> tuple[float, float]:
+    """The while setter inside replays of a captured loop of
+    ``WHILE_TRIPS`` iterations over a 1920x1080 active plane (the body
+    one elementwise kernel that clears the plane at the last trip):
+    (setter launches a replay, device us a launch), torch.profiler."""
+    from glava_tpu_torch import compiled
+    from glava_tpu_torch.ops import graph_while
+    from glava_tpu_torch.utils.timing import _profiled
+
+    act = torch.ones((1080, 1920), dtype=torch.bool, device="cuda")
+    fuel = torch.zeros(1, dtype=torch.int32, device="cuda")
+    trips = torch.full((1,), WHILE_TRIPS, dtype=torch.int32, device="cuda")
+
+    def body():
+        fuel.add_(1)
+        act.copy_((fuel < trips).expand(act.shape))
+
+    # the profiler sees a conditional node's body kernels only in graphs
+    # made after its first session in the process (torch 2.11, CUDA 12.8)
+    _profiled(lambda: fuel.add_(0), 1)
+    graph = torch.cuda.CUDAGraph()
+    pool = torch.cuda.graph_pool_handle()
+    with torch.cuda.graph(graph, pool=pool, stream=torch.cuda.Stream(),
+                          capture_error_mode="thread_local"), \
+            compiled._body_of(compiled.Step("cuda", {}), "capture", pool):
+        graph_while.run(act, fuel, 1000, body)
+
+    def replay():
+        act.fill_(True)
+        fuel.zero_()
+        graph.replay()
+
+    replay()
+    if int(fuel.item()) != WHILE_TRIPS or bool(act.any()):
+        raise AssertionError(f"the timed while node ran {int(fuel.item())} "
+                             f"trips, expected {WHILE_TRIPS}")
+    n, us = _setter_profile(replay, replays)
+    if n != WHILE_TRIPS + 1:
+        raise AssertionError(f"the profile shows {n} while setter launches "
+                             f"a replay, expected {WHILE_TRIPS + 1}")
+    return n, us
+
+
+def phase_while(card: str) -> float:
+    """The while setter (``graph_while.set_condition``) against its plain
+    version (``_setter_err``); then ``_while_node_check``; then its time
+    by CUDA events on fresh 1920x1080 planes and by torch.profiler
+    inside replays of a captured loop (``_setter_in_replay``)."""
+    err = _setter_err()
     if err:
         raise AssertionError(f"while setter differs from its plain version "
                              f"by {err}")
@@ -1341,6 +1430,12 @@ def phase_while() -> float:
     print(f"[3 kernel] graph_while setter vs plain, equal on {len(WHILE_SHAPES)} "
           f"plane shapes x 4 patterns x 3 fuels; while node replays equal to "
           f"the host-driven loop: {node}")
+    ev = _while_times()["ms"] * 1e3
+    n, us = _setter_in_replay()
+    print(f"[3 kernel] graph_while setter on 1920x1080 planes, no pixel "
+          f"active: {ev:.2f} us a launch by CUDA events (32 planes in turn); "
+          f"{us:.2f} us a launch by torch.profiler inside replays of a "
+          f"{WHILE_TRIPS}-trip loop ({n:.0f} launches a replay) ({card})")
     return err
 
 
@@ -2664,11 +2759,8 @@ def phase_compiled(user_dir: str, tmp: Path) -> list:
     """The compiled steps on the card: every case's replays byte-equal
     to the eager steps on the same inputs, under ``sync_errors``, with
     their launch counts and a profile of the replays, native and GLSL
-    shader modules; then the module kind that keeps the eager step (a
-    user Python module), and why. Returns the result lines."""
-    from glava_tpu_torch.config import loader
-    from glava_tpu_torch.renderer import Renderer
-
+    shader modules, then user Python modules (``_user_module_cases``).
+    Returns the result lines."""
     lines = [_update_case(CHAIN_N)]
     for module in MODULES:
         for wire in ("rgba8", "yuv420"):
@@ -2705,19 +2797,169 @@ def phase_compiled(user_dir: str, tmp: Path) -> list:
         lines.append(_render_case("shader", module, (1920, 1080),
                                   user_dir=user_dir, profile=True))
     lines.append(_fuel_case(tmp))
-    vu = tmp / "vu"
-    (vu / "modules").mkdir(parents=True, exist_ok=True)
+    lines += _user_module_cases(tmp)
+    return lines
+
+
+# user modules whose pass the compiled step refuses: two read a tensor
+# on the host (refused in the warm-up), one synchronises the card (runs
+# eagerly, then fails inside the capture)
+USER_MODULE = """
+import torch
+
+from glava_tpu_torch.render import base
+from glava_tpu_torch.render.modules import register
+
+
+@register("{name}", uniforms=(("audio_l", "audio_l",
+                               ("window", "fft", "gravity", "avg")),))
+def build(ctx):
+    w, h = ctx.screen
+    ramp = torch.linspace(0.0, 1.0, w, device=ctx.device)
+
+    def pass1(inputs):
+        level = torch.mean(inputs.textures["audio_l"])
+        {line}
+        a = (ramp < level).to(torch.float32).expand(h, w)
+        return (a, a * 0.5, a * 0.25, a)
+
+    return base.ModuleBuild("{name}", [pass1])
+"""
+# user modules whose pass reads the per-frame time and, with a stream
+# axis (`timedb`), each stream's fg pipe row: a value frozen at the
+# capture would part the replays from the eager step
+USER_TIMED = """
+import torch
+
+from glava_tpu_torch.render import base
+from glava_tpu_torch.render.modules import register
+
+
+@register("{name}", uniforms=(("audio_l", "audio_l",
+                               ("window", "fft", "gravity", "avg")),))
+def build(ctx):
+    w, h = ctx.screen
+    ramp = torch.linspace(0.0, 1.0, w, device=ctx.device)
+
+    def pass1(inputs):
+        level = torch.mean(inputs.textures["audio_l"], dim=-1, keepdim=True)
+        t = base.f32_tensor(inputs.time, ramp.device).reshape(-1, 1)
+        wave = 0.5 + 0.5 * torch.sin(ramp * 6.0 + 3.0 * t)
+        gain = (base.f32_tensor(inputs.pipe["fg"], ramp.device)[:, :1]
+                if inputs.pipe else torch.ones_like(t))
+        planes = ((ramp < level * 40.0).to(torch.float32) * wave, wave,
+                  wave * gain, torch.ones_like(wave))
+        if {batched}:
+            return tuple(p[:, None, :].expand(-1, h, w) for p in planes)
+        return tuple(p.expand(h, w) for p in planes)
+
+    return base.ModuleBuild("{name}", [pass1], batched={batched})
+"""
+USER_REFUSED = {
+    "hostread": ("level = level + level.item()",
+                 "its pass reads a tensor on the host (Tensor.item)"),
+    "devsync": ("torch.cuda.synchronize()",
+                "its pass failed inside the capture"),
+    "hostcopy": ("level = level + level.to('cpu').sum()",
+                 "its pass reads a tensor on the host (Tensor.to)"),
+}
+
+
+def _vu_root(d: Path) -> str:
+    """A config root at ``d`` whose ``modules/`` holds vu_meter."""
+    (d / "modules").mkdir(parents=True, exist_ok=True)
     shutil.copy(ROOT / "glava_tpu_torch" / "examples" / "vu_meter.py",
-                vu / "modules" / "vu_meter.py")
-    r = Renderer(loader.load(force_module="vu_meter", user_dir=str(vu)),
-                 device="cuda")
-    try:
-        r.jit_step(quantize=True)
-    except ValueError as e:
-        lines.append(f"eager: {e}")
-    else:
-        raise AssertionError("the user Python module vu_meter has a "
-                             "compiled step")
+                d / "modules" / "vu_meter.py")
+    return str(d)
+
+
+def _user_module_cases(tmp: Path) -> list:
+    """vu_meter (``glava_tpu_torch/examples/vu_meter.py``, a user Python
+    module) through its compiled step: one stream (``_render_case``), a
+    fleet of 8, a mixed fleet of 8 (bars and vu_meter) and the fleet of
+    8 sharded over ``[cuda:0, cuda:0]`` on rows 2; the ``USER_TIMED``
+    modules (the time, a pipe row) one stream and a fleet of 8; each
+    ``COMPILED_FRAMES`` replays byte-equal to the eager step under
+    ``sync_errors``, one capture a branch (a device block); then each
+    ``USER_REFUSED`` module refused by name (``compiled.Uncapturable``),
+    after which no stream is left capturing and bars' compiled step
+    captures and replays byte-equal to its eager step."""
+    from glava_tpu_torch import compiled
+    from glava_tpu_torch.config import loader
+    from glava_tpu_torch.parallel.batch import (
+        BatchedRenderer, MixedBatchedRenderer, ShardedRenderer,
+    )
+    from glava_tpu_torch.parallel.mesh import make_mesh
+    from glava_tpu_torch.renderer import Renderer
+
+    root = Path(_vu_root(tmp / "user"))
+    for name, (line, _) in USER_REFUSED.items():
+        (root / "modules" / f"{name}.py").write_text(
+            USER_MODULE.format(name=name, line=line))
+    timed = ("timed", "timedb")
+    for name in timed:
+        (root / "modules" / f"{name}.py").write_text(
+            USER_TIMED.format(name=name, batched=name == "timedb"))
+    lines = [_render_case("user module", "vu_meter", user_dir=str(root),
+                          profile=True)]
+    lines += [_render_case("user module reading the time and a pipe row",
+                           name, user_dir=str(root)) for name in timed]
+    vu = loader.load(force_module="vu_meter", user_dir=str(root))
+    bars = loader.load(force_module="bars")
+    n = 8
+    for label, br, mods, blocks in (*(
+            (f"{name} fleet", BatchedRenderer(loader.load(
+                force_module=name, user_dir=str(root)), n, device="cuda"),
+             [name] * n, 1) for name in timed),
+            ("vu_meter fleet", BatchedRenderer(vu, n, device="cuda"),
+             ["vu_meter"] * n, 1),
+            ("mixed bars/vu_meter fleet", MixedBatchedRenderer(
+                [bars, vu], [i % 2 for i in range(n)], device="cuda"),
+             [("bars", "vu_meter")[i % 2] for i in range(n)], 1),
+            ("vu_meter fleet sharded over [cuda:0] x 2 rows 2",
+             ShardedRenderer([vu], [0] * n, make_mesh(["cuda:0"] * 2,
+                                                      rows=2)),
+             ["vu_meter"] * n, 2)):
+        step = br.jit_step(quantize=True)
+        replayed = _replays(f"{label} S {n}", step,
+                            lambda st, *a, br=br: br.step(st, *a,
+                                                          quantize=True),
+                            br.init_state, _fleet_inputs(n, br.cfg), {0})
+        want = {k: v * blocks
+                for k, v in _block_want(mods, COMPILED_FRAMES).items()}
+        if replayed != want:
+            raise AssertionError(f"{label} S {n}: the replays launched "
+                                 f"{replayed}, expected {want}")
+        lines.append(f"user module {label} S {n}: {COMPILED_FRAMES} replays "
+                     f"byte-equal to the eager fleet step (a pipe write every "
+                     f"frame, one capture a device block), no host sync "
+                     f"inside a replay, replay launches "
+                     f"{ {k: v for k, v in replayed.items() if v} }")
+    for name, (_, why) in USER_REFUSED.items():
+        r = Renderer(loader.load(force_module=name, user_dir=str(root)),
+                     device="cuda")
+        step = r.jit_step(quantize=True)
+        cfg = r.cfg
+        try:
+            step(r.init_state(), tone_snapshot(cfg, 0), True, 0.0, 1.0,
+                 cfg.gravity_step / cfg.nominal_ups)
+        except compiled.Uncapturable as e:
+            if not str(e).startswith(f"module '{name}' has no compiled step: "
+                                     f"{why}"):
+                raise AssertionError(f"{name}: refused as {e}") from e
+            refusal = str(e).splitlines()[0][:160]
+        else:
+            raise AssertionError(f"the user module {name} was captured")
+        capturing = torch.cuda.is_current_stream_capturing()
+        if step.step._capture_stream is not None:
+            with torch.cuda.stream(step.step._capture_stream):
+                capturing |= torch.cuda.is_current_stream_capturing()
+        if capturing:
+            raise AssertionError(f"{name}: a stream is left capturing")
+        after = _render_case(f"after {name}'s refusal", "bars")
+        lines.append(f"user module {name} refused: {refusal}; no stream "
+                     f"left capturing; then {after[:after.index(':')]}: "
+                     f"{COMPILED_FRAMES} replays byte-equal to the eager step")
     return lines
 
 
@@ -3309,6 +3551,57 @@ def smooth_ab(dirs: list[str]) -> int:
             print(f"[ab] smooth_scan 1 row sz {sz} ratio {ratio:g} d {d:g} "
                   f"{name}: events {ms * 1e3:.2f} us, {ms * 1e6 / asz:.1f} ns "
                   f"a bin, err {err:.2e}, round {r // len(variants)} ({card})")
+    return 0
+
+
+def while_ab(dirs: list[str]) -> int:
+    """``--while-ab DIR ...``: the while setter of each DIR (a tree's
+    ``glava_tpu_torch/ops/graph_while.py`` and ``csrc/graph_while.cu``
+    whose ``glava_while_set`` takes this checkout's arguments, served to
+    this checkout's wrapper) beside this checkout's, in one process on
+    one card, in the order given and then reversed: each variant equal to the plain
+    version (``_setter_err``) and through the while node check, then its
+    CUDA-event time on fresh 1920x1080 planes, its profiler time inside
+    replays of a captured loop (``_setter_in_replay``) and, in the
+    audioloop shader module's 800x600 frame, eager and captured, its
+    launches, device us a launch and a frame (``_setter_profile``). A
+    variant that fails prints why and the next one runs."""
+    from glava_tpu_torch.ops import _build, graph_while
+
+    card = phase_device()
+    phase_build()
+    this = _build.load("graph_while")
+    variants = [("this", this),
+                *((name, built) for name, _, built in _tree_variants(
+                    dirs, "graph_while.py", "graph_while.cu"))]
+    with tempfile.TemporaryDirectory() as td:
+        ud = str(write_shader_modules(Path(td)))
+        for r, (name, built) in enumerate(variants + variants[::-1]):
+            with _serving(built, "graph_while"):
+                graph_while._FNS.clear()
+                try:
+                    err = _setter_err()
+                    node = _while_node_check()
+                    ev = _while_times()["ms"] * 1e3
+                    n, us = _setter_in_replay()
+                    loop = []
+                    for captured in (False, True):
+                        _, _, frame = _frame_ms(None, "audioloop", ud, 5,
+                                                compiled=captured)
+                        ln, lus = _setter_profile(frame, 10)
+                        loop.append(f"{'captured' if captured else 'eager'} "
+                                    f"{ln:.1f} launches, {lus:.2f} us a "
+                                    f"launch, {ln * lus:.2f} us a frame")
+                    print(f"[ab] graph_while {name}: err {err}, node {node}; "
+                          f"1920x1080 events {ev:.2f} us, in a "
+                          f"{WHILE_TRIPS}-trip replay {us:.2f} us a launch "
+                          f"({n:.0f} a replay); audioloop 800x600 "
+                          f"{'; '.join(loop)}; round {r // len(variants)} "
+                          f"({card})", flush=True)
+                except (RuntimeError, AssertionError) as e:
+                    print(f"[ab] graph_while {name}: failed: {e}", flush=True)
+                finally:
+                    graph_while._FNS.clear()
     return 0
 
 
@@ -3920,13 +4213,19 @@ def _compiled_times(card: str, user_dir: str) -> None:
     and bars with a pipe write every frame (the update every frame,
     uint8, ``FrameFetch`` to the host): the host clock and the device
     time a frame and the device's busy share under the profiler, each
-    kernel's device time, and CUDA events around the frames; the split
+    kernel's device time (the while setter's launches a frame too), and
+    CUDA events around the frames; the user Python module vu_meter's
+    frame at 800x600 the same way; the split
     route's update (n 131072, B 2) in and out of a graph; the S 64 bars
     and circle fleets at both sizes."""
     cases = ([(m, None, False) for m in MODULES]
              + [("circle", (1920, 1080), False), ("bars", None, True)]
              + [(m, None, False) for m in SHADER_MODULES]
-             + [(m, (1920, 1080), False) for m in SHADER_1080])
+             + [(m, (1920, 1080), False) for m in SHADER_1080]
+             + [("vu_meter", None, False)])
+    vu_dir = tempfile.TemporaryDirectory()
+    dirs = {"vu_meter": _vu_root(Path(vu_dir.name))}
+    dirs.update(dict.fromkeys(SHADER_MODULES, user_dir))
     for module, screen, pipe in cases:
         row = {}
         shader = module in SHADER_MODULES
@@ -3936,16 +4235,19 @@ def _compiled_times(card: str, user_dir: str) -> None:
         if module in NO_FFT:
             names = names[1:]
         for mode in ("eager", "captured"):
-            ms, r, frame = _frame_ms(screen, module,
-                                     user_dir if shader else None,
+            ms, r, frame = _frame_ms(screen, module, dirs.get(module),
                                      iters=20 if shader else 100,
                                      compiled=mode == "captured", pipe=pipe)
             busy, dev_us = _profile(frame, f"{module} {mode}", card,
                                     show=False)
             each = kernel_ms(frame, names, 20) if names else {}
+            parts = [f"{k} {v * 1e3:.2f} us" for k, v in each.items()]
+            if "graph_while" in DATA_LAUNCHES.get(module, ()):
+                n, us = _setter_profile(frame, 10)
+                parts.append(f"while setter {n:.1f} launches, {us:.2f} us a "
+                             f"launch")
             row[mode] = (dev_us / busy if busy else float("nan"), dev_us,
-                         busy, ms * 1e3, ", ".join(
-                             f"{k} {v * 1e3:.2f} us" for k, v in each.items()))
+                         busy, ms * 1e3, ", ".join(parts))
         w, h = r.screen
         (we, de, be, ee, ke), (wc, dc, bc, ec, kc) = (row["eager"],
                                                       row["captured"])
@@ -3957,6 +4259,7 @@ def _compiled_times(card: str, user_dir: str) -> None:
               f"{wc:.1f} us wall, {dc:.1f} us device, busy {bc:.1%}, "
               f"{ec:.1f} us by CUDA events{f' ({kc}, profiler)' if kc else ''}"
               f"; wall eager/captured {we / wc:.2f}x ({card})")
+    vu_dir.cleanup()
     _split_graph_times(card)
     for module, screen, count in (("bars", None, 20),
                                   ("bars", (1920, 1080), 5),
@@ -4260,7 +4563,7 @@ def main() -> int:
             "table_lookup": phase_lookup(),
             "latch_scan": phase_latch(), "rowwise_lookup": phase_rowwise(),
             "bars_raster": phase_raster(), "smooth_scan": phase_smooth(),
-            "graph_while": phase_while()}
+            "graph_while": phase_while(card)}
     with tempfile.TemporaryDirectory() as td:
         user_dir = str(write_shader_modules(Path(td)))
         launches = phase_main_path(user_dir)
@@ -4382,7 +4685,7 @@ def compiled_run(parent: str | None = None) -> int:
     this, parent."""
     card = phase_device()
     phase_build()
-    phase_while()
+    phase_while(card)
     with tempfile.TemporaryDirectory() as td:
         user_dir = str(write_shader_modules(Path(td)))
         for line in phase_compiled(user_dir, Path(td)):
@@ -4455,6 +4758,8 @@ if __name__ == "__main__":
         raise SystemExit(fused_ab(sys.argv[2:]))
     if sys.argv[1:2] == ["--smooth-ab"]:
         raise SystemExit(smooth_ab(sys.argv[2:]))
+    if sys.argv[1:2] == ["--while-ab"]:
+        raise SystemExit(while_ab(sys.argv[2:]))
     if sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
         raise SystemExit(ab(sys.argv[2]))
     raise SystemExit(main())

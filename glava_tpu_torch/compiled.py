@@ -54,21 +54,28 @@ frame out before that). A replay adds to each kernel's launch count
 its graph holds; the capture itself launches nothing and counts
 nothing. A failed capture or replay raises: nothing runs the eager step
 in its place. A data-dependent GLSL loop is a conditional while node of
-the graph (``ops.graph_while``). Only a user Python module, whose code
-is unknown, has no compiled step (:func:`check_capturable`); the Engine
-runs its eager step and says so once (:func:`note_eager`).
+the graph (``ops.graph_while``).
+
+A user Python module's passes run under a guard in every run of a
+body (:func:`user_pass`): a host read of a tensor's value, or a tensor
+made from host data, raises :class:`Uncapturable` naming the module,
+on the CPU as on the card (the counterpart of a JAX trace error on a
+module that reads concrete values), and so does whatever else fails in
+its pass during the capture (a CUDA capture error), with its cause. A
+capture that raises is ended with the allocator's routing to its pool,
+so the next step captures normally (:func:`_capturing`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import gc
-import sys
 import threading
 from typing import Callable
 
 import numpy as np
 import torch
+from torch.overrides import TorchFunctionMode
 
 # the counters a replay advances (module of glava_tpu_torch.ops or the
 # renderer, attribute), an int or a dict of ints: kernel launches, the
@@ -79,58 +86,136 @@ COUNTERS = (("fused", "launches"), ("fused", "split_launches"),
             ("raster", "launches"), ("smooth", "launches"),
             ("graph_while", "launches"), ("renderer", "whole_frame_bands"))
 
-# why a module kind keeps the eager step
-EAGER_REASONS = {
-    "python": "a user Python module: its code is unknown",
-}
-
 _ALIGN = 16     # bytes between static inputs in the flat buffer
 _STAGING = 64 << 20   # pinned bytes a step's staging ring may hold
-_NOTED: set = set()
 _MODULES: dict = {}
 # captures underway, and whether the garbage collector ran before them
 _GC = {"captures": 0, "was_enabled": True, "lock": threading.Lock()}
 # the step whose body this thread runs (.step), the run's phase (.phase:
-# "warm", "capture" or "cpu"), the capture's memory pool (.pool) and
-# whether the pool takes every allocation of the thread (.by_thread)
+# "warm", "capture" or "cpu"), the capture's memory pool (.pool), whether
+# the pool takes every allocation of the thread (.by_thread), the user
+# module whose pass this thread runs (.user) and whether the port itself
+# makes a tensor inside it (.trusted, :func:`const`)
 _LOCAL = threading.local()
 
 
-def check_capturable(module) -> None:
-    """Raise ``ValueError`` naming ``module`` (a ``ModuleBuild``) when
-    its kind keeps the eager step (a user Python module)."""
-    if module.kind in EAGER_REASONS:
-        raise ValueError(
-            f"module '{module.name}' has no compiled step "
-            f"({EAGER_REASONS.get(module.kind, module.kind)}); run its eager "
-            "step")
-
-
 class Uncapturable(ValueError):
-    """A compiled step's capture met what it cannot take (a host value
-    the warm-up did not make): the module is refused by name."""
+    """A compiled step's body met what a capture cannot take (a host
+    value the warm-up did not make, a user module's host read): the
+    module is refused by name. ``module``: the module the refusal names,
+    when the raise knows it."""
+
+    def __init__(self, msg: str, module: str | None = None):
+        super().__init__(msg if module is None else
+                         f"module '{module}' has no compiled step: {msg}")
+        self.module = module
 
 
-def note_eager(module) -> str:
-    """Print once a process, to stderr, that ``module`` runs its eager
-    step and why; returns the line."""
-    line = (f"glava_tpu_torch: module '{module.name}' runs its eager step "
-            f"({EAGER_REASONS.get(module.kind, module.kind)})")
-    if module.name not in _NOTED:
-        _NOTED.add(module.name)
-        print(line, file=sys.stderr, flush=True)
-    return line
+# -- the guard of a user module's passes ---------------------------------
+
+# Tensor methods that bring a tensor's value to the host (printing one
+# formats its values there)
+HOST_READS = frozenset(("item", "tolist", "numpy", "cpu", "__bool__",
+                        "__float__", "__int__", "__index__", "__complex__",
+                        "__array__", "__repr__", "__format__"))
+# Tensor methods that may move a value to the host (``_host_move``)
+MOVES = frozenset(("to", "copy_"))
+# functions that make a tensor of their first argument's data
+HOST_DATA = frozenset(("tensor", "as_tensor", "asarray", "from_numpy"))
+# torch.from_numpy as it was before the first of the user passes that
+# run now (on any thread) replaced it
+_FROM_NUMPY = {"users": 0, "lock": threading.Lock(), "fn": None}
 
 
-def choose_step(modules, make_compiled: Callable, eager: Callable):
-    """The step a runtime loop calls: ``eager`` when one of ``modules``
-    keeps the eager step (said once, :func:`note_eager`), else
-    ``make_compiled()``, whose first call of a branch raises what its
-    capture cannot take (:class:`Uncapturable`, naming the module)."""
-    keep = [m for m in modules if m.kind in EAGER_REASONS]
-    for m in keep:
-        note_eager(m)
-    return eager if keep else make_compiled()
+def _host_move(name: str, args: tuple, kwargs: dict) -> bool:
+    """Whether a ``Tensor.to`` or ``Tensor.copy_`` call brings a value
+    to the host: a destination on the CPU from a source that is not, or
+    a ``to`` whose device is spelled ``"cpu"`` (the host, on the CPU as
+    on the card)."""
+    if name == "copy_":
+        src = args[1] if len(args) > 1 else kwargs.get("src")
+        return (isinstance(src, torch.Tensor) and args[0].device.type == "cpu"
+                and src.device.type != "cpu")
+    if any(isinstance(a, str) and torch.device(a).type == "cpu"
+           for a in (*args[1:], kwargs.get("device"))):
+        return True
+    device = torch._C._nn._parse_to(*args[1:], **kwargs)[0]
+    return (device is not None and device.type == "cpu"
+            and args[0].device.type != "cpu")
+
+
+class _UserPassMode(TorchFunctionMode):
+    """Refuses, inside one user module's pass, the calls that would read
+    a value on the host or freeze host data into a graph."""
+
+    def __init__(self, module: str):
+        super().__init__()
+        self.module = module
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if getattr(_LOCAL, "trusted", False):
+            return func(*args, **kwargs)
+        name = getattr(func, "__name__", "")
+        first = args[0] if args else None
+        if isinstance(first, torch.Tensor) and (
+                name in HOST_READS
+                or name in MOVES and _host_move(name, args, kwargs)):
+            raise Uncapturable(f"its pass reads a tensor on the host "
+                               f"(Tensor.{name})", self.module)
+        if name in HOST_DATA and not isinstance(first, torch.Tensor):
+            raise Uncapturable(f"its pass makes a tensor from host data "
+                               f"(torch.{name})", self.module)
+        return func(*args, **kwargs)
+
+
+def _from_numpy(a):
+    """``torch.from_numpy`` while a user pass runs on some thread (the
+    function takes no tensor, so no torch function mode sees it)."""
+    module = getattr(_LOCAL, "user", None)
+    if module is not None and not getattr(_LOCAL, "trusted", False):
+        raise Uncapturable("its pass makes a tensor from host data "
+                           "(torch.from_numpy)", module)
+    return _FROM_NUMPY["fn"](a)
+
+
+@contextlib.contextmanager
+def user_pass(module: str):
+    """Run one pass of the user Python module ``module`` (a
+    ``ModuleBuild.render`` call). Inside a compiled step's body (its
+    warm-up, its capture and every CPU run) the pass is guarded: a host
+    read (``HOST_READS``, a move to the host: ``_host_move``) or a
+    tensor made from host data
+    (``HOST_DATA``) raises :class:`Uncapturable` naming the module, and
+    any error of the pass during the capture is re-raised as
+    one, with its cause. Outside a body (the eager step) it runs as
+    written."""
+    if not in_step():
+        yield
+        return
+    with _FROM_NUMPY["lock"]:
+        if _FROM_NUMPY["users"] == 0:
+            _FROM_NUMPY["fn"] = torch.from_numpy
+            torch.from_numpy = _from_numpy
+        _FROM_NUMPY["users"] += 1
+    saved = getattr(_LOCAL, "user", None)
+    _LOCAL.user = module
+    try:
+        with _UserPassMode(module):
+            yield
+    except Uncapturable:
+        raise
+    except Exception as e:
+        if _LOCAL.phase != "capture":
+            raise
+        raise Uncapturable(f"its pass failed inside the capture: "
+                           f"{type(e).__name__}: {e}", module) from e
+    finally:
+        _LOCAL.user = saved
+        with _FROM_NUMPY["lock"]:
+            _FROM_NUMPY["users"] -= 1
+            if _FROM_NUMPY["users"] == 0:
+                torch.from_numpy = _FROM_NUMPY["fn"]
 
 
 # -- launch counters -----------------------------------------------------
@@ -265,6 +350,15 @@ def const(x, device=None) -> torch.Tensor:
     if step is None:
         return torch.as_tensor(x, device=device)
     dev = torch.device(device if device is not None else "cpu")
+    # the upload happens once, so a user module's pass may make it
+    _LOCAL.trusted = True
+    try:
+        return _const(step, x, dev)
+    finally:
+        _LOCAL.trusted = False
+
+
+def _const(step, x, dev) -> torch.Tensor:
     a = np.asarray(x)
     flat = a.reshape(-1)
     stride = max(1, flat.size // _FINGERPRINT)
@@ -301,6 +395,33 @@ def _body_of(step, phase: str, pool=None):
         yield
     finally:
         (_LOCAL.step, _LOCAL.phase, _LOCAL.pool, _LOCAL.by_thread) = saved
+
+
+@contextlib.contextmanager
+def _capturing(graph, pool, stream):
+    """``torch.cuda.graph(graph, pool=pool, stream=stream,
+    capture_error_mode="thread_local")`` (thread_local: another thread's
+    engine may make calls that a global capture forbids; an api.entry
+    engine runs on a thread of its own), except that a body that raises
+    leaves nothing capturing: the stream's capture is ended (an
+    invalidated capture makes ``capture_end`` raise after it ended it),
+    and so is the allocator's routing to the pool, which that raise
+    skips; the current stream is restored and the body's error goes
+    on."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with torch.cuda.stream(stream):
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        try:
+            yield
+        except BaseException:
+            try:
+                graph.capture_end()
+            except RuntimeError:
+                with contextlib.suppress(RuntimeError):
+                    torch._C._cuda_endAllocateToPool(stream.device.index, pool)
+            raise
+        graph.capture_end()
 
 
 @contextlib.contextmanager
@@ -466,10 +587,9 @@ class Step:
         try:
             return self._run(branch, body)
         except Uncapturable as e:
-            if self.name is None:
+            if self.name is None or e.module is not None:
                 raise
-            raise Uncapturable(f"module '{self.name}' has no compiled "
-                               f"step: {e}") from None
+            raise Uncapturable(str(e), self.name) from None
 
     def _run(self, branch, body: Callable):
         if self.device.type == "cpu":
@@ -510,12 +630,7 @@ class Step:
             graph = torch.cuda.CUDAGraph()
             pool = torch.cuda.graph_pool_handle()
             try:
-                # thread_local: another thread's engine may make calls
-                # that a global capture forbids (an api.entry engine runs
-                # on a thread of its own)
-                with _no_gc(), torch.cuda.graph(
-                        graph, pool=pool, stream=self._capture_stream,
-                        capture_error_mode="thread_local"), \
+                with _no_gc(), _capturing(graph, pool, self._capture_stream), \
                         _body_of(self, "capture", pool):
                     gout = body(branch)
             except RuntimeError as e:

@@ -146,7 +146,8 @@ def _parity(devices, mesh, requests, n_streams: int):
     return sr, states, frames, float((whole - ref.cpu()).abs().max())
 
 
-def dryrun_multichip(n_devices: int, devices=None) -> None:
+def dryrun_multichip(n_devices: int, devices=None, per_device: int = 64,
+                     updates: int = 8) -> None:
     """Validate the multi-device path on an ``n_devices`` mesh, as
     ``__graft_entry__.dryrun_multichip`` does: (1) sharded-vs-unsharded
     parity at tiny shapes, (2) a realistic-shape sharded step (1080p
@@ -154,8 +155,10 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
     device, (3) a weak-scaling table of the update (1 device vs n), (4)
     a hosts mesh (n >= 4 and even) and (5) the FleetEngine serving loop
     on the mesh. Streams = data parallelism, frame rows = spatial
-    parallelism. Each part prints its ``dryrun_multichip ... OK`` line;
-    a failed check raises."""
+    parallelism. ``per_device`` and ``updates`` size the scaling table
+    (:func:`_scaling_table`; the CPU tests pass a small table). Each
+    part prints its ``dryrun_multichip ... OK`` line; a failed check
+    raises."""
     devices = _devices(n_devices, devices)
     rows = 2 if n_devices % 2 == 0 and n_devices >= 4 else 1
 
@@ -190,7 +193,8 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
           f"frame={want} on its own device (no whole-frame band renders)")
 
     # ---- (3) weak-scaling table ---------------------------------------
-    print("dryrun_multichip scaling OK:", _scaling_table(devices, n_devices))
+    print("dryrun_multichip scaling OK:",
+          _scaling_table(devices, n_devices, per_device, updates))
 
     # ---- (4) hosts mesh ------------------------------------------------
     if n_devices >= 4 and n_devices % 2 == 0:
@@ -274,7 +278,10 @@ def _dryrun_fleet_engine(devices, n_devices: int) -> None:
     """The FleetEngine serving loop (audio threads, mixed modules,
     per-stream sinks) on the mesh: every stream gets its frames in
     order and draws pixels; each device's frames are its (stream block,
-    row band) on that device."""
+    row band) on that device. The loop starts once every synth thread
+    has delivered its first buffer (``FleetEngine.run``'s
+    ``wait_audio``), so what is drawn does not hang on how soon the
+    threads are scheduled."""
     from glava_tpu_torch.runtime.fleet import FleetEngine, StreamSpec
     from glava_tpu_torch.runtime.sinks import FrameSink
 
@@ -306,7 +313,7 @@ def _dryrun_fleet_engine(devices, n_devices: int) -> None:
                           loaded=variants[i % len(variants)])
                for i in range(S)]
     eng = FleetEngine(variants[0], streams, mesh=mesh)
-    eng.run(max_frames=6)
+    eng.run(max_frames=6, wait_audio=60.0)
     delivered = [len(s.times) for s in sinks]
     if min(delivered) < 5:
         raise AssertionError(f"streams missed frames: {delivered}")

@@ -20,6 +20,20 @@ textures arrive per declared uniform. A module that reads
 ``ctx.rows`` and sets ``banded`` renders only its band of rows on a
 mesh's rows axis; one that does not renders the whole frame there. See
 glava_tpu_torch/render/modules/bars.py for the full pattern.
+
+The module runs inside the compiled step (a CUDA graph a branch, as the
+JAX package jits it): its passes are captured once and replayed every
+frame. So a pass reaches per-frame values only through its
+``PassInputs`` (textures, time, pipe values); Python state the module
+changes from call to call is frozen at the capture, as JAX freezes it
+at the trace. A pass may not read a tensor on the host (``.item()``,
+``.cpu()``, ``.to("cpu")``, ``.numpy()``, ``.tolist()``, ``bool()``,
+``float()``, ``print``) nor
+make a tensor from host data (``torch.tensor``, ``as_tensor``,
+``from_numpy``): the step raises ``compiled.Uncapturable`` naming the
+module. The build function below runs once, at load, and may do both;
+a host constant a pass needs goes through ``compiled.const`` (uploaded
+once).
 """
 
 import numpy as np

@@ -88,7 +88,8 @@ def set_condition(active: torch.Tensor, fuel: torch.Tensor, cap: int,
     """Launch the setter on the current stream: ``go`` (int32, one
     element) = :func:`condition_plain`, and the conditional ``handle``
     set to it when given. ``sync``: two zeroed int32 words the launches
-    of one loop share."""
+    of one loop share. ``active`` may hold any number of bytes (16 at a
+    time, the rest one by one)."""
     global launches
     if not (active.is_cuda and active.dtype == torch.bool
             and active.is_contiguous() and active.data_ptr() % 16 == 0):

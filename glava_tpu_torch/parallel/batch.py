@@ -194,9 +194,7 @@ class BatchedRenderer:
 
     def jit_step(self, quantize: bool = True):
         """The compiled fleet step (:class:`CompiledFleetStep`), frames
-        as :meth:`step` gives them. Raises ``ValueError`` for a module
-        that keeps the eager step."""
-        compiled.check_capturable(self.renderer.module)
+        as :meth:`step` gives them."""
         return CompiledFleetStep(self, self.renderer.pipeline,
                                  [self.renderer], quantize)
 
@@ -339,10 +337,7 @@ class MixedBatchedRenderer:
 
     def jit_step(self, quantize: bool = True):
         """The compiled fleet step (:class:`CompiledFleetStep`), frames
-        as :meth:`step` gives them. Raises ``ValueError`` when a variant
-        keeps the eager step."""
-        for rend in self.used_renderers():
-            compiled.check_capturable(rend.module)
+        as :meth:`step` gives them."""
         return CompiledFleetStep(self, self.pipeline, self.renderers, quantize)
 
     def _static_frames(self, st: RenderState, inp: dict, pipe,

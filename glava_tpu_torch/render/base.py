@@ -261,14 +261,19 @@ class ModuleBuild:
     # the planes cover the context's band of rows only (module docstring)
     banded: bool = False
     # "native" (a built-in module), "shader" (the interpreter) or
-    # "python" (a user Python module): the first two are captured
-    # (``compiled.py``), the last keeps the eager step
+    # "python" (a user Python module, whose passes run under
+    # ``compiled.user_pass`` in a compiled step's body)
     kind: str = "python"
 
     def render(self, inputs: PassInputs) -> Planes:
         out = inputs.prev
         for fn in self.passes:
-            out = as_planes(fn(inputs._replace(prev=out)))
+            if self.kind == "python":
+                with compiled.user_pass(self.name):
+                    planes = fn(inputs._replace(prev=out))
+            else:
+                planes = fn(inputs._replace(prev=out))
+            out = as_planes(planes)
             # stage FBOs are 8-bit normalized color attachments
             # (render.c:543-556): every pass write clamps to [0, 1]
             out = clip_planes(out)

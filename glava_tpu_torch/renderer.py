@@ -278,9 +278,10 @@ class Renderer:
         or :meth:`step_yuv420`'s with ``yuv420``. The state is donated.
         On a card each branch (``modified`` or not) is captured into a
         CUDA graph once and replayed; on the CPU the same static-buffer
-        step runs eagerly (``compiled.py``). Raises ``ValueError`` for a
-        module that keeps the eager step (a user Python module)."""
-        compiled.check_capturable(self.module)
+        step runs eagerly (``compiled.py``). A user Python module's
+        passes run guarded (``compiled.user_pass``): the first call of a
+        branch raises ``compiled.Uncapturable`` naming a module that
+        reads on the host."""
         h, w = self.height, self.screen[0]
         if yuv420:
             if h % 2 or w % 2:

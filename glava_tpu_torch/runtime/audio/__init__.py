@@ -28,6 +28,8 @@ class AudioData:
     lock: threading.Lock = field(default_factory=threading.Lock)
     modified: bool = False
     terminate: bool = False
+    # set by the first push (a loop may wait for every stream's first)
+    delivered: threading.Event = field(default_factory=threading.Event)
 
     @property
     def hop(self) -> int:
@@ -46,6 +48,8 @@ class AudioData:
                 self.buffer[0, -hop:] = left
                 self.buffer[1, -hop:] = right
             self.modified = True
+        if not self.delivered.is_set():
+            self.delivered.set()
 
     def snapshot(self) -> tuple[np.ndarray, bool]:
         """Copy-out under the lock (glava.c:528-537)."""
@@ -75,6 +79,8 @@ class NativeAudioData(AudioData):
 
     def push(self, left: np.ndarray, right: np.ndarray) -> None:
         self.ring.push(left, right, mono=self.channels == 1)
+        if not self.delivered.is_set():
+            self.delivered.set()
 
     def snapshot(self) -> tuple[np.ndarray, bool]:
         return self.ring.snapshot()

@@ -23,9 +23,9 @@ Loop mechanics carried over from the JAX package's engine:
   run;
 * the compiled step: a frame is ``renderer.jit_step``'s (a CUDA graph
   a branch, replayed, ``compiled.py``), as the JAX engine runs
-  ``jit_step``, for native and GLSL shader modules alike; a user Python
-  module runs its eager step, and the engine says so once
-  (``compiled.choose_step``). A shader's loops count the pixels they
+  ``jit_step``, for native, GLSL shader and user Python modules alike
+  (a user module that reads on the host is refused by name,
+  ``compiled.user_pass``). A shader's loops count the pixels they
   truncate at the fuel cap on the device; the engine reads the count at
   most once a second and at the end of a run
   (``glsl_shader.fuel_check``).
@@ -46,7 +46,6 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from glava_tpu_torch import compiled
 from glava_tpu_torch.config import glsl_shader
 from glava_tpu_torch.config import loader as config_loader
 from glava_tpu_torch.renderer import Renderer
@@ -256,10 +255,7 @@ class Engine:
                                  w, h, self.opts.test_mode)
         yuv = self._wire[0] == "yuv420"
         # the JAX engine's jit_step (glava_tpu/runtime/engine.py:116)
-        self._step = compiled.choose_step(
-            [renderer.module],
-            lambda: renderer.jit_step(quantize=not yuv, yuv420=yuv),
-            renderer.step_yuv420 if yuv else renderer.step_u8)
+        self._step = renderer.jit_step(quantize=not yuv, yuv420=yuv)
         self._init_bg()
 
     # -- live wallpaper (bg_changed recopy, render.c:1832-1837) ------------

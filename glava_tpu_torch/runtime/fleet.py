@@ -28,9 +28,8 @@ The step is the compiled fleet step (``jit_step`` of the renderer: a
 CUDA graph, one a device block on a mesh, replayed a frame,
 ``compiled.py``), as the JAX fleet jits its step
 (glava_tpu/runtime/fleet.py:185-191): the snapshots go straight into
-its static input. A fleet with a user Python module variant runs the
-eager step, and says so once (``compiled.choose_step``); GLSL shader
-modules take the compiled step, their fuel counts read at most once a
+its static input, whatever its modules (native, GLSL shader or user
+Python modules); a shader module's fuel counts are read at most once a
 second and at the end of a run (``glsl_shader.fuel_check``).
 """
 
@@ -43,7 +42,6 @@ from typing import Any
 import numpy as np
 import torch
 
-from glava_tpu_torch import compiled
 from glava_tpu_torch.config import glsl_shader
 from glava_tpu_torch.config.loader import LoadedConfig
 from glava_tpu_torch.parallel.batch import (
@@ -180,13 +178,10 @@ class FleetEngine:
         return 0.0
 
     def _make_step(self):
-        """The compiled fleet step, or the eager step (said once) when a
-        variant keeps it."""
-        mods = [r.module for r in self.br.used_renderers()]
-        self._shader = any(m.kind == "shader" for m in mods)
-        return compiled.choose_step(
-            mods, lambda: self.br.jit_step(quantize=True),
-            lambda *a: self.br.step(*a, quantize=True))
+        """The compiled fleet step."""
+        self._shader = any(r.module.kind == "shader"
+                           for r in self.br.used_renderers())
+        return self.br.jit_step(quantize=True)
 
     def set_pipe(self, stream: int, name: str, value) -> None:
         """Live per-stream uniform update (no rebuild)."""
@@ -209,7 +204,14 @@ class FleetEngine:
         return frames
 
     def run(self, max_frames: int | None = None,
-            max_seconds: float | None = None) -> None:
+            max_seconds: float | None = None,
+            wait_audio: float | None = None) -> None:
+        """Serve frames until ``terminate``, ``max_frames`` or
+        ``max_seconds``. With ``wait_audio`` (seconds) the loop starts
+        once every stream's backend has delivered its first buffer, and
+        raises ``TimeoutError`` naming the streams still silent after
+        that long; without it the loop starts at once, as the reference
+        renders before any audio arrives."""
         cfg = self.loaded.cfg
         S = len(self.streams)
         threads = [b.spawn(a) for b, a in zip(self.backends, self.audio)]
@@ -220,6 +222,9 @@ class FleetEngine:
         snaps = np.empty((S, 2, cfg.bufsize), np.float32)
         mods = np.empty((S,), bool)
         try:
+            if wait_audio is not None:
+                self._wait_audio(threads, wait_audio)
+                t0 = mark = _time.monotonic()
             while self.alive:
                 now = _time.monotonic()
                 if max_seconds is not None and now - t0 >= max_seconds:
@@ -256,6 +261,20 @@ class FleetEngine:
                 s.close()
         if self._shader:
             glsl_shader.fuel_check(force=True)
+
+    def _wait_audio(self, threads, timeout: float) -> None:
+        end = _time.monotonic() + timeout
+        for i, (ad, th) in enumerate(zip(self.audio, threads)):
+            while not ad.delivered.wait(0.05):
+                err = getattr(th, "error", None)
+                if err is not None or _time.monotonic() >= end:
+                    silent = [s.name for s, a in zip(self.streams, self.audio)
+                              if not a.delivered.is_set()]
+                    if err is not None:
+                        raise RuntimeError(f"audio backend of stream {i} "
+                                           f"failed: {err}") from err
+                    raise TimeoutError(f"streams {silent} delivered no audio "
+                                       f"in {timeout} s")
 
     def fetch(self, frames) -> np.ndarray:
         """The (S, H, W, 4) uint8 frames on the host: on CUDA copied into

@@ -7,8 +7,7 @@ ring updates (fifo.c:91-92) and nominal-UPS gravity decay
 through the compiled step (:meth:`Renderer.jit_step`, a CUDA graph a
 branch replayed a frame; the JAX package scans a chunk of 64 frames in
 one executable), each copied to the host while the next one renders
-(``FrameFetch``). A user Python module runs its eager step
-(:meth:`Renderer.step_u8`), said once; a GLSL shader module's fuel
+(``FrameFetch``), whatever the module; a GLSL shader module's fuel
 count is read once, at the end. Offline output is deterministic for a
 given track and config.
 
@@ -23,7 +22,6 @@ import time as _time
 import numpy as np
 import torch
 
-from glava_tpu_torch import compiled
 from glava_tpu_torch.config import glsl_shader
 from glava_tpu_torch.config.loader import LoadedConfig
 from glava_tpu_torch.pipeline import frame_windows
@@ -88,8 +86,7 @@ def render_wav(loaded: LoadedConfig, wav_path: str, sink: FrameSink,
     g = float(np.float32(cfg.gravity_step / sched["ups"]))
 
     r = Renderer(loaded, screen=screen, device=device)
-    step = compiled.choose_step([r.module], lambda: r.jit_step(quantize=True),
-                                r.step_u8)
+    step = r.jit_step(quantize=True)
     state = r.init_state()
     # one frame in flight: its pinned copy overlaps the next step
     fetch = FrameFetch(r.device, 1)

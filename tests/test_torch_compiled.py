@@ -23,8 +23,9 @@ Each case feeds both packages the same seeded numpy inputs:
   and the body run with ``torch.as_tensor``/``torch.tensor``/
   ``torch.from_numpy`` of host data patched to raise (a host-to-device
   copy inside a graph);
-* the refusal of a user Python module, by name, and the compiled step
-  of a shader module;
+* the compiled step of a shader module, and the Engine's step of a
+  native, a shader and a user Python module (vu_meter; the rest of the
+  user modules' cases are ``tests/test_torch_compiled_user.py``'s);
 * on the card (``cuda``-marked, skipped here): replays against eager.
 """
 
@@ -386,7 +387,7 @@ def test_static_update_reads_nothing_on_the_host():
     assert tex["audio_l"].shape == (2, 1024)
 
 
-# -- what keeps the eager step -------------------------------------------
+# -- user Python and shader modules ------------------------------------------
 
 def _vu_root(d: Path) -> Path:
     root = Path(__file__).resolve().parent.parent
@@ -396,21 +397,6 @@ def _vu_root(d: Path) -> Path:
     (d / "rc.glsl").write_text("#request mod vu_meter\n"
                                "#request setgeometry 0 0 64 48\n")
     return d
-
-
-def test_python_modules_have_no_compiled_step(tmp_path):
-    vu = Renderer(loader.load(user_dir=_vu_root(tmp_path / "vu")),
-                  device="cpu")
-    assert vu.module.kind == "python"
-    with pytest.raises(ValueError, match="module 'vu_meter'.*unknown"):
-        vu.jit_step()
-    with pytest.raises(ValueError, match="module 'vu_meter'.*unknown"):
-        BatchedRenderer(loader.load(user_dir=_vu_root(tmp_path / "vu2")), 2,
-                        device="cpu").jit_step()
-    assert compiled.EAGER_REASONS.keys() == {"python"}
-    for m in NATIVE:
-        assert Renderer(_loads(m, tmp_path)[0], device="cpu").module.kind \
-            == "native"
 
 
 def test_shader_modules_have_a_compiled_step(tmp_path):
@@ -435,8 +421,8 @@ def test_shader_modules_have_a_compiled_step(tmp_path):
 
 
 def test_engine_runs_the_compiled_step_or_says_why_not(tmp_path, capsys):
-    """A native or shader module's Engine step is the compiled step; a
-    user Python module's is its eager step, said once on stderr."""
+    """A native, a shader and a user Python module's (vu_meter) Engine
+    step is the compiled step, and nothing is said of an eager step."""
     eng = Engine(EngineOptions(audio_backend="synth", screen=(64, 48),
                                device="cpu", force_module="bars",
                                requests=("setprintframes false",)),
@@ -455,18 +441,17 @@ def test_engine_runs_the_compiled_step_or_says_why_not(tmp_path, capsys):
     assert isinstance(eng._step, CompiledStep)
     eng.run(max_frames=2)
     assert eng.frames_rendered == 2
-    compiled._NOTED.discard("vu_meter")
     root = _vu_root(tmp_path / "vu")
     for _ in range(2):
         eng = Engine(EngineOptions(audio_backend="synth", screen=(64, 48),
                                    device="cpu", user_dir=str(root),
                                    requests=("setprintframes false",)),
                      sink=sinks.NullSink())
+        assert eng.renderer.module.kind == "python"
+        assert isinstance(eng._step, CompiledStep)
         eng.run(max_frames=2)
-    err = capsys.readouterr().err
-    assert "module 'eq'" not in err
-    assert err.count("module 'vu_meter' runs its eager step (a user "
-                     "Python module") == 1
+        assert eng.frames_rendered == 2
+    assert "eager" not in capsys.readouterr().err
 
 
 def test_fleet_engine_frames_equal_the_eager_fleet(tmp_path):

@@ -332,8 +332,7 @@ def test_a_capture_refusal_raises_naming_the_module(tmp_path):
     back to the eager step."""
     lc, _ = _shader_loads("rings", tmp_path)
     r = Renderer(lc, device="cpu")
-    step = compiled.choose_step([r.module], lambda: r.jit_step(quantize=True),
-                                r.step_u8)
+    step = r.jit_step(quantize=True)
     assert isinstance(step, CompiledStep)
     s = step.step
     host = np.arange(3, dtype=np.float32)
@@ -350,3 +349,32 @@ def test_a_capture_refusal_raises_naming_the_module(tmp_path):
                        match=r"module 'rings' has no compiled step: a host "
                              r"value of shape \(4,\)"):
         s.run("first", body)
+
+
+# -- the while setter's plain version ------------------------------------------
+
+@pytest.mark.parametrize("where", ["none", "first", "last", "many"])
+def test_while_condition_on_an_odd_plane(where):
+    """``condition_plain`` (what the setter computes, and the CPU's
+    loop condition) on a 37 x 53 plane, 1961 bytes, not a multiple of
+    16 (the kernel reads its last byte apart): any pixel active and the
+    fuel below the cap; ``graph_while.run`` on the CPU stops there."""
+    rng = np.random.default_rng(11)
+    plane = np.zeros((37, 53), bool)
+    if where == "many":
+        plane = rng.random((37, 53)) < 0.3
+    elif where != "none":
+        plane.reshape(-1)[0 if where == "first" else -1] = True
+    act = torch.from_numpy(plane.copy())
+    for f, cap in ((0, 10), (9, 10), (10, 10)):
+        fuel = torch.full((1,), f, dtype=torch.int32)
+        got = graph_while.condition_plain(act, fuel, cap)
+        assert bool(got) == (bool(plane.any()) and f < cap), (where, f)
+    fuel = torch.zeros(1, dtype=torch.int32)
+
+    def body():
+        act.view(-1)[act.view(-1).nonzero()[:1]] = False
+        fuel.add_(1)
+
+    graph_while.run(act, fuel, 1000, body)
+    assert int(fuel) == int(plane.sum()) and not act.any()

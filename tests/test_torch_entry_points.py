@@ -6,10 +6,13 @@ the JAX ``entry()``'s fn, and a second step of each from JAX's state
 carried across (``interop.state_from_jax_numpy``). Tolerance: the golden
 rule, under 0.2% of pixels more than 2 LSB apart. ``dryrun_multichip``
 on eight CPU devices prints its five OK lines, as the JAX dry run does
-on its eight virtual CPU devices (``tests/test_runtime.py``).
+on its eight virtual CPU devices (``tests/test_runtime.py``), and its
+serving loop draws every stream however late the synth threads start.
 """
 
 from __future__ import annotations
+
+import time
 
 import jax
 import jax.numpy as jnp
@@ -55,7 +58,10 @@ def test_entry_meets_jax_entry_for_two_steps():
 
 
 def test_dryrun_multichip_on_eight_cpu_devices(capsys):
-    entry_points.dryrun_multichip(8, devices=["cpu"] * 8)
+    # a small scaling table: eight copies of one CPU show no scaling,
+    # and the card's 64 streams a device x 8 updates are heavy here
+    entry_points.dryrun_multichip(8, devices=["cpu"] * 8, per_device=2,
+                                  updates=2)
     lines = capsys.readouterr().out.splitlines()
     ok = [ln.split(":")[0] for ln in lines if " OK:" in ln]
     assert ok == ["dryrun_multichip OK", "dryrun_multichip realistic OK",
@@ -63,6 +69,22 @@ def test_dryrun_multichip_on_eight_cpu_devices(capsys):
                   "dryrun_multichip engine_8dev OK"], lines
     assert "mesh={'streams': 4, 'rows': 2}" in lines[1]
     assert "per-device frame=(1, 540, 1920, 4)" in lines[2]
+
+
+def test_dryrun_fleet_engine_waits_for_late_audio(monkeypatch, capsys):
+    """The dry run's serving loop starts once every synth thread has
+    delivered: threads that start 2 s late still draw every stream."""
+    from glava_tpu_torch.runtime.audio import synth
+
+    entry = synth.SynthBackend.entry
+
+    def late(self, audio):
+        time.sleep(2.0)
+        entry(self, audio)
+
+    monkeypatch.setattr(synth.SynthBackend, "entry", late)
+    entry_points._dryrun_fleet_engine([torch.device("cpu")] * 2, 2)
+    assert "(8/8 streams drew pixels)" in capsys.readouterr().out
 
 
 def test_dryrun_scaling_table_divides_the_update_bytes():
