@@ -77,6 +77,8 @@ import numpy as np
 import torch
 from torch.overrides import TorchFunctionMode
 
+from glava_tpu_torch.utils import profiling
+
 # the counters a replay advances (module of glava_tpu_torch.ops or the
 # renderer, attribute), an int or a dict of ints: kernel launches, the
 # row-wise lookup's routes and the renderer's whole-frame band renders
@@ -521,6 +523,7 @@ class Step:
         if set(values) != set(self.base):
             raise ValueError(f"a compiled step takes {sorted(self.base)}, "
                              f"got {sorted(values)}")
+        ts = profiling.begin()
         values.update({f"pipe:{k}": v for k, v in sorted((pipe or {})
                                                           .items())})
         shapes = {k: tuple(np.shape(v)) if not isinstance(v, torch.Tensor)
@@ -538,6 +541,9 @@ class Step:
                 self.inputs[k].copy_(v if isinstance(v, torch.Tensor) else
                                      torch.from_numpy(np.array(
                                          v, NP[self.dtypes[k]])))
+            if ts:
+                profiling.end("step.load", ts,
+                              sum(self._layout[k][1] for k in values))
             return
         if host:
             stage = self._stage()
@@ -554,6 +560,8 @@ class Step:
                 stage[2] = True
         for k, v in on_dev.items():
             self.inputs[k].copy_(v)
+        if ts:
+            profiling.end("step.load", ts, hi - lo if host else 0)
 
     def pipe(self) -> dict:
         """The pipe values' static inputs: name -> tensor."""
@@ -573,7 +581,12 @@ class Step:
         stage = self._stages[self._calls % len(self._stages)]
         self._calls += 1
         if stage[2]:
-            stage[1].synchronize()
+            ts = profiling.begin()
+            if not ts:
+                stage[1].synchronize()
+            elif not stage[1].query():
+                stage[1].synchronize()
+                profiling.end("step.stage_wait", ts)
         return stage
 
     # -- run: warm-up and capture, or replay -------------------------------
@@ -593,6 +606,7 @@ class Step:
 
     def _run(self, branch, body: Callable):
         if self.device.type == "cpu":
+            ts = profiling.begin()
             # a branch's first run is its warm-up, as on the card
             held = self._outs.get(branch)
             with _body_of(self, "cpu" if held is not None else "warm"):
@@ -600,16 +614,27 @@ class Step:
             if held is None:
                 held = self._outs[branch] = tree_map(torch.clone, out)
                 self.captures += 1
+                if ts:
+                    profiling.end("step.capture", ts)
             else:
                 for h, o in zip(leaves(held), leaves(out)):
                     h.copy_(o)
+                if ts:
+                    profiling.end("step.replay", ts)
             return held
         entry = self._graphs.get(branch)
         if entry is None:
-            return self._warm_and_capture(branch, body)
+            ts = profiling.begin()
+            out = self._warm_and_capture(branch, body)
+            if ts:
+                profiling.end("step.capture", ts)
+            return out
         graph, out, counts = entry
         with torch.cuda.device(self.device):
+            ts = profiling.begin()
             graph.replay()
+            if ts:
+                profiling.end("step.replay", ts)
         _add_counters(counts)
         return out
 

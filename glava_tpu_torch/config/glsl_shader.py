@@ -69,6 +69,7 @@ from glava_tpu_torch.config.glsl_expr import ExprError, tokenize
 from glava_tpu_torch.ops import graph_while
 from glava_tpu_torch.ops import latch as latch_ops
 from glava_tpu_torch.ops import lookup as lookup_ops
+from glava_tpu_torch.utils import profiling
 
 
 class ShaderError(ValueError):
@@ -2639,6 +2640,7 @@ def fuel_check(device=None, force: bool = False) -> int:
     if not force and now - _FUEL_WARN_STATE["read"] < 1.0:
         return 0
     _FUEL_WARN_STATE["read"] = now
+    ts = profiling.begin()
     total, cap = 0, 0
     want = None if device is None else _fuel_device(device)
     for dev, entry in _FUEL.items():
@@ -2649,6 +2651,8 @@ def fuel_check(device=None, force: bool = False) -> int:
             entry[0].zero_()
             total += n
             cap = entry[1]
+    if ts:
+        profiling.end("fuel", ts, total)
     _fuel_report(total, cap)
     return total
 

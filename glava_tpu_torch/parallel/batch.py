@@ -463,6 +463,16 @@ class CompiledFleetStep:
 
     def __call__(self, state, audio, modified, time, interp_mod, gravity_g,
                  pipe: dict | None = None):
+        ts = profiling.begin()
+        out = self.call(state, audio, modified, time, interp_mod, gravity_g,
+                        pipe)
+        if ts:
+            profiling.end("step", ts)
+        return out
+
+    def call(self, state, audio, modified, time, interp_mod, gravity_g,
+             pipe: dict | None = None):
+        """The call without its ``step`` span (a sharded step's part)."""
         S = self.br.n_streams
         st = self.step.donate(state)
 
@@ -509,18 +519,21 @@ class CompiledShardedStep:
 
     def __call__(self, states, audio, modified, time, interp_mod, gravity_g,
                  pipe: dict | None = None):
+        ts = profiling.begin()
         modified, time = _host(modified), _host(time)
         interp_mod, gravity_g = _host(interp_mod), _host(gravity_g)
         audio = _host(audio)
         pipe = _pipe_rows(pipe)
         out_states, frames = [], []
         for step, (sl, _), st in zip(self.steps, self.sr.blocks, states):
-            st, fr = step(st, audio[sl], modified[sl], time[sl],
-                          interp_mod[sl], gravity_g[sl],
-                          {k: v[sl] for k, v in pipe.items()} if pipe
-                          else None)
+            st, fr = step.call(st, audio[sl], modified[sl], time[sl],
+                               interp_mod[sl], gravity_g[sl],
+                               {k: v[sl] for k, v in pipe.items()} if pipe
+                               else None)
             out_states.append(st)
             frames.append(fr)
+        if ts:
+            profiling.end("step", ts)
         return out_states, frames
 
 

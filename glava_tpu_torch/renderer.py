@@ -336,6 +336,7 @@ class CompiledStep:
 
     def __call__(self, state, audio, modified, time, interp_mod=1.0,
                  gravity_g=None, pipe=None):
+        ts = profiling.begin()
         rend = self.rend
         st = self.step.donate(state)
         pipe = dict(pipe or {})
@@ -357,6 +358,8 @@ class CompiledStep:
         frame, nan = out if guard else (out, None)
         if nan is not None and bool(nan):
             raise FloatingPointError("NaN in frame")
+        if ts:
+            profiling.end("step", ts)
         return st, frame
 
     def _body(self, branch):

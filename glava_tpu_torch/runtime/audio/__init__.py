@@ -15,6 +15,8 @@ from typing import Callable
 
 import numpy as np
 
+from glava_tpu_torch.utils import profiling
+
 
 @dataclass
 class AudioData:
@@ -53,10 +55,13 @@ class AudioData:
 
     def snapshot(self) -> tuple[np.ndarray, bool]:
         """Copy-out under the lock (glava.c:528-537)."""
+        ts = profiling.begin()
         with self.lock:
             buf = self.buffer.copy()
             mod = self.modified
             self.modified = False
+        if ts:
+            profiling.end("snapshot", ts)
         return buf, mod
 
 
@@ -83,7 +88,11 @@ class NativeAudioData(AudioData):
             self.delivered.set()
 
     def snapshot(self) -> tuple[np.ndarray, bool]:
-        return self.ring.snapshot()
+        ts = profiling.begin()
+        out = self.ring.snapshot()
+        if ts:
+            profiling.end("snapshot", ts)
+        return out
 
 
 def make_audio_data(bufsize: int, sample_sz: int, rate: int, channels: int,

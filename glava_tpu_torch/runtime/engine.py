@@ -52,6 +52,7 @@ from glava_tpu_torch.renderer import Renderer
 from glava_tpu_torch.runtime import audio as audio_mod
 from glava_tpu_torch.runtime.sinks import FrameSink, LatestFrameSink
 from glava_tpu_torch.runtime.stdin_pipe import PipeBind, PipeReader
+from glava_tpu_torch.utils import profiling
 
 
 @dataclass
@@ -142,6 +143,7 @@ class FrameFetch:
     def push(self, frame: torch.Tensor, t: float) -> list:
         """Queue ``frame`` (time ``t``); -> the (host frame, t) pairs now
         due, oldest first."""
+        ts = profiling.begin()
         if self._copy is None:
             # a copy: the step may write its next frame into this buffer
             host = frame.clone()
@@ -162,24 +164,34 @@ class FrameFetch:
                 done = torch.cuda.Event()
                 done.record(self._copy)
             self._pending.append((slot, host, done, t, self.wire))
+        if ts:
+            profiling.end("fetch.copy", ts)
         self._pushes += 1
         out = []
         while len(self._pending) > self.depth:
             out.append(self._finish(self._pending.popleft()))
+        if ts:
+            profiling.end("fetch", ts)
         return out
 
     def drain(self) -> list:
         """Every pending frame, oldest first."""
+        ts = profiling.begin()
         out = []
         while self._pending:
             out.append(self._finish(self._pending.popleft()))
+        if ts:
+            profiling.end("fetch", ts)
         return out
 
     @staticmethod
     def _finish(entry) -> tuple:
         _frame, host, done, t, wire = entry
+        ts = profiling.begin()
         if done is not None:
             done.synchronize()
+        if ts:
+            profiling.end("fetch.wait", ts)
         buf = host.numpy()
         if wire[0] == "yuv420":
             _, w, h = wire
@@ -207,6 +219,7 @@ class Engine:
         self.ups = 0.0
         self.frames_rendered = 0
         self.updates = 0   # frames that ran the audio update (modified)
+        self._loop = profiling.new_loop()   # the id of its spans
         self._build()
 
     # -- construction (rd_new equivalent) ---------------------------------
@@ -346,8 +359,11 @@ class Engine:
         self.sink.close()
 
     def _submit(self, ready: list) -> None:
+        ts = profiling.begin()
         for host, t in ready:
             self.sink.submit(host, t)
+        if ts:
+            profiling.end("sink", ts)
 
     def _run_once(self, max_frames, max_seconds):
         cfg = self.loaded.cfg
@@ -389,68 +405,76 @@ class Engine:
                 if not self.sink.should_render():
                     _time.sleep(0.05)  # obscured/fullscreen gating
                     continue
-                # fail fast on capture errors, like the reference's
-                # exit-on-source-error (fifo.c:45-48)
-                err = getattr(audio_thread, "error", None)
-                if err is not None:
-                    raise RuntimeError(f"audio backend failed: {err}") from err
+                # a frame's spans (utils/profiling.py), from here to the
+                # end of the iteration
+                n = self.frames_rendered
+                tf = profiling.frame_begin(self._loop, n)
+                try:
+                    # fail fast on capture errors, like the reference's
+                    # exit-on-source-error (fifo.c:45-48)
+                    err = getattr(audio_thread, "error", None)
+                    if err is not None:
+                        raise RuntimeError(f"audio backend failed: {err}") from err
 
-                snap, modified = self.audio.snapshot()
-                # keyframe interpolation phase (render.c:1792-1809); the
-                # step reads it on the CPU path only
-                kcounter = 0 if modified else kcounter + 1
-                uratio = min(ur / max(self.fps or fr, 1.0), 1.0)
-                interp_mod = min(uratio * max(kcounter, 1), 1.0)
-                tnow = (now - t0) % cfg.timecycle
-                gravity_g = cfg.gravity_step / max(ur, 1.0)
-                pipe = {k: np.asarray(v, np.float32)
-                        for k, v in (self.pipe.snapshot() if self.pipe
-                                     else {}).items()}
-                if self._bg_dev is not None:
-                    self._poll_bg()
-                    pipe["__bg__"] = self._bg_dev
-                self.state, frame = self._step(
-                    self.state, snap, bool(modified),
-                    tnow, float(np.float32(interp_mod)), gravity_g, pipe,
-                )
-                if self.renderer.module.kind == "shader":
-                    glsl_shader.fuel_check(self.renderer.device)
-                # up to `depth` frames stay in flight: older frames'
-                # copies overlap newer frames' device work
-                self._submit(fetch.push(frame, tnow))
-                self.frames_rendered += 1
-                fcount += 1
-                if modified:
-                    ucount += 1
-                    self.updates += 1
+                    snap, modified = self.audio.snapshot()
+                    # keyframe interpolation phase (render.c:1792-1809); the
+                    # step reads it on the CPU path only
+                    kcounter = 0 if modified else kcounter + 1
+                    uratio = min(ur / max(self.fps or fr, 1.0), 1.0)
+                    interp_mod = min(uratio * max(kcounter, 1), 1.0)
+                    tnow = (now - t0) % cfg.timecycle
+                    gravity_g = cfg.gravity_step / max(ur, 1.0)
+                    pipe = {k: np.asarray(v, np.float32)
+                            for k, v in (self.pipe.snapshot() if self.pipe
+                                         else {}).items()}
+                    if self._bg_dev is not None:
+                        self._poll_bg()
+                        pipe["__bg__"] = self._bg_dev
+                    self.state, frame = self._step(
+                        self.state, snap, bool(modified),
+                        tnow, float(np.float32(interp_mod)), gravity_g, pipe,
+                    )
+                    if self.renderer.module.kind == "shader":
+                        glsl_shader.fuel_check(self.renderer.device)
+                    # up to `depth` frames stay in flight: older frames'
+                    # copies overlap newer frames' device work
+                    self._submit(fetch.push(frame, tnow))
+                    self.frames_rendered += 1
+                    fcount += 1
+                    if modified:
+                        ucount += 1
+                        self.updates += 1
 
-                if o.test_mode:
-                    self._test_result = self.renderer.test_evaluate(frame)
-                    self.alive = False
-                    break
-                if max_frames is not None and self.frames_rendered >= max_frames:
-                    break
+                    if o.test_mode:
+                        self._test_result = self.renderer.test_evaluate(frame)
+                        self.alive = False
+                        break
+                    if max_frames is not None and self.frames_rendered >= max_frames:
+                        break
 
-                # frame limiter (render.c:2361-2372)
-                if frame_period > 0:
-                    next_frame += frame_period
-                    delay = next_frame - _time.monotonic()
-                    if delay > 0:
-                        _time.sleep(delay)
+                    # frame limiter (render.c:2361-2372)
+                    if frame_period > 0:
+                        next_frame += frame_period
+                        delay = next_frame - _time.monotonic()
+                        if delay > 0:
+                            _time.sleep(delay)
 
-                # FPS/UPS accounting (render.c:2376-2399)
-                now2 = _time.monotonic()
-                if now2 - sec_mark >= 1.0:
-                    span = now2 - sec_mark
-                    self.fps = fcount / span
-                    self.ups = ucount / span
-                    # feed the measured rate into the gravity step
-                    # (render.c:728), guarded against stalls
-                    ur = max(self.ups, nominal_ups / 8.0)
-                    if cfg.print_frames:
-                        print(f"FPS: {self.fps:.1f}, UPS: {self.ups:.1f}")
-                    fcount = ucount = 0
-                    sec_mark = now2
+                    # FPS/UPS accounting (render.c:2376-2399)
+                    now2 = _time.monotonic()
+                    if now2 - sec_mark >= 1.0:
+                        span = now2 - sec_mark
+                        self.fps = fcount / span
+                        self.ups = ucount / span
+                        # feed the measured rate into the gravity step
+                        # (render.c:728), guarded against stalls
+                        ur = max(self.ups, nominal_ups / 8.0)
+                        if cfg.print_frames:
+                            print(f"FPS: {self.fps:.1f}, UPS: {self.ups:.1f}")
+                        fcount = ucount = 0
+                        sec_mark = now2
+                finally:
+                    if tf:
+                        profiling.frame_end(self._loop, n, tf)
         finally:
             self._submit(fetch.drain())
             self.audio.terminate = True

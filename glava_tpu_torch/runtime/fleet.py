@@ -49,6 +49,7 @@ from glava_tpu_torch.parallel.batch import (
 )
 from glava_tpu_torch.runtime import audio as audio_mod
 from glava_tpu_torch.runtime.sinks import FrameSink, make_sink
+from glava_tpu_torch.utils import profiling
 
 
 @dataclass
@@ -168,6 +169,7 @@ class FleetEngine:
         self._step = self._make_step()
         self.alive = False
         self.frames_rendered = 0
+        self._loop = profiling.new_loop()   # the id of its spans
         self.fps = 0.0
         self.ups = np.zeros((len(streams),), np.float64)  # per-stream
 
@@ -229,34 +231,44 @@ class FleetEngine:
                 now = _time.monotonic()
                 if max_seconds is not None and now - t0 >= max_seconds:
                     break
-                for i, (ad, th) in enumerate(zip(self.audio, threads)):
-                    err = getattr(th, "error", None)
-                    if err is not None:
-                        raise RuntimeError(
-                            f"audio backend of stream {i} failed: {err}") from err
-                    snaps[i], mods[i] = ad.snapshot()
-                interp = dyn.frame(mods, self.fps)
-                gravity_g = dyn.gravity(cfg.gravity_step)
-                tnow = (now - t0) % cfg.timecycle
-                frames = self.step(snaps, mods, tnow, interp, gravity_g)
-                self._distribute(frames, tnow)
-                self.frames_rendered += 1
-                fcount += 1
-                if now - mark >= 1.0:
-                    span = now - mark
-                    self.fps = fcount / span
-                    self.ups = dyn.tick(span)
-                    if cfg.print_frames:
-                        print(f"FPS: {self.fps:.1f}, UPS: "
-                              f"{float(np.mean(self.ups)):.1f} (fleet mean)")
-                    fcount, mark = 0, now
-                if max_frames is not None and self.frames_rendered >= max_frames:
-                    break
+                # a frame's spans (utils/profiling.py)
+                n = self.frames_rendered
+                tf = profiling.frame_begin(self._loop, n)
+                try:
+                    for i, (ad, th) in enumerate(zip(self.audio, threads)):
+                        err = getattr(th, "error", None)
+                        if err is not None:
+                            raise RuntimeError(f"audio backend of stream {i} "
+                                               f"failed: {err}") from err
+                        snaps[i], mods[i] = ad.snapshot()
+                    interp = dyn.frame(mods, self.fps)
+                    gravity_g = dyn.gravity(cfg.gravity_step)
+                    tnow = (now - t0) % cfg.timecycle
+                    frames = self.step(snaps, mods, tnow, interp, gravity_g)
+                    self._distribute(frames, tnow)
+                    self.frames_rendered += 1
+                    fcount += 1
+                    if now - mark >= 1.0:
+                        span = now - mark
+                        self.fps = fcount / span
+                        self.ups = dyn.tick(span)
+                        if cfg.print_frames:
+                            print(f"FPS: {self.fps:.1f}, UPS: "
+                                  f"{float(np.mean(self.ups)):.1f} (fleet mean)")
+                        fcount, mark = 0, now
+                    if max_frames is not None and self.frames_rendered >= max_frames:
+                        break
+                finally:
+                    if tf:
+                        profiling.frame_end(self._loop, n, tf)
         finally:
             for ad in self.audio:
                 ad.terminate = True
             for t in threads:
                 t.join(timeout=2.0)
+            # the next run's capture threads start anew
+            for ad in self.audio:
+                ad.terminate = False
             for s in self.sinks:
                 s.close()
         if self._shader:
@@ -290,6 +302,7 @@ class FleetEngine:
         one the step replays on, and end in a synchronize: the next step
         cannot overwrite a frame while it is copied. A failed pinned
         allocation or copy raises."""
+        ts = profiling.begin()
         parts = frames if isinstance(frames, (list, tuple)) else [frames]
         S = len(self.streams)
         blocks = getattr(self.br, "blocks", [(slice(0, S), None)])
@@ -311,14 +324,24 @@ class FleetEngine:
                 continue
             for k, s in enumerate(range(sl.start, sl.stop)):
                 host[s, r0:r1].copy_(f[k], non_blocking=nb)
+        if ts:
+            profiling.end("fetch.copy", ts)
+        tw = profiling.begin()
         for dev in dict.fromkeys(cuda):
             torch.cuda.current_stream(dev).synchronize()
+        if tw:
+            profiling.end("fetch.wait", tw)
+        if ts:
+            profiling.end("fetch", ts)
         return host.numpy()
 
     def _distribute(self, frames, tnow: float) -> None:
         host = self.fetch(frames)
+        ts = profiling.begin()
         for i, sink in enumerate(self.sinks):
             sink.submit(host[i], tnow)
+        if ts:
+            profiling.end("sink", ts)
 
     def tex(self, stream: int) -> np.ndarray | None:
         s = self.sinks[stream]

@@ -2,15 +2,17 @@
 
 ``glava_tpu_torch.config_tool`` is driven as tests/test_config_tool.py
 drives the JAX one, and its output compared with the JAX tool's on the
-same arguments; ``utils.profiling`` as tests/test_runtime.py's
-``test_profiling_utils``; ``models.mel`` against ``glava_tpu.models.mel``
-on the same numpy inputs, within 2e-5 of the peak (tests/test_mel.py).
+same arguments; ``utils.profiling``'s trace with the program's spans
+in it (tests/test_torch_spans.py holds the recorder); ``models.mel``
+against ``glava_tpu.models.mel`` on the same numpy inputs, within 2e-5
+of the peak (tests/test_mel.py).
 """
 
 from __future__ import annotations
 
 import io
 import json
+import time
 
 import numpy as np
 import pytest
@@ -117,20 +119,28 @@ def test_config_tool_interactive_entry_via_main(tmp_path, capsys, monkeypatch):
 # ---------------------------------------------------------------------------
 
 def test_profiling_utils(tmp_path):
-    with profiling.trace(str(tmp_path / "trace")):
-        with profiling.annotate("glava-span"):
-            _ = torch.ones(8) * 2
+    """``trace`` writes the spans recorded in its session into its Chrome
+    trace on the trace's own clock: a torch op run inside a span lies
+    within it; the profiler itself holds no event of the span's."""
+    with profiling.trace(str(tmp_path / "trace")) as prof:
+        ts = profiling.begin()
+        time.sleep(0.001)
+        _ = torch.ones(64, 64) @ torch.ones(64, 64)
+        time.sleep(0.001)
+        profiling.end("glava-span", ts, 7)
+    assert not any(e.key == "glava-span" for e in prof.key_averages())
     files = list((tmp_path / "trace").rglob("*.json"))
     assert files, "no trace files written"
     events = json.loads(files[0].read_text())["traceEvents"]
-    assert any(e.get("name") == "glava-span" for e in events)
-
-    rc = profiling.RateCounter(window=0.0)
-    assert rc.tick() is True and rc.rate > 0
-    lt = profiling.LatencyTracker(capacity=4)
-    for v in (5, 1, 3, 2, 4):
-        lt.record(v)
-    assert lt.percentile(50) in (2, 3)
+    (span,) = [e for e in events if e.get("name") == "glava-span"]
+    assert span["ph"] == "X" and span["args"]["payload"] == 7
+    ops = [e for e in events if e.get("name") == "aten::mm"]
+    assert ops
+    for op in ops:
+        assert span["ts"] <= op["ts"]
+        assert op["ts"] + op["dur"] <= span["ts"] + span["dur"]
+    assert [s.kind for s in profiling.spans()] == ["glava-span"]
+    assert not profiling.recording()
 
 
 def test_nan_guard_checks_each_frame():
