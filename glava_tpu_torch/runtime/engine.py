@@ -111,11 +111,12 @@ class FrameFetch:
     buffer on a side stream, after the compute stream's work so far,
     into a fresh pinned host tensor (``non_blocking``), and an event
     marks the copy's end. A frame is handed out only after its event
-    completed, once more than ``depth`` frames are queued or on
-    :meth:`drain`. A step may write its frame into the same static
-    buffer every call (a replayed CUDA graph's output): the ring buffer
-    the side stream reads is written again only ``depth + 1`` pushes
-    later, when its copy has been handed out. Each host tensor
+    completed: once more than ``depth`` frames are queued, on
+    :meth:`drain`, or on :meth:`ready` when it has. A step may write its
+    frame into the same static buffer every call (a replayed CUDA
+    graph's output): the ring buffer the side stream reads is written
+    again only ``depth + 1`` pushes later, when its copy has been handed
+    out. Each host tensor
     comes from the caching host allocator and is never written again
     after it is handed out: a sink may keep it (``LatestFrameSink``,
     ``AsyncSink``'s queue). A failed pinned allocation or copy raises;
@@ -174,6 +175,18 @@ class FrameFetch:
             profiling.end("fetch", ts)
         return out
 
+    def ready(self) -> list:
+        """The pending frames whose copies have ended, oldest first, with
+        no wait (on the CPU: every pending frame)."""
+        ts = profiling.begin()
+        out = []
+        while self._pending and (self._pending[0][2] is None
+                                 or self._pending[0][2].query()):
+            out.append(self._finish(self._pending.popleft()))
+        if ts and out:
+            profiling.end("fetch", ts)
+        return out
+
     def drain(self) -> list:
         """Every pending frame, oldest first."""
         ts = profiling.begin()
@@ -188,10 +201,13 @@ class FrameFetch:
     def _finish(entry) -> tuple:
         _frame, host, done, t, wire = entry
         ts = profiling.begin()
+        running = 0
         if done is not None:
+            # while recording: whether the copy still ran as the wait began
+            running = int(bool(ts) and not done.query())
             done.synchronize()
         if ts:
-            profiling.end("fetch.wait", ts)
+            profiling.end("fetch.wait", ts, running)
         buf = host.numpy()
         if wire[0] == "yuv420":
             _, w, h = wire

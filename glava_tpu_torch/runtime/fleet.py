@@ -8,6 +8,17 @@ the (S, 2, bufsize) ring snapshots, one step, and one device-to-host
 copy of the (S, H, W, 4) uint8 frames into pinned memory
 (:meth:`FleetEngine.fetch`), which it hands to the sinks.
 
+An unsharded fleet's :meth:`FleetEngine.run` keeps one frame in
+flight, through the single-stream engine's ``FrameFetch`` at depth 1:
+frame k is copied on the compute stream into a device ring slot, then
+from the slot into pinned host memory on a side stream, while the loop
+takes frame k+1's snapshots and launches its step. Frame k goes to
+every sink, with frame k's time, as soon as the loop finds its copy
+ended (it checks every :data:`POLL` snapshots and after the step), and
+at the latest when frame k+1 is pushed, which waits for frame k's copy.
+The run hands its last frame off before the sinks close, so each stream
+gets one frame for each snapshot, in order.
+
 Streams whose ``StreamSpec.loaded`` differs from the engine's run other
 modules in the same step (:class:`MixedBatchedRenderer`). Per-stream
 dynamics (gravity feedback from each stream's measured UPS, kcounter
@@ -22,7 +33,8 @@ the mesh's devices (``parallel.batch.ShardedRenderer``), each taking a
 block of streams and a band of rows: a frame makes one host-to-device
 copy a device of its block's snapshots, one step a device, launched
 back to back, and one pinned (S, H, W, 4) host buffer that every
-device's frames are copied into at their streams and rows.
+device's frames are copied into at their streams and rows, with no
+frame in flight.
 
 The step is the compiled fleet step (``jit_step`` of the renderer: a
 CUDA graph, one a device block on a mesh, replayed a frame,
@@ -48,8 +60,14 @@ from glava_tpu_torch.parallel.batch import (
     BatchedRenderer, MixedBatchedRenderer, ShardedRenderer,
 )
 from glava_tpu_torch.runtime import audio as audio_mod
+from glava_tpu_torch.runtime.engine import FrameFetch
 from glava_tpu_torch.runtime.sinks import FrameSink, make_sink
 from glava_tpu_torch.utils import profiling
+
+
+# snapshots between two checks for a frame in flight whose copy ended:
+# a frame waits for the loop's next check, not for its next push
+POLL = 8
 
 
 @dataclass
@@ -169,6 +187,7 @@ class FleetEngine:
         self._step = self._make_step()
         self.alive = False
         self.frames_rendered = 0
+        self._inflight: FrameFetch | None = None    # a run's, unsharded
         self._loop = profiling.new_loop()   # the id of its spans
         self.fps = 0.0
         self.ups = np.zeros((len(streams),), np.float64)  # per-stream
@@ -223,6 +242,10 @@ class FleetEngine:
         fcount, mark = 0, t0
         snaps = np.empty((S, 2, cfg.bufsize), np.float32)
         mods = np.empty((S,), bool)
+        # one frame in flight: its copy runs under the next frame's
+        # snapshots and step (the module docstring)
+        inflight = self._inflight = (FrameFetch(self.device, 1)
+                                     if self.mesh is None else None)
         try:
             if wait_audio is not None:
                 self._wait_audio(threads, wait_audio)
@@ -236,6 +259,8 @@ class FleetEngine:
                 tf = profiling.frame_begin(self._loop, n)
                 try:
                     for i, (ad, th) in enumerate(zip(self.audio, threads)):
+                        if inflight is not None and not i % POLL:
+                            self._hand_off(inflight.ready())
                         err = getattr(th, "error", None)
                         if err is not None:
                             raise RuntimeError(f"audio backend of stream {i} "
@@ -245,7 +270,9 @@ class FleetEngine:
                     gravity_g = dyn.gravity(cfg.gravity_step)
                     tnow = (now - t0) % cfg.timecycle
                     frames = self.step(snaps, mods, tnow, interp, gravity_g)
-                    self._distribute(frames, tnow)
+                    if inflight is not None:
+                        self._hand_off(inflight.ready())
+                    self._hand_off(self.fetch(frames, tnow))
                     self.frames_rendered += 1
                     fcount += 1
                     if now - mark >= 1.0:
@@ -262,15 +289,21 @@ class FleetEngine:
                     if tf:
                         profiling.frame_end(self._loop, n, tf)
         finally:
-            for ad in self.audio:
-                ad.terminate = True
-            for t in threads:
-                t.join(timeout=2.0)
-            # the next run's capture threads start anew
-            for ad in self.audio:
-                ad.terminate = False
-            for s in self.sinks:
-                s.close()
+            self._inflight = None
+            try:
+                if inflight is not None:
+                    # the frame still in flight, before the sinks close
+                    self._hand_off(inflight.drain())
+            finally:
+                for ad in self.audio:
+                    ad.terminate = True
+                for t in threads:
+                    t.join(timeout=2.0)
+                # the next run's capture threads start anew
+                for ad in self.audio:
+                    ad.terminate = False
+                for s in self.sinks:
+                    s.close()
         if self._shader:
             glsl_shader.fuel_check(force=True)
 
@@ -288,11 +321,19 @@ class FleetEngine:
                     raise TimeoutError(f"streams {silent} delivered no audio "
                                        f"in {timeout} s")
 
-    def fetch(self, frames) -> np.ndarray:
-        """The (S, H, W, 4) uint8 frames on the host: on CUDA copied into
-        ONE fresh pinned tensor (``non_blocking``, then one synchronize a
-        device), so the copy runs at the link's rate instead of a
-        pageable copy's; no frame stays in flight, as in the JAX fleet.
+    def fetch(self, frames, t: float | None = None):
+        """The hand-off of one step's ``frames``. Without ``t``: the
+        (S, H, W, 4) uint8 frames on the host, copied at once (below).
+        With ``t``, the frame's time (the serving loop's call): inside an
+        unsharded fleet's :meth:`run` the frames join the run's
+        ``FrameFetch`` (depth 1, the module docstring), and -> the (host
+        frames, time) pairs now due, oldest first; elsewhere ->
+        ``[(host frames, t)]``, copied at once.
+
+        The copy at once: on CUDA into ONE fresh pinned tensor
+        (``non_blocking``, then one synchronize a device), so the copy
+        runs at the link's rate instead of a pageable copy's; no frame
+        stays in flight, as in the JAX fleet.
         ``frames`` is one tensor or, on a mesh, a list of each device's
         (S_i, H_band, W, 4) frames, copied into their streams and rows.
         Every copy lands in a contiguous block of the buffer: one a
@@ -301,7 +342,15 @@ class FleetEngine:
         temporary). The copies run on each device's current stream, the
         one the step replays on, and end in a synchronize: the next step
         cannot overwrite a frame while it is copied. A failed pinned
-        allocation or copy raises."""
+        allocation or copy raises. While recording, ``fetch.wait``'s
+        payload is 1 when a copy still ran as the wait began."""
+        if t is None:
+            return self._fetch_now(frames)
+        if self._inflight is not None:
+            return self._inflight.push(frames, t)
+        return [(self._fetch_now(frames), t)]
+
+    def _fetch_now(self, frames) -> np.ndarray:
         ts = profiling.begin()
         parts = frames if isinstance(frames, (list, tuple)) else [frames]
         S = len(self.streams)
@@ -327,19 +376,24 @@ class FleetEngine:
         if ts:
             profiling.end("fetch.copy", ts)
         tw = profiling.begin()
-        for dev in dict.fromkeys(cuda):
-            torch.cuda.current_stream(dev).synchronize()
+        streams = [torch.cuda.current_stream(d) for d in dict.fromkeys(cuda)]
+        running = int(bool(tw) and not all(s.query() for s in streams))
+        for s in streams:
+            s.synchronize()
         if tw:
-            profiling.end("fetch.wait", tw)
+            profiling.end("fetch.wait", tw, running)
         if ts:
             profiling.end("fetch", ts)
         return host.numpy()
 
-    def _distribute(self, frames, tnow: float) -> None:
-        host = self.fetch(frames)
+    def _hand_off(self, ready: list) -> None:
+        """Each (host frames, time) pair to every stream's sink."""
+        if not ready:
+            return
         ts = profiling.begin()
-        for i, sink in enumerate(self.sinks):
-            sink.submit(host[i], tnow)
+        for host, t in ready:
+            for i, sink in enumerate(self.sinks):
+                sink.submit(host[i], t)
         if ts:
             profiling.end("sink", ts)
 

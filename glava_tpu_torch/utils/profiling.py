@@ -27,9 +27,12 @@ parent in this tree::
     │  │                 only when it waits (never on the CPU)
     │  ├─ step.replay    the graph's replay (on the CPU: the body's eager run)
     │  └─ step.capture   a branch's warm-up and capture
-    ├─ fetch             FrameFetch.push and drain; FleetEngine.fetch
+    ├─ fetch             FrameFetch.push, drain, and ready when it hands a
+    │  │                 frame out; FleetEngine.fetch's copy at once (a
+    │  │                 fleet run's frames go through FrameFetch)
     │  ├─ fetch.copy     the ring copy, the pinned allocation, the copy's enqueue
-    │  └─ fetch.wait     the wait for the copy (empty on the CPU)
+    │  └─ fetch.wait     the wait for the copy (empty on the CPU); payload: 1
+    │                    when the copy still ran as the wait began, else 0
     ├─ sink              the sinks' submit calls
     └─ fuel              glsl_shader.fuel_check when it reads the counters
 

@@ -33,6 +33,7 @@ from glava_tpu_torch.config import loader
 from glava_tpu_torch.parallel import BatchedRenderer, MixedBatchedRenderer, example_batch
 from glava_tpu_torch.renderer import Renderer
 from glava_tpu_torch.runtime.fleet import FleetDynamics, FleetEngine, StreamSpec
+from glava_tpu_torch.runtime.sinks import CallbackSink
 from tests.test_glsl_shader import EQ_FRAG
 from tests.test_golden import TINY_KNOBS
 
@@ -441,6 +442,94 @@ def test_fleet_engine_heterogeneous_modules(tmp_path):
     assert all(fr is not None and (fr[..., 3] > 0).any() for fr in frames)
     assert not np.array_equal(frames[0], frames[1])
     assert not np.array_equal(frames[1], frames[2])
+
+
+def _queued_fleet(device, n=S):
+    """A fleet whose sinks keep every (frame, time) handed off and a copy
+    made as it was handed off; its step records its inputs (the audio
+    buffer is the loop's, rewritten every frame: copied)."""
+    kept = [[] for _ in range(n)]
+
+    def keep(i):
+        return CallbackSink(lambda f, t: kept[i].append((f, t, np.array(f))))
+
+    fleet = FleetEngine(_fleet_load(), [
+        StreamSpec(f"s{i}", source=f"synth:{300 + 150 * i},900", sink=keep(i),
+                   pipe={"fg": (1, 0.2 * i, 0, 1)}) for i in range(n)],
+        device=device)
+    calls, step = [], fleet._step
+
+    def recording(state, audio, *rest):
+        calls.append((audio.clone(),) + tuple(
+            {k: v.copy() for k, v in a.items()} if isinstance(a, dict)
+            else np.array(a) for a in rest))
+        return step(state, audio, *rest)
+
+    fleet._step = recording
+    return fleet, kept, calls
+
+
+def _sync_frames(device, calls) -> list:
+    """What a fresh fleet's step and synchronous ``fetch(frames)`` give
+    for the recorded inputs."""
+    fresh, _, _ = _queued_fleet(device)
+    out = []
+    for args in calls:
+        fresh.state, frames = fresh._step(fresh.state, *args)
+        out.append(fresh.fetch(frames))
+    return out
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+@pytest.mark.parametrize("frames", [1, 6])
+def test_fleet_run_hands_off_every_frame_in_step_order(device, frames):
+    """An unsharded fleet's run keeps one frame in flight
+    (``FrameFetch``, depth 1): every sink gets exactly one frame a step,
+    in step order, each with its own step's time, the last before
+    ``run`` returns; each byte-equal to what the synchronous step and
+    ``fetch(frames)`` give for the same inputs, and still equal, when
+    the run ends, to what it was when handed off (on the card the
+    newest steps ran after it)."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    fleet, kept, calls = _queued_fleet(device)
+    fleet.run(max_frames=frames)
+    assert len(calls) == frames and fleet._inflight is None
+    want = _sync_frames(device, calls)
+    for i, got in enumerate(kept):
+        assert len(got) == frames
+        # the step takes each frame's time as float32
+        assert [np.float32(t) for _, t, _ in got] == [c[2][i] for c in calls]
+        for k, (frame, _, copy) in enumerate(got):
+            assert frame.tobytes() == copy.tobytes() == want[k][i].tobytes(), (i, k)
+    assert len({id(f) for f, _, _ in kept[0]}) == frames
+
+
+def test_a_second_fleet_run_starts_with_an_empty_queue():
+    """Each run drains its own frame in flight: after a run of 3 frames
+    every sink holds 3, and a second run up to 5 frames adds 2."""
+    fleet, kept, calls = _queued_fleet("cpu")
+    fleet.run(max_frames=3)
+    assert [len(k) for k in kept] == [3] * S and fleet._inflight is None
+    fleet.run(max_frames=5)
+    assert [len(k) for k in kept] == [5] * S and len(calls) == 5
+    want = _sync_frames("cpu", calls)
+    for i, got in enumerate(kept):
+        assert [f.tobytes() for f, _, _ in got] == [w[i].tobytes() for w in want]
+
+
+def test_fleet_fetch_outside_a_run_returns_the_frames_at_once():
+    """``fetch(frames)`` outside a run returns that step's frames;
+    ``fetch(frames, t)`` there returns them with ``t``, at once."""
+    fleet, _, _ = _queued_fleet("cpu")
+    cfg = fleet.loaded.cfg
+    args = (np.zeros((S, 2, cfg.bufsize), np.float32), np.ones(S, bool), 0.5,
+            np.ones(S, np.float32), np.full(S, 0.05, np.float32))
+    frames = fleet.step(*args)
+    host = fleet.fetch(frames)
+    assert isinstance(host, np.ndarray) and np.array_equal(host, frames.numpy())
+    ((again, t),) = fleet.fetch(frames, 0.5)
+    assert t == 0.5 and np.array_equal(again, host)
 
 
 @pytest.mark.parametrize("modified", [True, False])

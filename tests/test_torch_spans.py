@@ -1,11 +1,13 @@
 """The port's span recorder (``glava_tpu_torch.utils.profiling``) on the
 CPU: off unless a profiler session or ``record()`` is open, the tree of
-span kinds from a live ``Engine`` and ``FleetEngine`` run, the store's
-bound and its sessions, and a compiled step's capture after a new input
-layout. Also: a fleet's second ``run`` gets fresh audio."""
+span kinds from a live ``Engine`` and ``FleetEngine`` run, a fleet
+run's fetches and ``fetch.wait``'s payload, ``FrameFetch.ready``, the
+store's bound and its sessions, and a compiled step's capture after a
+new input layout. Also: a fleet's second ``run`` gets fresh audio."""
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
@@ -15,7 +17,7 @@ import torch
 from glava_tpu_torch import compiled
 from glava_tpu_torch.config import glsl_shader, loader
 from glava_tpu_torch.runtime import sinks
-from glava_tpu_torch.runtime.engine import Engine, EngineOptions
+from glava_tpu_torch.runtime.engine import Engine, EngineOptions, FrameFetch
 from glava_tpu_torch.runtime.fleet import FleetEngine, StreamSpec
 from glava_tpu_torch.utils import profiling
 from tests.test_glsl_shader import EQ_FRAG
@@ -159,6 +161,81 @@ def test_a_run_records_every_kind_nested(loop, fresh, tmp_path):
     assert len({s.loop for s in frames}) == 1
     assert all(s.payload > 0 for s in spans if s.kind == "step.load")
     assert profiling.dropped() == 0
+
+
+def test_a_fleet_run_fetches_each_frame_once(fresh):
+    """A fleet run keeps one frame in flight: each frame pushes its copy
+    (one ``fetch.copy``), and each frame is waited for once (one
+    ``fetch.wait``), in the next frame's check for an ended copy or
+    push (on the CPU every copy has ended at the next frame's first
+    check), or in the drain after the run's last frame; no ``fetch``
+    lies inside another, and each wait's payload is 0 or 1."""
+    with profiling.record():
+        _fleet().run(max_frames=4)
+    spans = profiling.spans()
+    _assert_tree(spans)
+    for n in range(4):
+        kinds = [s.kind for s in spans if s.frame == n]
+        assert kinds.count("fetch.copy") == 1
+        assert kinds.count("fetch.wait") == (n > 0)
+    (drain,) = [s for s in spans if s.frame is None and s.kind == "fetch"]
+    (last,) = [s for s in spans if s.frame is None and s.kind == "fetch.wait"]
+    assert drain.start <= last.start <= last.end <= drain.end
+    fetches = [s for s in spans if s.kind == "fetch"]
+    assert not any(a is not b and a.start <= b.start and b.end <= a.end
+                   for a in fetches for b in fetches)
+    waits = [s.payload for s in spans if s.kind == "fetch.wait"]
+    assert len(waits) == 4 and set(waits) <= {0, 1}
+
+
+class _Event:
+    """A copy's event that has or has not completed, counting queries."""
+
+    def __init__(self, done: bool):
+        self.done, self.queries, self.waits = done, 0, 0
+
+    def query(self) -> bool:
+        self.queries += 1
+        return self.done
+
+    def synchronize(self) -> None:
+        self.waits += 1
+
+
+@pytest.mark.parametrize("recording", [False, True], ids=["off", "on"])
+@pytest.mark.parametrize("done", [False, True], ids=["running", "done"])
+def test_fetch_wait_flags_a_copy_still_running(fresh, recording, done):
+    """``fetch.wait``'s payload is 1 when the frame's copy had not ended
+    as the wait began, else 0; with recording off no event is queried,
+    and the wait is the same either way."""
+    ev = _Event(done)
+    host = torch.zeros(4, dtype=torch.uint8)
+    with profiling.record() if recording else contextlib.nullcontext():
+        buf, t = FrameFetch._finish((host, host, ev, 0.5, ("rgba8",)))
+    assert t == 0.5 and buf.shape == (4,) and ev.waits == 1
+    assert ev.queries == int(recording)
+    assert [s.payload for s in profiling.spans()] == ([int(not done)]
+                                                      if recording else [])
+
+
+def test_ready_hands_out_only_ended_copies(fresh):
+    """``FrameFetch.ready`` hands out, oldest first and without waiting,
+    the pending frames whose copies have ended, up to the first that has
+    not; its waits read 0."""
+    fetch = FrameFetch("cpu", 2)
+    events = [_Event(True), _Event(False), _Event(True)]
+    for k, ev in enumerate(events):
+        host = torch.full((2,), k, dtype=torch.uint8)
+        fetch._pending.append((host, host, ev, float(k), ("rgba8",)))
+    with profiling.record():
+        first = fetch.ready()
+        events[1].done = True
+        rest = fetch.ready()
+    assert [t for _, t in first] == [0.0] and [t for _, t in rest] == [1.0, 2.0]
+    assert [int(buf[0]) for buf, _ in first + rest] == [0, 1, 2]
+    assert len(fetch) == 0 and [ev.waits for ev in events] == [1, 1, 1]
+    assert [s.payload for s in profiling.spans() if s.kind == "fetch.wait"] == [0, 0, 0]
+    assert fetch.ready() == []
 
 
 def test_the_store_keeps_the_newest_spans(fresh, monkeypatch):
