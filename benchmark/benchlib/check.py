@@ -11,8 +11,8 @@ from the same PCM and renders the sampled frames. Compared, each with
 its limit (``LIMITS``):
 
 * ``spec_err``: the largest gap between the program's spectrum state
-  after its last frame (gravity and average, every row) and the
-  reference's;
+  after its last frame (gravity and average, every row it holds) and
+  the reference's;
 * ``px_off``: pixels of the sampled frames with a channel more than 2
   LSB from the reference's frame, among the stable pixels: those that
   the reference draws alike from its textures shifted by ``+-BAND``
@@ -31,6 +31,14 @@ its limit (``LIMITS``):
 The control (``control=True``) puts the reference computed one step of
 precision lower (``reference.dsp``) in the program's place and reads
 the same two numbers against the reference.
+
+The reference holds one row for each row of the program's state (the
+record's row map: every fft uniform of every stream, in the program's
+order), each fed from the PCM channel its uniform names
+(``CHANNELS``); a sampled frame's raster gets its textures by the names
+its module binds. A row that the reference cannot replay (another
+source, another chain than ``CHAIN``) stops the check with an error
+naming it.
 """
 
 from __future__ import annotations
@@ -49,6 +57,10 @@ LIMITS = {"spec_err": 2.5e-6, "px_off": 0, "gravity_off": 0,
 GRAVITY_RTOL = 1e-6
 # the texture shift that marks a pixel unstable, over the spectrum's limit
 BAND_SCALE = 4.0
+# the PCM channel of each source a row may have, and the one chain that
+# reference.dsp replays (then the configuration's smooth pass)
+CHANNELS = {"audio_l": 0, "audio_r": 1}
+CHAIN = ("window", "fft", "gravity", "avg")
 
 
 @dataclass
@@ -65,7 +77,7 @@ class RunRecord:
     ups: np.ndarray               # (K, S) the loop's measured rate at frame k
     runs: list                    # (first frame, host time of the call) a run
     samples: list                 # (stream, frame index, (H, W, 4) uint8)
-    state: dict                   # "gravity", "avg": (S, 2, 2, m) float32
+    state: dict                   # benchlib.system.program_rows
     counts: dict = field(default_factory=dict)   # unresolved, unpaired, missing
 
 
@@ -103,6 +115,19 @@ def _px_off(got: np.ndarray, want: np.ndarray, stable: np.ndarray) -> int:
     return int(((diff > 2).any(axis=-1) & stable).sum())
 
 
+def replayed_rows(rows: list) -> tuple:
+    """(stream, PCM channel) of each row of the row map, as (R,) int64
+    arrays; raises for a row the reference does not replay."""
+    for r in rows:
+        if r.source not in CHANNELS or tuple(r.chain) != CHAIN:
+            raise ValueError(
+                f"stream {r.stream}: uniform {r.uniform!r} takes "
+                f"{r.source!r} through {tuple(r.chain)}; the check replays "
+                f"only {sorted(CHANNELS)} through {CHAIN}")
+    return (np.array([r.stream for r in rows], np.int64),
+            np.array([CHANNELS[r.source] for r in rows], np.int64))
+
+
 def judge(rec: RunRecord, pcm: np.ndarray, config: dict, device,
           control: bool = False) -> dict:
     """The readings of the program (``"program"``) and, with
@@ -114,10 +139,15 @@ def judge(rec: RunRecord, pcm: np.ndarray, config: dict, device,
     n, hop = int(dsp_cfg["bufsize"]), int(dsp_cfg["samplesize"]) // 4
     w, h = config["geometry"]
     K, S = rec.pushes.shape
+    row_stream, row_chan = replayed_rows(rec.state["rows"])
+    R = len(row_stream)
+    if any(len(rec.state[name]) != R for name in ("gravity", "avg")):
+        raise ValueError(f"the program's state holds other rows than its "
+                         f"row map's {R}")
     dev = torch.device(device)
     pcm_dev = torch.as_tensor(pcm, device=dev)
-    ref = dsp.Spectra(2 * S, dsp_cfg, dev)
-    low = dsp.Spectra(2 * S, dsp_cfg, dev, low=True) if control else None
+    ref = dsp.Spectra(R, dsp_cfg, dev)
+    low = dsp.Spectra(R, dsp_cfg, dev, low=True) if control else None
     rasters = {m: module(m).Module(config["knobs"][m], w, h, n, dev)
                for m in sorted(set(rec.modules))}
     by_frame: dict = {}
@@ -132,25 +162,34 @@ def judge(rec: RunRecord, pcm: np.ndarray, config: dict, device,
                                   rec.ups, dsp_cfg)
     gravity_off = missed + int((np.abs(rec.gravity.astype(np.float64) - g_ref)
                                 > GRAVITY_RTOL * np.abs(g_ref)).sum())
+    at = np.full(S, -1, np.int64)        # a stream's place among the updated
     for k in range(K):
         ss = np.nonzero(rec.mods[k])[0]
-        if ss.size:
-            key[ss] = rec.pushes[k, ss]
-            win = _windows(pcm_dev, ss, key[ss], hop, n).reshape(-1, n)
-            rows = torch.as_tensor((2 * ss[:, None] + np.arange(2)).ravel(),
-                                   device=dev)
-            g = torch.as_tensor(np.repeat(g_ref[k, ss], 2), device=dev)
+        key[ss] = rec.pushes[k, ss]
+        sel = np.nonzero(rec.mods[k][row_stream])[0]
+        if sel.size:
+            at[ss] = np.arange(ss.size)
+            win = _windows(pcm_dev, ss, key[ss], hop, n)[
+                torch.as_tensor(at[row_stream[sel]], device=dev),
+                torch.as_tensor(row_chan[sel], device=dev)]
+            rows = torch.as_tensor(sel, device=dev)
+            g = torch.as_tensor(g_ref[k, row_stream[sel]], device=dev)
             for sp in (ref, low) if low is not None else (ref,):
                 sp.update(rows, win, g)
         for i in by_frame.get(k, ()):
             s = rec.samples[i][0]
             feed = _windows(pcm_dev, np.array([s]), key[[s]], hop, n)
-            rows = torch.as_tensor([2 * s, 2 * s + 1], device=dev)
+            mine = np.nonzero(row_stream == s)[0]
+            rows = torch.as_tensor(mine, device=dev)
+            place = {int(r): j for j, r in enumerate(mine)}
+            names = {name: place[r]
+                     for name, r in rec.state["binds"][s].items()}
             pipe = {name: v[[s]] for name, v in rec.pipe.items()}
             raster = rasters[rec.modules[s]]
 
             def draw(tex):
-                return raster.render({"audio_l": tex[:1], "audio_r": tex[1:]},
+                return raster.render({name: tex[j:j + 1]
+                                      for name, j in names.items()},
                                      feed, pipe)[0]
 
             tex = ref.textures(rows)
@@ -164,8 +203,8 @@ def judge(rec: RunRecord, pcm: np.ndarray, config: dict, device,
 
     def spec_err(state: dict) -> float:
         return max(float((torch.as_tensor(state[name], device=dev).double()
-                          - ref.planes(getattr(ref, name)).reshape(S, 2, 2, -1)
-                          ).abs().max()) for name in ("grav", "avg"))
+                          - ref.planes(getattr(ref, name))).abs().max())
+                   for name in ("grav", "avg"))
 
     out = {"program": {
         "spec_err": spec_err({"grav": rec.state["gravity"],
@@ -174,8 +213,8 @@ def judge(rec: RunRecord, pcm: np.ndarray, config: dict, device,
                       in zip(rec.samples, drawn, stable))}}
     if low is not None:
         out["control"] = {
-            "spec_err": spec_err({name: low.planes(getattr(low, name)).reshape(
-                S, 2, 2, -1) for name in ("grav", "avg")}),
+            "spec_err": spec_err({name: low.planes(getattr(low, name))
+                                  for name in ("grav", "avg")}),
             "px_off": sum(_px_off(c, r, st) for c, r, st
                           in zip(drawn_low, drawn, stable))}
     for side in out.values():

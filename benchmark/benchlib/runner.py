@@ -68,6 +68,11 @@ def driver(name: str):
 
 
 def reader(metric: str):
+    """The reader of ``metric``: ``metrics/<metric>.py``, or for a quantity
+    split by the cells that read it (``<quantity>.<part>``, as
+    ``fetch_ms.fleet``) with no file of its own, its quantity's."""
+    if "." in metric and not (HERE / "metrics" / f"{metric}.py").is_file():
+        metric = metric.split(".", 1)[0]
     return _load("metrics", metric)
 
 
@@ -175,7 +180,8 @@ def _layer_context(rec, system, t_start: float, t_end: float,
                                  - np.maximum(iv[:, 0], y), 0.0, None).sum()
                          for y, z in regions))
 
-    lat = [_window_metrics(rec, system, a, b)[1] for a, b in regions]
+    handed = [_window_metrics(rec, system, a, b) for a, b in regions]
+    lat = [h[1] for h in handed]
     devs = [d.index if d.index is not None else 0 for d in system.devices]
     t0, t1 = (stretch.t0, stretch.t1) if traced else (0.0, 0.0)
     events = {d: stretch.events.get(d, []) if traced else [] for d in devs}
@@ -184,10 +190,28 @@ def _layer_context(rec, system, t_start: float, t_end: float,
         host_frames=sum(frames_in(a, b) for a, b in regions),
         span_s=span_s, spans=spans,
         latency_ms=np.concatenate(lat) if lat else np.zeros(0),
+        handed=sum(h[0] for h in handed),
         t0=t0, t1=t1, frames=frames_in(t0, t1) if traced else 0,
         devices=devs, events=events,
         view=trace_mod.device_view(events, t0, t1) if traced else {},
         shapes=system.shapes)
+
+
+def card_rate(stretch, rec, streams: int) -> float | None:
+    """Stream-frames a second of card time: the streams over the card
+    time a frame (``trace.card_time``) of every frame stepped after the
+    whole-window trace opened, the slowest card's where there are
+    several; None without a trace or a frame in it."""
+    if stretch is None or not stretch.done:
+        return None
+    frames = sum(a >= stretch.t0 for a, *_ in rec.steps)
+    devs = [torch.device(d) for d in stretch.devices]
+    worst = max((trace_mod.card_time(
+        stretch.events.get(d.index if d.index is not None else 0, []),
+        stretch.t0) for d in devs), default=0.0)
+    if not frames or worst <= 0:
+        return None
+    return streams * frames / worst
 
 
 def run_cell(cell: dict, config: dict, traffic: dict, seed: int,
@@ -199,7 +223,14 @@ def run_cell(cell: dict, config: dict, traffic: dict, seed: int,
     untraced line carries the end-to-end metrics ``end_to_end`` (by
     default those ``BENCHMARK.json`` gives the cell). With
     ``pins`` (``benchlib.cores.split``) the loop's thread runs on the
-    core ``pins["loop"]`` alone and the feeder on ``pins["feeder"]``."""
+    core ``pins["loop"]`` alone and the feeder on ``pins["feeder"]``.
+    Where an end-to-end metric comes from the device trace, the untraced
+    run profiles the cards over its whole window (a traced run profiles
+    a stretch of it for the per-layer metrics); on the CPU it is left
+    out."""
+    if end_to_end is None:
+        end_to_end = [m for m in manifest()["end_to_end"]
+                      if cell["name"] in m.get("workloads", [cell["name"]])]
     marks = {"start": perf()}
     S = int(traffic["streams"])
     dsp = config["dsp"]
@@ -246,6 +277,10 @@ def run_cell(cell: dict, config: dict, traffic: dict, seed: int,
                                     t_start + tr["start"] * seconds,
                                     tr["seconds"])
         rec.on_step = stretch.hook if cuda else None
+    elif cuda and any(m["source"] == "device_trace" for m in end_to_end):
+        # opened before the window's first step, closed after its last
+        stretch = trace_mod.Stretch(system.devices, t_start, float("inf"))
+        rec.on_step = stretch.hook
     rec.begin_run()
     system.window(seconds)
     t_end = perf()
@@ -279,14 +314,16 @@ def run_cell(cell: dict, config: dict, traffic: dict, seed: int,
     ok = check.verdict(readings["program"])
     metrics = {}
     if not trace:
-        if end_to_end is None:
-            end_to_end = [m for m in manifest()["end_to_end"]
-                          if cell["name"] in m.get("workloads", [cell["name"]])]
-        values = {"stream_frames_per_s": stats.rate(frames, t_end - t_start),
-                  "frame_p95_ms": stats.percentile(lat, 95),
-                  "setup_s": t_start - t_proc}
-        metrics = {m["name"]: {"value": values[m["name"]], "unit": m["unit"]}
-                   for m in end_to_end}
+        values = {"stream_frames_per_s": lambda: stats.rate(frames,
+                                                            t_end - t_start),
+                  "frame_p95_ms": lambda: stats.percentile(lat, 95),
+                  "setup_s": lambda: t_start - t_proc,
+                  "card_stream_frames_per_s": lambda: card_rate(stretch, rec,
+                                                                S)}
+        for m in end_to_end:
+            v = values[m["name"]]()
+            if v is not None:
+                metrics[m["name"]] = {"value": v, "unit": m["unit"]}
     device = {"platform": "gpu" if cuda else "cpu", "kind": kind,
               "count": n_dev, "memory_peak_bytes": int(peak)}
     line = {"correct": ok, "attempted": frames,

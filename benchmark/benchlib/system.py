@@ -4,6 +4,8 @@ devices, and the program's spectrum state after the window."""
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 
 
@@ -13,7 +15,8 @@ class System:
     and ``pipe`` (name -> (S, 4)): each stream's module and pipe values;
     ``blocks``: each device's streams as (start, stop); ``shapes``: what
     the rooflines count (``n``, ``F``, ``H``, ``W``, and per device
-    ``rows``, ``bars_streams``, ``color_rows``)."""
+    ``rows`` (the fft uniform rows its update holds), ``bars_streams``,
+    ``color_rows``)."""
 
     devices: list
     sinks: list
@@ -70,17 +73,55 @@ def verify(config: dict, loadeds: list) -> None:
                                  f"{want!r}")
 
 
+class Row(NamedTuple):
+    """One row of the program's spectrum state."""
+
+    stream: int
+    uniform: str        # the name its pipeline gives the fft uniform
+    source: str         # the PCM it is fed from ("audio_l", "audio_r")
+    chain: tuple        # its declared transforms
+
+
+def bound_names(pipeline, module_uniforms: list) -> dict:
+    """{name a module binds: the name of the pipeline's fft uniform that
+    holds its row}: by name where the pipeline is the module's own, and
+    otherwise by (source, transforms), as a fleet's union pipeline
+    dedupes its variants' uniforms."""
+    own = {u.name: u for u in pipeline.fft_uniforms}
+    key = {(u.source, tuple(u.transforms)): u.name
+           for u in pipeline.fft_uniforms}
+    out = {}
+    for u in module_uniforms:
+        if own.get(u.name) == u:
+            out[u.name] = u.name
+        elif (u.source, tuple(u.transforms)) in key:
+            out[u.name] = key[(u.source, tuple(u.transforms))]
+    return out
+
+
 def program_rows(parts: list) -> dict:
-    """The program's spectrum state as (S, 2 channels, 2 planes, m)
-    float32 arrays ``gravity`` and ``avg``, streams in order. ``parts``:
-    (FusedChainState, its AudioPipeline, its streams) in stream order;
-    its rows are ``s * U + u`` over the pipeline's fft uniforms."""
-    out = {"gravity": [], "avg": []}
-    for chains, pipeline, S in parts:
-        srcs = [u.source for u in pipeline.fft_uniforms]
-        order = [srcs.index("audio_l"), srcs.index("audio_r")]
-        U = len(srcs)
-        for name in out:
+    """The program's spectrum state, every row it holds, in its own
+    order: ``gravity`` and ``avg`` (R, 2 planes, m) float32 arrays;
+    ``rows``, each row's :class:`Row`; ``binds``, each stream's {name
+    its module binds: row}. ``parts``: (FusedChainState, its
+    AudioPipeline, each of its streams' ``bound_names``) in stream
+    order; a part's rows are ``s * U + u`` over the pipeline's fft
+    uniforms."""
+    out = {"gravity": [], "avg": [], "rows": [], "binds": []}
+    for chains, pipeline, names in parts:
+        fft = pipeline.fft_uniforms
+        for name in ("gravity", "avg"):
             t = getattr(chains, name).detach().float().cpu().numpy()
-            out[name].append(t.reshape(S, U, *t.shape[1:])[:, order])
-    return {k: np.concatenate(v) for k, v in out.items()}
+            if len(t) != len(fft) * len(names):
+                raise ValueError(f"the program holds {len(t)} rows, not "
+                                 f"{len(fft)} uniforms x {len(names)} streams")
+            out[name].append(t)
+        for bound in names:
+            s, base = len(out["binds"]), len(out["rows"])
+            row = {u.name: base + i for i, u in enumerate(fft)}
+            out["rows"] += [Row(s, u.name, u.source, tuple(u.transforms))
+                            for u in fft]
+            out["binds"].append({k: row[v] for k, v in bound.items()})
+    for name in ("gravity", "avg"):
+        out[name] = np.concatenate(out[name])
+    return out

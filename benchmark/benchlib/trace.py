@@ -110,6 +110,24 @@ def device_view(events: dict, t0: float, t1: float) -> dict:
     return out
 
 
+def card_time(evs, t0: float) -> float:
+    """Seconds of one card's work over the operations that start at or
+    after ``t0``: the larger of its compute stream's share (every kernel
+    and every copy but the device-to-host ones, which run on it one after
+    the other) and its device-to-host copies (a side stream's copy engine,
+    which runs beside the kernels). A card kept fed turns out a frame in
+    that time a frame."""
+    compute = dtoh = 0.0
+    for n, s, e in evs:
+        if s < t0:
+            continue
+        if is_copy(n) and "DtoH" in n:
+            dtoh += e - s
+        else:
+            compute += e - s
+    return max(compute, dtoh)
+
+
 def short_name(name: str, limit: int = 120) -> str:
     """A kernel's name without ``void`` and its argument list (the first
     ``(`` outside the template arguments), at most ``limit`` long."""

@@ -1,15 +1,21 @@
 """One stream through the live ``Engine``, as ``python -m glava_tpu_torch``
 runs it: the entry file and requests of the configuration (and its
-``force_module``, the CLI's ``-m``, when it names one), the benchmark's
-capture thread, one :class:`StampSink`, the Engine's own in-flight
-depth. Warm-up and window are each one ``Engine.run``."""
+``force_module``, the CLI's ``-m``, when it names one; its ``user_dir``,
+the CLI's ``--config-dir``, a directory relative to the repository's
+root, when it names one), the benchmark's capture thread, one
+:class:`StampSink`, the Engine's own in-flight depth. Warm-up and window
+are each one ``Engine.run``."""
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import torch
 
 from benchlib import live
-from benchlib.system import System, program_rows, verify
+from benchlib.system import System, bound_names, program_rows, verify
+
+ROOT = Path(__file__).resolve().parents[2]
 
 
 class EngineSystem(System):
@@ -22,9 +28,11 @@ class EngineSystem(System):
             raise ValueError("the engine drives one stream")
         self.devices = [torch.device(devices[0])]
         self.sinks = [live.StampSink()]
+        user_dir = config.get("user_dir")
         self.engine = eng = Engine(EngineOptions(
             entry=config["entry"], requests=tuple(config["requests"]),
             force_module=config.get("force_module"),
+            user_dir=None if user_dir is None else str(ROOT / user_dir),
             audio_backend=live.BACKEND, device=str(self.devices[0])),
             sink=self.sinks[0])
         verify(config, [eng.loaded])
@@ -39,7 +47,8 @@ class EngineSystem(System):
         w, h = eng.renderer.screen
         dsp = config["dsp"]
         self.shapes = {"n": int(dsp["bufsize"]), "F": int(dsp["avg_frames"]),
-                       "H": h, "W": w, "rows": [2],
+                       "H": h, "W": w,
+                       "rows": [len(eng.renderer.pipeline.fft_uniforms)],
                        "bars_streams": [int(self.modules[0] == "bars")],
                        "color_rows": [1]}
 
@@ -51,7 +60,9 @@ class EngineSystem(System):
 
     def state(self) -> dict:
         eng = self.engine
-        return program_rows([(eng.state.chains, eng.renderer.pipeline, 1)])
+        pipeline = eng.renderer.pipeline
+        return program_rows([(eng.state.chains, pipeline, [
+            bound_names(pipeline, eng.renderer.uniforms)])])
 
     def close(self) -> None:
         from glava_tpu_torch.runtime.engine import FrameFetch

@@ -10,7 +10,7 @@ import numpy as np
 import torch
 
 from benchlib import live
-from benchlib.system import System, program_rows, verify
+from benchlib.system import System, bound_names, program_rows, verify
 
 
 class FleetSystem(System):
@@ -46,28 +46,33 @@ class FleetSystem(System):
         # FleetEngine._step(state, audio, mods, time, interp, gravity, pipe)
         rec.wrap_step(fleet, gravity_arg=5, time_arg=3)
         fleet.fetch = rec.span(fleet.fetch, rec.fetches)
-        w, h = fleet.br.screen
+        br = fleet.br
+        if hasattr(br, "pipeline"):      # a union pipeline over the modules
+            self.pipeline = br.pipeline
+            renderers = [br.renderers[a] for a in br.assign]
+        else:
+            self.pipeline = br.renderer.pipeline
+            renderers = [br.renderer] * S
+        self.binds = [bound_names(self.pipeline, r.uniforms)
+                      for r in renderers]
+        w, h = br.screen
         bars = sum(m == "bars" for m in self.modules)
         dsp = config["dsp"]
+        # every stream holds a row for each of the pipeline's fft uniforms
         self.shapes = {"n": int(dsp["bufsize"]), "F": int(dsp["avg_frames"]),
-                       "H": h, "W": w, "rows": [2 * S],
+                       "H": h, "W": w,
+                       "rows": [len(self.pipeline.fft_uniforms) * S],
                        "bars_streams": [bars], "color_rows": [bars]}
 
     def warm(self, seconds: float) -> None:
         self.fleet.run(max_seconds=seconds, wait_audio=30.0)
-        # FleetEngine.run leaves every AudioData.terminate set: clear it,
-        # or the window's capture threads would stop at once
-        for ad in self.fleet.audio:
-            ad.terminate = False
 
     def window(self, seconds: float) -> None:
         self.fleet.run(max_seconds=seconds)
 
     def state(self) -> dict:
-        br = self.fleet.br
-        pipeline = br.pipeline if hasattr(br, "pipeline") else br.renderer.pipeline
-        return program_rows([(self.fleet.state.chains, pipeline,
-                              len(self.sinks))])
+        return program_rows([(self.fleet.state.chains, self.pipeline,
+                              self.binds)])
 
     def close(self) -> None:
         self.fleet = None

@@ -61,3 +61,44 @@ def test_rooflines_match_the_ports_timer_arithmetic():
     assert roofline.update_bound_s(4096, 2, 6) * 1e6 == pytest.approx(0.103, abs=5e-4)
     assert roofline.update_bound_s(4096, 128, 6) * 1e6 == pytest.approx(6.266, abs=5e-4)
     assert roofline.raster_bound_s(64, 600, 800, 64) * 1e6 == pytest.approx(147.15, abs=5e-3)
+
+
+K, HTOD, DTOD = "raster_kernel", "Memcpy HtoD (Pinned -> Device)", "Memcpy DtoD (Device -> Device)"
+DTOH = "Memcpy DtoH (Device -> Pinned)"
+
+
+@pytest.mark.parametrize("events, want", [
+    # the compute stream (kernels and the copies it runs) outlasts the
+    # device-to-host copies that run beside it
+    ([(K, 1.0, 5.0), (HTOD, 0.5, 1.0), (DTOD, 5.0, 5.5), (DTOH, 5.5, 8.0)],
+     5.0),
+    # the device-to-host copies outlast it
+    ([(K, 1.0, 2.0), (DTOH, 2.0, 6.0), (DTOH, 6.0, 7.5)], 5.5),
+    # what starts before the trace's first frame is left out
+    ([(K, -3.0, -1.0), (K, 1.0, 2.0), (DTOH, -1.0, 0.5)], 1.0),
+    ([], 0.0),
+])
+def test_card_time_is_the_busier_of_compute_and_copy_out(events, want):
+    from benchlib import trace
+
+    assert trace.card_time(events, 0.0) == pytest.approx(want)
+
+
+def test_card_rate_is_stream_frames_over_the_slowest_cards_time():
+    from types import SimpleNamespace
+
+    from benchlib import runner
+
+    rec = SimpleNamespace(steps=[(t, t + 0.1) for t in (-2.0, 1.0, 2.0, 3.0)])
+    events = {0: [(K, 1.0, 1.004), (K, 2.0, 2.004), (K, 3.0, 3.004)],
+              1: [(K, 1.0, 1.005), (K, 2.0, 2.005), (DTOH, 3.0, 3.005)]}
+    stretch = SimpleNamespace(t0=0.0, t1=4.0, done=True, events=events,
+                              devices=["cuda:0", "cuda:1"])
+    # three frames after the trace opened: card 0 12 ms of kernels for
+    # them, card 1 10 ms (its 5 ms copy out runs beside them)
+    assert runner.card_rate(stretch, rec, 64) == pytest.approx(64 * 3 / 0.012)
+    assert runner.card_rate(None, rec, 64) is None
+    assert runner.card_rate(SimpleNamespace(done=False), rec, 64) is None
+    empty = SimpleNamespace(t0=0.0, done=True, events={},
+                            devices=["cuda:0"])
+    assert runner.card_rate(empty, rec, 64) is None

@@ -31,22 +31,30 @@ def test_sound_run_is_correct_and_the_control_is_not(cell):
 @pytest.mark.parametrize("cell", CELLS)
 def test_a_line_carries_the_metrics_its_cell_lists(cell, trace):
     """Untraced, the end-to-end metrics BENCHMARK.json gives the cell and
-    no other; traced, the per-layer ones read on the host, among them the
-    frame's p95 where the cell reads it per layer."""
+    no other, less those of the device trace, which a CPU run has not;
+    traced, the per-layer ones read on the host (a quantity split by
+    cells, ``fetch_ms.fleet``, by its quantity), among them the frame's
+    p95 and the stream-frames a second where the cell reads them per
+    layer."""
     bench = runner.manifest()
     out = helpers.run(cell, trace=trace)
     got = set(out["line"]["metrics"])
     if not trace:
         assert got == {m["name"] for m in bench["end_to_end"]
-                       if cell in m.get("workloads", [cell])}
+                       if cell in m.get("workloads", [cell])
+                       and m["source"] != "device_trace"}
         return
     host = {"loop_self_ms", "snapshot_ms", "step_host_ms", "fetch_ms"}
     listed = {m["name"] for m in bench["per_layer"]
               if cell in m.get("workloads", [cell])}
-    want = host | ({"handoff_p95_ms"} & listed)
+    base = {n.split(".", 1)[0]: n for n in listed}
+    want = {base[q] for q in host | ({"handoff_p95_ms", "stream_frames_per_s"}
+                                     & set(base))}
     assert want <= got <= listed
-    if "handoff_p95_ms" in want:
-        assert 0 < out["line"]["metrics"]["handoff_p95_ms"]["value"] < 1e4
+    values = out["line"]["metrics"]
+    for q in ("handoff_p95_ms", "stream_frames_per_s"):
+        if q in base:
+            assert 0 < values[base[q]]["value"] < 1e6
 
 
 def _fault_state_unchanged(mp):

@@ -56,6 +56,26 @@ def test_metric_finds_its_reader(metric):
     assert set(m.get("workloads", CELLS)) <= set(CELLS)
 
 
+@pytest.mark.parametrize("cell", CELLS)
+def test_each_cell_reports_what_its_per_layer_metrics_move(cell):
+    """A cell reports the set-up time and another end-to-end metric, and
+    every end-to-end metric its per-layer metrics name as the one they
+    move."""
+    e2e = {m["name"] for m in BENCH["end_to_end"]
+           if cell in m.get("workloads", CELLS)}
+    assert "setup_s" in e2e and len(e2e) >= 2
+    for m in BENCH["per_layer"]:
+        if cell in m.get("workloads", CELLS):
+            assert m["moves"] in e2e, (cell, m["name"])
+
+
+def test_a_quantity_split_by_cells_reads_with_its_quantitys_reader():
+    assert (runner.reader("fetch_ms.fleet").__file__
+            == runner.reader("fetch_ms").__file__)
+    with pytest.raises(FileNotFoundError):
+        runner.reader("no_such_metric.fleet")
+
+
 def test_config_files_lie_under_paths_and_differ():
     files = [c["file"] for c in BENCH["configs"]]
     assert len(files) == len(set(files))

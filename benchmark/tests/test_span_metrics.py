@@ -229,7 +229,7 @@ def test_traced_cell_on_the_card_reports_the_spans_on_the_trace_clock(
                          timeout=900)
     assert run.returncode == 0, run.stderr[-3000:]
     res = json.loads(run.stdout.strip().splitlines()[-1])
-    assert set(METRICS) <= set(res["metrics"]), res
+    assert set(METRICS) <= {k.split(".", 1)[0] for k in res["metrics"]}, res
     assert res["frames"] > 0 and res["bursts"] > 0
     assert res["children_over_parent"] == 0
     assert res["before_replay"] == [], res
