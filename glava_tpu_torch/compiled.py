@@ -52,9 +52,11 @@ the same branch overwrites them (``runtime.engine.FrameFetch`` copies a
 frame out before that). A replay adds to each kernel's launch count
 (``ops.fused.launches`` and the others, :data:`COUNTERS`) the launches
 its graph holds; the capture itself launches nothing and counts
-nothing. A failed capture or replay raises: nothing runs the eager step
-in its place. A data-dependent GLSL loop is a conditional while node of
-the graph (``ops.graph_while``).
+nothing. A replay's ``step.replay`` span carries the kernel nodes of
+its graph, counted once from the graph after its capture has ended
+(:func:`graph_kernels`). A failed capture or replay raises: nothing
+runs the eager step in its place. A data-dependent GLSL loop is a
+conditional while node of the graph (``ops.graph_while``).
 
 A user Python module's passes run under a guard in every run of a
 body (:func:`user_pass`): a host read of a tensor's value, or a tensor
@@ -69,6 +71,7 @@ so the next step captures normally (:func:`_capturing`).
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import gc
 import threading
 from typing import Callable
@@ -387,6 +390,46 @@ def hold(obj) -> None:
         step._held[id(obj)] = obj
 
 
+# CUgraphNodeType values (libcuda): a kernel, and the two node types
+# that hold graphs of their own (a child graph, a conditional node)
+_KERNEL_NODE, _CHILD_NODE, _CONDITIONAL_NODE = 0, 4, 13
+_LIBCUDA: dict = {}
+
+
+def _libcuda():
+    if "lib" not in _LIBCUDA:
+        lib = ctypes.CDLL("libcuda.so.1")
+        lib.cuGraphGetNodes.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+            ctypes.POINTER(ctypes.c_size_t)]
+        lib.cuGraphNodeGetType.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+        _LIBCUDA["lib"] = lib
+    return _LIBCUDA["lib"]
+
+
+def graph_kernels(graph: torch.cuda.CUDAGraph) -> int:
+    """The kernel nodes of ``graph``, made with ``keep_graph=True`` and
+    its capture ended: the kernels a replay launches. 0 where the graph
+    holds a node with a graph of its own (a GLSL loop's while node,
+    whose body is not walked) or where libcuda does not say: no
+    count rather than a short one."""
+    lib, handle = _libcuda(), ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t()
+    if lib.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
+        return 0
+    nodes = (ctypes.c_void_p * n.value)()
+    if lib.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
+        return 0
+    kernels, kind = 0, ctypes.c_int()
+    for node in nodes[:n.value]:
+        if (lib.cuGraphNodeGetType(node, ctypes.byref(kind)) != 0
+                or kind.value in (_CHILD_NODE, _CONDITIONAL_NODE)):
+            return 0
+        kernels += kind.value == _KERNEL_NODE
+    return kernels
+
+
 @contextlib.contextmanager
 def _body_of(step, phase: str, pool=None):
     saved = (getattr(_LOCAL, "step", None), getattr(_LOCAL, "phase", None),
@@ -468,7 +511,8 @@ class Step:
         # [pinned staging buffer, the event after its copy, recorded?]
         self._stages: list = []
         self._calls = 0
-        self._graphs: dict = {}   # branch -> (graph, outputs, counts)
+        # branch -> (graph, outputs, counts, its kernel nodes)
+        self._graphs: dict = {}
         self._outs: dict = {}     # branch -> static outputs (CPU)
         self._consts: dict = {}   # const(): key -> [(host value, tensor)]
         self._held: dict = {}     # hold(): what the graphs read elsewhere
@@ -629,12 +673,12 @@ class Step:
             if ts:
                 profiling.end("step.capture", ts)
             return out
-        graph, out, counts = entry
+        graph, out, counts, kernels = entry
         with torch.cuda.device(self.device):
             ts = profiling.begin()
             graph.replay()
             if ts:
-                profiling.end("step.replay", ts)
+                profiling.end("step.replay", ts, kernels)
         _add_counters(counts)
         return out
 
@@ -652,12 +696,15 @@ class Step:
             if self._capture_stream is None:
                 self._capture_stream = torch.cuda.Stream(dev)
             before = read_counters()
-            graph = torch.cuda.CUDAGraph()
+            # kept past the capture's end, so that its nodes can be counted
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
             pool = torch.cuda.graph_pool_handle()
             try:
                 with _no_gc(), _capturing(graph, pool, self._capture_stream), \
                         _body_of(self, "capture", pool):
                     gout = body(branch)
+                kernels = graph_kernels(graph)
+                graph.instantiate()
             except RuntimeError as e:
                 free, total = torch.cuda.mem_get_info(dev)
                 raise RuntimeError(
@@ -667,6 +714,6 @@ class Step:
                     f"reserved): {e}") from e
             counts = _counter_delta(before, read_counters())
             _restore_counters(before)
-        self._graphs[branch] = (graph, gout, counts)
+        self._graphs[branch] = (graph, gout, counts, kernels)
         self.captures += 1
         return out

@@ -39,6 +39,7 @@ from glava_tpu_torch.config.glsl_shader import (
 from glava_tpu_torch.ops import smoothing
 from glava_tpu_torch.render import base
 from glava_tpu_torch.render.modules import _REGISTRY
+from glava_tpu_torch.utils import profiling
 
 TWOPI = 6.28318530718
 PI = 3.14159265359
@@ -211,6 +212,14 @@ def _build(name: str, files: list[Path], ctx: base.ModuleContext,
         def make_pass(program=program, parsed=parsed, defines=defines,
                       x2d=x2d, y2d=y2d):
             def pass_fn(inputs: base.PassInputs):
+                # a span a pass (utils/profiling.py)
+                ts = profiling.begin()
+                out = run_pass(inputs)
+                if ts:
+                    profiling.end("shader.pass", ts)
+                return out
+
+            def run_pass(inputs: base.PassInputs):
                 variables = dict(ctx.env.variables)
                 for src, uname in parsed.uniforms:
                     if src in ("audio_l", "audio_r"):

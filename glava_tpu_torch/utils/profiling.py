@@ -25,8 +25,13 @@ parent in this tree::
     │  │  │              the host-to-device copy's enqueue; payload: bytes staged
     │  │  └─ step.stage_wait  the wait for a staging buffer's last copy,
     │  │                 only when it waits (never on the CPU)
-    │  ├─ step.replay    the graph's replay (on the CPU: the body's eager run)
+    │  ├─ step.replay    the graph's replay (on the CPU: the body's eager run);
+    │  │  │              payload: the graph's kernel nodes (0 on the CPU,
+    │  │  │              and for a graph that holds a GLSL loop)
+    │  │  └─ shader.pass one interpreted GLSL pass (render/modules/
+    │  │                 glsl_module.py), on the CPU
     │  └─ step.capture   a branch's warm-up and capture
+    │     └─ shader.pass each interpreted pass of both
     ├─ fetch             FrameFetch.push, drain, and ready when it hands a
     │  │                 frame out; FleetEngine.fetch's copy at once (a
     │  │                 fleet run's frames go through FrameFetch)

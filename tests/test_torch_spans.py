@@ -24,12 +24,14 @@ from tests.test_glsl_shader import EQ_FRAG
 
 REQS = ("setgeometry 0 0 48 32", "setprintframes false", "setbufsize 1024",
         "setsamplesize 256")
-# each kind's parent (utils/profiling.py's tree)
+# each kind's parent, or the kinds one of which is its parent
+# (utils/profiling.py's tree)
 PARENT = {"snapshot": "frame", "step": "frame", "fetch": "frame",
           "sink": "frame", "fuel": "frame", "step.load": "step",
           "step.stage_wait": "step.load", "step.replay": "step",
           "step.capture": "step", "fetch.copy": "fetch",
-          "fetch.wait": "fetch"}
+          "fetch.wait": "fetch",
+          "shader.pass": ("step.replay", "step.capture")}
 KINDS = {"frame", *PARENT}
 
 
@@ -82,8 +84,12 @@ def _assert_tree(spans):
             for s in group:
                 assert fr.start <= s.start <= s.end <= fr.end, (key, s)
                 if kind != "frame":
+                    parents = PARENT[kind]
+                    if isinstance(parents, str):
+                        parents = (parents,)
                     assert any(p.start <= s.start and s.end <= p.end
-                               for p in kinds.get(PARENT[kind], ())), (key, s)
+                               for k in parents
+                               for p in kinds.get(k, ())), (key, s)
 
 
 def test_recording_is_off_without_a_session(fresh):
